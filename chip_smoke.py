@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
-``build/kernels/``), then:
+``build/kernels/``, one ``nvcc`` per source, all at once), then:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions and the kernel build time;
@@ -16,18 +16,37 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
 4. runs the main path — ``sample_sonar_euler_ancestral`` with the default
    SonarConfig and gaussian noise, 20 Karras steps (14.6 → 0.03, then 0) on
    a 1×4×64×64 latent, through the flagship ``UNetConfig()`` with random
-   weights from a seed — and checks that it launched each kernel once per
-   step; then runs one injected noise stream through the kernel path and
-   through the plain path (composed momentum step, plain scale_noise), TF32
-   off, and compares the trajectories;
-5. times both paths end to end and each kernel against its plain version
-   with CUDA events.
+   weights from a seed — and checks that it launched B1, B2 and B3 (the
+   Philox gaussian) once per step; then runs one injected noise stream
+   through the kernel path and through the plain path (composed momentum
+   step, plain scale_noise), TF32 off, and compares the trajectories;
+5. times both paths end to end and B1 and B2 against their plain versions
+   with CUDA events;
+6. holds kernel B3 (Philox4x32-10 Box-Muller) against its plain version:
+   uniforms bit for bit, normals within 2e-6, on a ragged shape and on more
+   than 2**24 elements, two calls equal, seeds distinct, and the moments;
+7. holds kernel B4 (upscale pyramid) against its plain version on the
+   64×64, 512×512 and a ragged ladder in five modes, base drawn in-kernel
+   (same seed) and given;
+8. holds kernel B5 (downscale ladders) against its plain version on the
+   highres_pyramid and pyramid_old ladders, with and without a base, fields
+   drawn in-kernel and given;
+9. runs the pyramid path — the sampler of phase 4 with
+   ``SonarConfig(noise_type="pyramid")`` — and checks its launches (B3 once
+   per small level and step, B4 once per step), then highres_pyramid and
+   pyramid_old at 5 steps (B5 once per step); checks that one seed gives the
+   same noise on the CPU (plain versions) and on the card (kernels) for
+   gaussian and the three pyramids; and compares the pyramid path with the
+   same sampler fed the plain versions' draws, TF32 off;
+10. times the pyramid path, pyramid noise throughput, and B3, B4 and B5
+   against their plain versions and the composed paths.
 
 Every phase passes or the script exits non-zero without a result. The last
 line is ``{"ok": true, "device": {...}}``. It needs one CUDA device and no
 network, and imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -38,11 +57,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 STEPS = 20
+SHORT_STEPS = 5
 SHAPE = (1, 4, 64, 64)
 B1_SHAPES = [(1, 4, 64, 64), (4, 4, 128, 128), (1, 4, 67, 61), (1, 3, 67, 61)]
 B2_SHAPES = [(1, 4, 64, 64), (4, 4, 128, 128), (1, 4, 67, 61), (1, 4, 2304, 2048)]
+B3_SHAPES = [(1, 4, 64, 64), (1, 4, 67, 61), (1, 4, 2304, 2048)]
+B3_SEEDS = [(0, 0), (7, 0), (2**40 + 3, 5)]  # (seed, stream)
+PYR_HW = [(64, 64), (512, 512), (67, 61)]
+DOWN_HW = [(64, 64), (128, 128), (67, 61)]
 B1_TOL = 1e-6  # relative to max(1, |plain|): elementwise, same order of operations
 B2_TOL = 1e-5  # relative to max(1, |plain|): mean/std summed in another order
+B3_TOL = 2e-6  # absolute on normals up to ~5.7: libdevice vs host log/cos/sin ulps
+PYR_TOL = 1e-5  # relative to max(1, |plain|): B4 sums in another order, B3's ulps
+XDEV_TOL = 1e-5  # relative to max(1, |cpu|): one seed, CPU plain vs card kernels
 TRAJ_TOL = 1e-4  # relative to max |trajectory|, TF32 off on both paths
 
 
@@ -57,7 +84,7 @@ def need(cond, msg: str):
 
 
 def rel_err(a, b):
-    err = float((a.double() - b.double()).abs().max())
+    err = float((a.double() - b.double().to(a.device)).abs().max())
     return err, err / max(1.0, float(b.double().abs().max()))
 
 
@@ -68,8 +95,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_sigmas(torch):
-    ramp = torch.linspace(0, 1, STEPS, dtype=torch.float64)
+def bench_sigmas(torch, steps=STEPS):
+    ramp = torch.linspace(0, 1, steps, dtype=torch.float64)
     s = (14.6 ** (1 / 7.0) + ramp * (0.03 ** (1 / 7.0) - 14.6 ** (1 / 7.0))) ** 7.0
     return torch.cat([s, torch.zeros(1, dtype=torch.float64)]).float()
 
@@ -88,7 +115,7 @@ def cuda_ms(torch, fn, iters: int) -> float:
 
 
 def device_us(torch, fn, iters: int):
-    """Mean device time per call in µs: the summed duration of the GPU
+    """Mean device time per call in µs, summed and by kernel name: the GPU
     kernels ``fn`` launches, from torch.profiler (None if it saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -100,8 +127,29 @@ def device_us(torch, fn, iters: int):
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        return None
-    return sum(e.time_range.end - e.time_range.start for e in kernels) / iters
+        return None, {}
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    return (sum(by_name.values()) / iters,
+            {k: v / iters for k, v in by_name.items()})
+
+
+def fmt_us(v):
+    return "not measured" if v is None else f"{v:.2f} us"
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """Swap module attributes for the block (plain versions, composed paths)."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
 
 
 def main():
@@ -109,15 +157,51 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    import sonar_tpu_torch.core.normalize as N
     import sonar_tpu_torch.kernels.fused as F
+    import sonar_tpu_torch.kernels.fused_pyramid as P
+    import sonar_tpu_torch.noise.generators as G
+    from sonar_tpu_torch.core.rng import derive_seed, seed_from
     from sonar_tpu_torch.kernels import _build
+    from sonar_tpu_torch.kernels import hwrng as H
     from sonar_tpu_torch.models import UNetConfig, init_unet_params, make_denoiser
+    from sonar_tpu_torch.noise import NoiseCtx, get_noise_item, make_noise_sampler
     from sonar_tpu_torch.samplers import sample_sonar_euler_ancestral
+    from sonar_tpu_torch.samplers.momentum import SonarConfig
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = card_line()
     name = torch.cuda.get_device_name(0)
+    counters = {"B1": [F.fused_momentum_step], "B2": [F.fused_scale_noise],
+                "B3": [H.philox_randn, H.philox_rand],
+                "B4": [P.fused_pyramid, P.fused_pyramid_accumulate],
+                "B5": [P.fused_downscale_pyramid, P.fused_downscale_accumulate]}
+
+    def reset_counts():
+        for fns in counters.values():
+            for f in fns:
+                f.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {k: sum(f.launches for f in fns) for k, fns in counters.items()}
+
+    def plain_versions():
+        """The generators and scale_noise on their plain versions (on the card)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(patched(
+            G, philox_randn=H.philox_randn_reference, philox_rand=H.philox_rand_reference,
+            fused_pyramid=P.fused_pyramid_reference,
+            fused_downscale_pyramid=P.fused_downscale_pyramid_reference))
+        stack.enter_context(patched(N, fused_scale_noise=F.fused_scale_noise_reference))
+        return stack
+
+    def composed_path():
+        """The generators with the kernel gates closed: Philox levels through
+        scale_samples, the oversized levels built."""
+        never = lambda *a: False  # noqa: E731
+        return patched(G, fused_pyramid_supported=never, fused_downscale_supported=never)
 
     # -- phase 1: card, versions, build ---------------------------------------
     print(f"[1] card: {card}")
@@ -127,7 +211,8 @@ def main():
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    print(f"[1] kernels: {_build.library_path().relative_to(ROOT)} "
+    print(f"[1] kernels: {_build.library_path().relative_to(ROOT)} from "
+          f"{[s for s in _build.SOURCES if s.endswith('.cu')]} "
           f"({'found built' if prebuilt else 'built'} in {build_s:.2f} s)")
     log = (_build.library_path().parent / "build.log")
     if log.exists():
@@ -217,11 +302,9 @@ def main():
     def headline(**kw):
         return sample_sonar_euler_ancestral(denoiser, x0, sigmas, seed=7, **kw)
 
-    F.fused_momentum_step.launches = 0
-    F.fused_scale_noise.launches = 0
+    reset_counts()
     out = headline()
-    torch.cuda.synchronize()
-    launches = {"B1": F.fused_momentum_step.launches, "B2": F.fused_scale_noise.launches}
+    launches = read_counts()
     need(out.is_cuda and out.shape == SHAPE and out.dtype == torch.float32,
          f"headline output malformed: {out.shape} {out.dtype} {out.device}")
     need(bool(torch.isfinite(out).all()), "headline output is not finite")
@@ -230,10 +313,9 @@ def main():
     # so the latent keeps roughly its starting scale sigma_0 = 14.6
     need(1.0 < std < 100.0, f"headline output std {std} implausible")
     print(f"[4] headline: UNetConfig() {SHAPE}, {STEPS} steps, seed 7: output std "
-          f"{std:.4f}, mean {float(out.mean()):.4f}; launches B1={launches['B1']} "
-          f"B2={launches['B2']}")
-    need(launches == {"B1": STEPS, "B2": STEPS},
-         f"expected {STEPS} launches of each kernel, got {launches}")
+          f"{std:.4f}, mean {float(out.mean()):.4f}; launches {launches}")
+    need(launches == {"B1": STEPS, "B2": STEPS, "B3": STEPS, "B4": 0, "B5": 0},
+         f"expected {STEPS} launches of B1, B2 and B3, got {launches}")
     repeat = headline()
     need(torch.equal(out, repeat), "headline is not reproducible for one seed")
 
@@ -293,10 +375,9 @@ def main():
            "B2": (lambda: F.fused_scale_noise(draw),
                   lambda: F.fused_scale_noise_reference(draw))}
     for k, (kf, pf) in fns.items():
-        kd, pd = device_us(torch, kf, 50), device_us(torch, pf, 50)
-        fmt = lambda v: "not measured" if v is None else f"{v:.2f} us"  # noqa: E731
+        kd, pd = device_us(torch, kf, 50)[0], device_us(torch, pf, 50)[0]
         print(f"[5] {k} at {SHAPE}: device time per call (torch.profiler, summed "
-              f"kernels): kernel {fmt(kd)}, plain {fmt(pd)} [{card}]")
+              f"kernels): kernel {fmt_us(kd)}, plain {fmt_us(pd)} [{card}]")
     big = [randn((4, 4, 128, 128)) for _ in range(4)]
     b1_big = cuda_ms(torch, lambda: F.fused_momentum_step(*big, scal), 200)
     gbs = 24 * big[0].numel() / (b1_big / 1000) / 1e9
@@ -308,16 +389,311 @@ def main():
     print(f"[5] B2 at {B2_SHAPES[-1]}: kernel {b2_big * 1000:.1f} us/call "
           f"({16 * large.numel() / (b2_big / 1000) / 1e9:.0f} GB/s at 16 B/element), "
           f"plain {b2_plain_big * 1000:.1f} us/call [{card}]")
+    del big, large
 
-    src = "sonar_tpu_torch/csrc/fused.cu"
+    # -- phase 6: B3 against its plain version --------------------------------
+    b3_err = 0.0
+    for shape in B3_SHAPES:
+        firsts = []
+        for seed, stream in B3_SEEDS:
+            u = H.philox_rand(seed, shape, device=dev, stream=stream)
+            ur = H.philox_rand_reference(seed, shape, device=dev, stream=stream)
+            z = H.philox_randn(seed, shape, device=dev, stream=stream)
+            zr = H.philox_randn_reference(seed, shape, device=dev, stream=stream)
+            again = H.philox_randn(seed, shape, device=dev, stream=stream)
+            torch.cuda.synchronize()
+            need(z.shape == shape and z.dtype == torch.float32 and z.is_cuda,
+                 "B3 output malformed")
+            need(torch.equal(u, ur), f"B3 {shape} seed {seed}: uniforms not bitwise equal")
+            need(bool(((u >= 0) & (u < 1)).all()), f"B3 {shape}: uniform out of [0, 1)")
+            err = float((z - zr).abs().max())
+            b3_err = max(b3_err, err)
+            need(err <= B3_TOL, f"B3 {shape} seed {seed}: normals differ by {err:.3e}")
+            need(torch.equal(z, again), f"B3 {shape} seed {seed}: two calls differ")
+            firsts.append(z)
+        need(all(not torch.equal(a, b) for i, a in enumerate(firsts) for b in firsts[i + 1:]),
+             f"B3 {shape}: two seeds gave equal draws")
+        print(f"[6] B3 philox {shape} ({firsts[0].numel()} elements), seeds "
+              f"{B3_SEEDS}: uniforms bitwise equal, normals agree, calls repeat")
+    z = firsts[0].double()
+    mean, sd = float(z.mean()), float(z.std())
+    kurt = float(((z - z.mean()) ** 4).mean() / z.var() ** 2)
+    print(f"[6] B3 moments of {z.numel()} draws: mean {mean:.2e}, std {sd:.6f}, "
+          f"kurtosis {kurt:.5f}")
+    need(abs(mean) < 1e-3 and abs(sd - 1) < 1e-3 and abs(kurt - 3) < 1e-2,
+         "B3 moments off")
+    print(f"[6] B3 philox_randn vs plain: max abs err {b3_err:.3e} (tolerance "
+          f"{B3_TOL:g} absolute)")
+    del z, firsts, u, ur, zr, again
+
+    # -- phase 7: B4 against its plain version --------------------------------
+    b4_err = 0.0
+    for hw in PYR_HW:
+        sizes = G._size_ladder_pyramid(*hw, 10, 0)
+        shape = (1, 4, *hw)
+        disc = [0.7**i for i in range(1, len(sizes))]
+        base = randn((4, *hw))
+        smalls = [randn((4, sh, sw)) for sh, sw in sizes[1:]]
+        for mode in P.UP_MODES:
+            for what, out, ref in (
+                    ("gen_base", P.fused_pyramid(11, shape, sizes, 0.7, mode, device=dev),
+                     P.fused_pyramid_reference(11, shape, sizes, 0.7, mode, device=dev)),
+                    ("given base", P.fused_pyramid_accumulate(base, smalls, disc, mode),
+                     P.fused_pyramid_accumulate_reference(base, smalls, disc, mode))):
+                torch.cuda.synchronize()
+                need(bool(torch.isfinite(out).all()), f"B4 {hw} {mode}: non-finite")
+                err, rel = rel_err(out, ref)
+                b4_err = max(b4_err, err)
+                need(rel <= PYR_TOL, f"B4 {hw} {mode} {what}: rel err {rel:.3e}")
+        print(f"[7] B4 pyramid {hw} ladder {sizes}: {len(P.UP_MODES)} modes, in-kernel "
+              f"and given base agree")
+    print(f"[7] B4 fused_pyramid vs plain: max abs err {b4_err:.3e} (tolerance "
+          f"{PYR_TOL:g} x max(1,|plain|), matmul TF32 off)")
+
+    # -- phase 8: B5 against its plain version --------------------------------
+    b5_err, skipped = 0.0, []
+    for hw in DOWN_HW:
+        shape = (1, 4, *hw)
+        hi = G._size_ladder_highres(*hw, 4, 0)
+        ladders = {
+            "highres_pyramid": (hi, [0.7**i for i in range(len(hi))]),
+            "pyramid_old": ([(hw[0] * 2 ** (i + 1), hw[1] * 2 ** (i + 1)) for i in range(5)],
+                            [(0.5**i) * 0.8**i for i in range(5)]),
+        }
+        base = randn(shape)
+        for lname, (sizes, coefs) in ladders.items():
+            gs = [randn((4, 4, *hw)) for _ in sizes]
+            for mode in P.DOWN_MODES:
+                if not P.fused_downscale_supported(sizes, *hw, mode):
+                    skipped.append((hw, lname, mode))
+                    continue
+                cases = [
+                    (f"gen, base {b is not None}",
+                     P.fused_downscale_pyramid(13, shape, sizes, coefs, mode, base=b,
+                                               device=dev),
+                     P.fused_downscale_pyramid_reference(13, shape, sizes, coefs, mode,
+                                                         base=b, device=dev))
+                    for b in (None, base)]
+                cases.append(("given fields",
+                              P.fused_downscale_accumulate(gs, hw, sizes, coefs, mode,
+                                                           base=base[0]),
+                              P.fused_downscale_accumulate_reference(gs, hw, sizes, coefs,
+                                                                     mode, base=base[0])))
+                for what, out, ref in cases:
+                    torch.cuda.synchronize()
+                    need(bool(torch.isfinite(out).all()), f"B5 {hw} {mode}: non-finite")
+                    err, rel = rel_err(out, ref)
+                    b5_err = max(b5_err, err)
+                    need(rel <= PYR_TOL, f"B5 {hw} {lname} {mode} {what}: rel err {rel:.3e}")
+        print(f"[8] B5 {hw}: highres ladder {hi} and the pyramid_old ladder agree")
+    print(f"[8] B5 not run where the gate is closed (composed path): {skipped}")
+    print(f"[8] B5 fused_downscale_pyramid vs plain: max abs err {b5_err:.3e} "
+          f"(tolerance {PYR_TOL:g} x max(1,|plain|))")
+
+    # -- phase 9: the pyramid path --------------------------------------------
+    pyr_cfg = SonarConfig(noise_type="pyramid")
+    ladder = G._size_ladder_pyramid(SHAPE[2], SHAPE[3], 10, 0)
+    reset_counts()
+    pout = headline(sonar_config=pyr_cfg)
+    path_launches = read_counts()
+    need(pout.is_cuda and pout.shape == SHAPE and bool(torch.isfinite(pout).all()),
+         "pyramid path output malformed or not finite")
+    pstd = float(pout.std())
+    need(1.0 < pstd < 100.0, f"pyramid path output std {pstd} implausible")
+    want = {"B1": STEPS, "B2": STEPS, "B3": STEPS * (len(ladder) - 1), "B4": STEPS, "B5": 0}
+    print(f"[9] pyramid path: UNetConfig() {SHAPE}, {STEPS} steps, seed 7, ladder "
+          f"{ladder}: output std {pstd:.4f}; launches {path_launches}")
+    need(path_launches == want, f"pyramid path: expected launches {want}")
+    need(torch.equal(pout, headline(sonar_config=pyr_cfg)), "pyramid path not reproducible")
+    need(not torch.equal(pout, out), "pyramid path equals the gaussian headline")
+    short = bench_sigmas(torch, SHORT_STEPS)
+    down_launches = {}
+    for nt in ("highres_pyramid", "pyramid_old"):
+        reset_counts()
+        o = sample_sonar_euler_ancestral(denoiser, x0, short, seed=7,
+                                         sonar_config=SonarConfig(noise_type=nt))
+        c = down_launches[nt] = read_counts()
+        need(bool(torch.isfinite(o).all()), f"{nt} path not finite")
+        print(f"[9] {nt} path: {SHORT_STEPS} steps, output std {float(o.std()):.4f}; "
+              f"launches {c}")
+        need(c["B5"] == SHORT_STEPS and c["B1"] == SHORT_STEPS and c["B4"] == 0,
+             f"{nt}: expected {SHORT_STEPS} launches of B5 and B1, got {c}")
+
+    for nt in ("gaussian", "pyramid", "highres_pyramid", "pyramid_old"):
+        kw = dict(seed=1234, sigma_min=0.03, sigma_max=14.6, normalized=True)
+        cfn, cst = make_noise_sampler(get_noise_item(nt), SHAPE, device="cpu", **kw)
+        gfn, gst = make_noise_sampler(get_noise_item(nt), SHAPE, device=dev, **kw)
+        worst = 0.0
+        for _ in range(3):
+            a, cst = cfn(cst, 1.0, 0.9)
+            b, gst = gfn(gst, 1.0, 0.9)
+            need(a.device.type == "cpu" and b.is_cuda, f"{nt}: draws on the wrong device")
+            _, rel = rel_err(b, a)
+            worst = max(worst, rel)
+        print(f"[9] {nt}: seed 1234, 3 draws, CPU (plain) vs card (kernels): max rel "
+              f"diff {worst:.3e} (tolerance {XDEV_TOL:g})")
+        need(worst <= XDEV_TOL, f"{nt}: CPU and card streams differ ({worst:.3e})")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with plain_versions():
+        nfn, nst = make_noise_sampler(
+            get_noise_item("pyramid"), SHAPE, dtype=torch.float32, device=dev,
+            sigma_min=float(sigmas[sigmas > 0].min()), sigma_max=float(sigmas.max()),
+            seed=derive_seed(seed_from(7), "noise"), normalized=True, ref_latent=x0)
+        sl = sigmas.tolist()
+        pdraws = []
+        for i in range(STEPS):
+            d, nst = nfn(nst, sl[i], sl[i + 1])
+            pdraws.append(d)
+    kern = headline(sonar_config=pyr_cfg)
+    plain = sample_sonar_euler_ancestral(denoiser, x0, sigmas, use_fused=False,
+                                         noise_sampler=lambda i, s, sn: pdraws[i])
+    torch.cuda.synchronize()
+    err, rel = rel_err(kern, plain)
+    print(f"[9] pyramid path (kernels) vs the sampler fed the plain versions' draws "
+          f"(plain momentum step), TF32 off: max abs diff {err:.3e}, max rel diff "
+          f"{rel:.3e} (tolerance {TRAJ_TOL:g})")
+    need(rel <= TRAJ_TOL, f"pyramid trajectories differ: {rel:.3e}")
+    torch.backends.cudnn.allow_tf32 = True
+
+    # -- phase 10: timing -------------------------------------------------------
+    print(f"[10] timing on {card} (cudnn TF32 on, matmul TF32 off)")
+    runs = {"gaussian": lambda: headline(), "pyramid": lambda: headline(sonar_config=pyr_cfg)}
+    ms = {"gaussian": [], "pyramid": []}
+    for which in ("gaussian", "pyramid", "pyramid", "gaussian"):
+        ms[which].append(cuda_ms(torch, runs[which], 3))
+    sps = {k: STEPS / (sum(v) / len(v) / 1000.0) for k, v in ms.items()}
+    print(f"[10] steps/s: pyramid path {sps['pyramid']:.2f} (runs "
+          f"{[round(v, 3) for v in ms['pyramid']]} ms), gaussian headline "
+          f"{sps['gaussian']:.2f} (runs {[round(v, 3) for v in ms['gaussian']]} ms) [{card}]")
+
+    def draws(nt, shape, iters):
+        fn, st = make_noise_sampler(get_noise_item(nt), shape, device=dev, seed=3,
+                                    sigma_min=0.03, sigma_max=14.6)
+
+        def run():
+            s = st
+            for _ in range(iters):
+                _, s = fn(s, 1.0, 0.9)
+
+        return run
+
+    mshape, miters = (1, 4, 128, 128), 50
+    mpix = {}
+    for which in ("kernel", "composed", "composed", "kernel"):
+        with composed_path() if which == "composed" else contextlib.nullcontext():
+            t = cuda_ms(torch, draws("pyramid", mshape, miters), 3)
+        mpix.setdefault(which, []).append(65536 * miters / (t / 1000) / 1e6)
+    print(f"[10] pyramid noise at {mshape}, {miters} draws (normalized): kernel path "
+          f"{[round(v, 1) for v in mpix['kernel']]} Mpix/s, composed path "
+          f"{[round(v, 1) for v in mpix['composed']]} Mpix/s [{card}]")
+
+    def generate(nt, shape):
+        g, ctx = get_noise_item(nt), NoiseCtx(shape=shape, device=dev)
+        st = g.init_state(ctx, 1)
+        return lambda: g.generate(ctx, st, 99, 1.0, 0.9)
+
+    def composed(fn):
+        def run():
+            with composed_path():
+                fn()
+        return run
+
+    bshape = (4, 4, 512, 512)
+    blad = G._size_ladder_pyramid(512, 512, 10, 0)
+    b4 = {"kernel": cuda_ms(torch, lambda: P.fused_pyramid(5, bshape, blad, 0.7,
+                                                           device=dev), 20),
+          "plain": cuda_ms(torch, lambda: P.fused_pyramid_reference(5, bshape, blad, 0.7,
+                                                                    device=dev), 20),
+          "composed": cuda_ms(torch, composed(generate("pyramid", bshape)), 20)}
+    print(f"[10] pyramid draw at {bshape} (B3 small levels + B4): kernel "
+          f"{b4['kernel'] * 1000:.1f} us, plain {b4['plain'] * 1000:.1f} us, composed "
+          f"path {b4['composed'] * 1000:.1f} us per draw [{card}]")
+    # what sets B4's time here: its dense fp32 products or its launches
+    _, by = device_us(torch, lambda: P.fused_pyramid(5, bshape, blad, 0.7, device=dev), 10)
+    up = sum(v for k, v in by.items() if "pyramid_up_kernel" in k)
+    ph = sum(v for k, v in by.items() if "philox_fill_kernel" in k)
+    cd, _ = device_us(torch, composed(generate("pyramid", bshape)), 10)
+    bc, h, w = bshape[0] * bshape[1], bshape[2], bshape[3]
+    macs = bc * (h * sum(sh * sw for sh, sw in blad[1:]) + h * w * sum(sw for _, sw in blad[1:]))
+    rate = f"{2 * macs / (up * 1e-6) / 1e12:.2f} TFLOP/s" if up else "rate not measured"
+    print(f"[10] pyramid draw at {bshape}, device time: B4 {up:.1f} us for {macs / 1e9:.3f} G "
+          f"dense fp32 multiply-adds ({rate}; H100 SXM fp32 peak 67), "
+          f"{len(blad) - 1} B3 launches {ph:.1f} us; composed path {fmt_us(cd)} [{card}]")
+    dshape = (1, 4, 128, 128)
+    dbase = randn(dshape)
+    hl = G._size_ladder_highres(128, 128, 4, 0)
+    old = [(128 * 2 ** (i + 1),) * 2 for i in range(5)]
+    b5_cases = {
+        "pyramid_old": (old, [(0.5**i) * 0.8**i for i in range(5)], "nearest-exact", None),
+        "highres_pyramid": (hl, [0.7**i for i in range(len(hl))], "bilinear", dbase),
+    }
+    for nt, (sz, cf, mode, b) in b5_cases.items():
+        k = cuda_ms(torch, lambda: P.fused_downscale_pyramid(5, dshape, sz, cf, mode, base=b,
+                                                             device=dev), 50)
+        p = cuda_ms(torch, lambda: P.fused_downscale_pyramid_reference(
+            5, dshape, sz, cf, mode, base=b, device=dev), 50)
+        c = cuda_ms(torch, composed(generate(nt, dshape)), 5)
+        print(f"[10] B5 {nt} at {dshape}, ladder {sz}: kernel {k * 1000:.1f} us, plain "
+              f"{p * 1000:.1f} us, composed path (oversized levels built) "
+              f"{c * 1000:.1f} us per draw [{card}]")
+    lshape = B3_SHAPES[-1]
+    b3 = {"kernel": cuda_ms(torch, lambda: H.philox_randn(5, lshape, device=dev), 20),
+          "plain": cuda_ms(torch, lambda: H.philox_randn_reference(5, lshape, device=dev), 20),
+          "torch.randn": cuda_ms(torch, lambda: torch.randn(lshape, device=dev), 20)}
+    n = 1
+    for d in lshape:
+        n *= d
+    print(f"[10] B3 at {lshape} ({n} elements): kernel {b3['kernel'] * 1000:.1f} us "
+          f"({4 * n / (b3['kernel'] / 1000) / 1e9:.0f} GB/s written), plain "
+          f"{b3['plain'] * 1000:.1f} us, torch.randn {b3['torch.randn'] * 1000:.1f} us "
+          f"[{card}]")
+
+    # the path's calls at its shape: events (host cost included) and device time
+    hl64 = G._size_ladder_highres(*SHAPE[2:], 4, 0)
+    hc64 = [0.7**i for i in range(len(hl64))]
+    pbase = randn(SHAPE)
+    path_fns = {
+        "B3": (lambda: H.philox_randn(5, SHAPE, device=dev),
+               lambda: H.philox_randn_reference(5, SHAPE, device=dev)),
+        "B4": (lambda: P.fused_pyramid(5, SHAPE, ladder, 0.7, device=dev),
+               lambda: P.fused_pyramid_reference(5, SHAPE, ladder, 0.7, device=dev)),
+        "B5": (lambda: P.fused_downscale_pyramid(5, SHAPE, hl64, hc64, base=pbase,
+                                                 device=dev),
+               lambda: P.fused_downscale_pyramid_reference(5, SHAPE, hl64, hc64,
+                                                           base=pbase, device=dev)),
+    }
+    for k, (kf, pf) in path_fns.items():
+        timing[k] = (cuda_ms(torch, kf, 200), cuda_ms(torch, pf, 200))
+        (kd, kby), (pd, _) = device_us(torch, kf, 50), device_us(torch, pf, 50)
+        by = ", ".join(f"{n_}: {v:.2f} us" for n_, v in sorted(kby.items()))
+        print(f"[10] {k} at {SHAPE} as the path calls it: kernel "
+              f"{timing[k][0] * 1000:.2f} us/call, plain {timing[k][1] * 1000:.2f} "
+              f"us/call (events, host cost included); device time kernel {fmt_us(kd)} "
+              f"({by}), plain {fmt_us(pd)} [{card}]")
+
+    src = "sonar_tpu_torch/csrc/"
+    rows = [
+        ("fused_momentum_step", "fused.cu", "sonar_tpu/kernels/fused.py:68",
+         launches["B1"], b1_err, "B1"),
+        ("fused_scale_noise", "fused.cu", "sonar_tpu/kernels/fused.py:173",
+         launches["B2"], b2_err, "B2"),
+        ("philox_randn", "hwrng.cu", "sonar_tpu/kernels/hwrng.py:63",
+         path_launches["B3"], b3_err, "B3"),
+        ("fused_pyramid", "fused_pyramid.cu", "sonar_tpu/kernels/fused_pyramid.py:100",
+         path_launches["B4"], b4_err, "B4"),
+        ("fused_downscale_pyramid", "fused_pyramid.cu",
+         "sonar_tpu/kernels/fused_pyramid.py:264",
+         sum(c["B5"] for c in down_launches.values()), b5_err, "B5"),
+    ]
+    for kname, _, _, n_launch, _, _ in rows:
+        need(n_launch > 0, f"{kname} was not launched on its path")
     print(json.dumps({"kernels": [
-        {"name": "fused_momentum_step", "route": "cuda", "source": src,
-         "replaces": "sonar_tpu/kernels/fused.py:68", "launches": launches["B1"],
-         "max_abs_err": b1_err, "ms": timing["B1"][0], "plain_ms": timing["B1"][1]},
-        {"name": "fused_scale_noise", "route": "cuda", "source": src,
-         "replaces": "sonar_tpu/kernels/fused.py:173", "launches": launches["B2"],
-         "max_abs_err": b2_err, "ms": timing["B2"][0], "plain_ms": timing["B2"][1]},
-    ]}))
+        {"name": kname, "route": "cuda", "source": src + f, "replaces": rep,
+         "launches": n_launch, "max_abs_err": e, "ms": timing[k][0],
+         "plain_ms": timing[k][1]}
+        for kname, f, rep, n_launch, e, k in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -2,9 +2,10 @@
 H100.
 
 Same subpackages and module names as ``sonar_tpu``, PyTorch idiom inside:
-plain functions on tensors, ``nn.Module`` for the UNet, an explicit device,
-explicit ``torch.Generator``s. The hot elementwise passes are hand-written
-CUDA kernels (``kernels``), compiled at first use.
+plain functions on tensors, ``nn.Module`` for the UNet, explicit devices,
+no global RNG state (every noise draw is a counter-based
+Philox stream, the same on the CPU and the card). The hot passes are
+hand-written CUDA kernels (``kernels``), compiled at first use.
 
 Importing the package imports no subpackage: each loads on first attribute
 access, so ``import sonar_tpu_torch`` pulls in neither JAX (never used
@@ -15,7 +16,7 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("core", "kernels", "models", "noise", "samplers")
+_SUBPACKAGES = ("core", "kernels", "models", "noise", "ops", "samplers")
 
 
 def __getattr__(name):

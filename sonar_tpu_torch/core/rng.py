@@ -3,11 +3,18 @@
 JAX derives independent streams by folding a path into a threefry key. The
 port does the same with plain integers: :func:`derive_seed` folds a path of
 ints and strings (strings by crc32, as in JAX) into a 64-bit seed, and each
-draw seeds its own ``torch.Generator`` from (seed, path, draw counter).
-There is no global RNG state, and the counter lives in the caller's state,
-so a run that stops and resumes draws exactly what an uninterrupted run
-draws. Torch's Philox does not reproduce threefry's bits: the port's streams
-are its own, deterministic per seed on one device type.
+draw's seed comes from (seed, path, draw counter). There is no global RNG
+state, and the counter lives in the caller's state, so a run that stops and
+resumes draws exactly what an uninterrupted run draws.
+
+Every gaussian and uniform draw turns its seed into noise through one
+counter-based stream, Philox4x32-10 with Box-Muller
+(:mod:`sonar_tpu_torch.kernels.hwrng`): a CUDA kernel on the card and the
+same integer arithmetic in plain PyTorch on the CPU. So, as in the JAX
+package, noise streams are identical across devices: the same seed gives
+the same noise on the CPU and on the card (the uniforms bit for bit, the
+normals to a few ulps of log/cos/sin). The port's streams are its own:
+Philox does not reproduce threefry's bits.
 
 Student-t (``studentt_polar``, ``draw_t``) is not ported yet.
 """
@@ -15,8 +22,6 @@ Student-t (``studentt_polar``, ``draw_t``) is not ported yet.
 from __future__ import annotations
 
 import zlib
-
-import torch
 
 _MASK64 = (1 << 64) - 1
 
@@ -45,11 +50,3 @@ def derive_seed(seed: int, *path: int | str) -> int:
             p = zlib.crc32(p.encode("utf-8"))
         s = _mix64(s ^ _mix64(int(p) & 0x7FFFFFFF))
     return s
-
-
-def make_generator(seed: int, device=None) -> torch.Generator:
-    """A fresh ``torch.Generator`` on ``device`` seeded with ``seed``
-    (reduced to torch's accepted 63-bit range)."""
-    g = torch.Generator(device=device if device is not None else "cpu")
-    g.manual_seed(int(seed) & 0x7FFFFFFFFFFFFFFF)
-    return g

@@ -1,12 +1,13 @@
 """Build and bind the hand-written CUDA kernels in ``sonar_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` into a shared library with a plain C
-interface and loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
-seconds). The build happens at first use, never at import, into
-``<checkout>/build/kernels/<hash>/``, where ``<hash>`` covers the sources and
-the flags: a changed source gets a new directory, so a stale library is never
-loaded. Two processes building at once each write a private temporary file
-and rename it into place.
+Each ``.cu`` source is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library with a plain C interface,
+loaded with :mod:`ctypes` (no PyTorch headers, so a build takes seconds).
+The build happens at first use, never at import, into
+``<checkout>/build/kernels/<hash>/``, where ``<hash>`` covers every source
+(headers included) and the flags: a changed source gets a new directory, so
+a stale library is never loaded. Two processes building at once each work
+in a private temporary directory and rename the library into place.
 """
 
 from __future__ import annotations
@@ -21,14 +22,14 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused.cu",)
+SOURCES = ("philox.cuh", "fused.cu", "hwrng.cu", "fused_pyramid.cu")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = (*ARCH, "-shared")
 LIB_NAME = "libsonar_fused.so"
 
 
@@ -50,7 +51,7 @@ def source_hash() -> str:
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -60,26 +61,42 @@ def library_path() -> pathlib.Path:
 
 def build() -> pathlib.Path:
     """Compile the library if this hash has not been built; return its path.
-    The compiler's output (``-Xptxas -v``: registers, spills) is kept beside
+    The compilers' output (``-Xptxas -v``: registers, spills) is kept beside
     it in ``build.log``."""
     lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    work = pathlib.Path(tempfile.mkdtemp(dir=lib.parent))
+    nvcc = _nvcc()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        (lib.parent / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        jobs = []
+        for src in (s for s in SOURCES if s.endswith(".cu")):
+            obj = work / (src + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+            log = open(work / (src + ".log"), "w")
+            jobs.append((cmd, obj, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT)))
+        text, failed = [], []
+        for cmd, obj, log, proc in jobs:
+            proc.wait()
+            log.close()
+            text.append(" ".join(cmd) + "\n" + pathlib.Path(log.name).read_text())
+            if proc.returncode != 0:
+                failed.append(obj.name)
+        if not failed:
+            tmp = work / LIB_NAME
+            cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(j[1]) for j in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+            text.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(LIB_NAME)
+        (lib.parent / "build.log").write_text("".join(text))
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(text))
         os.replace(tmp, lib)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -93,6 +110,15 @@ def load_library() -> ctypes.CDLL:
     lib.sonar_momentum_step.restype = i32
     lib.sonar_scale_noise.argtypes = [p, p, p, i64, i32, f32, f32, i32, p]
     lib.sonar_scale_noise.restype = i32
+    u32 = ctypes.c_uint32
+    lib.sonar_philox_fill.argtypes = [p, i64, u32, u32, u32, i32, p]
+    lib.sonar_philox_fill.restype = i32
+    lib.sonar_pyramid_up.argtypes = [p, p, i32, i32, i32, i32, p, p, p, i32, u32, u32,
+                                     f32, p]
+    lib.sonar_pyramid_up.restype = i32
+    lib.sonar_pyramid_down.argtypes = [p, p, i32, i32, i32, i32, p, p, p, i32, u32,
+                                       u32, p]
+    lib.sonar_pyramid_down.restype = i32
     lib.sonar_error_string.argtypes = [i32]
     lib.sonar_error_string.restype = ctypes.c_char_p
     return lib

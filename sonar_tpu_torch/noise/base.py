@@ -64,12 +64,22 @@ class NoiseCtx:
     def width(self) -> int:
         return self.shape[-1]
 
+    def with_shape(self, shape: tuple[int, ...]) -> "NoiseCtx":
+        return dataclasses.replace(self, shape=tuple(shape))
+
     def adjusted_shape(self) -> tuple[int, ...]:
         """5D (B,C,F,H,W) folded to (B,C*F,H,W) for 2D-spatial algorithms
         (py/noise_generation.py:182-209)."""
         if self.ndim == 5:
             return (self.batch, self.channels * self.frames, self.height, self.width)
         return self.shape
+
+
+def fix_output_frames(ctx: NoiseCtx, noise: torch.Tensor) -> torch.Tensor:
+    """Unfold a 2D-spatial result of ``adjusted_shape`` back to a 5D ctx."""
+    if ctx.ndim == 5 and tuple(noise.shape) != tuple(ctx.shape):
+        return noise.reshape(ctx.shape)
+    return noise
 
 
 class NoiseItem:

@@ -1,18 +1,42 @@
 """Noise generators (port of ``sonar_tpu.noise.generators``; reference
-py/noise_generation.py). This slice ports the base class and the gaussian and
-uniform generators; the rest of the zoo follows in later slices.
+py/noise_generation.py). Ported so far: the base class, gaussian, uniform,
+the pyramid family (``highres_pyramid``, ``pyramid_old``, ``pyramid``) and
+``mixed``; the rest of the zoo follows in later slices.
 
-Each draw seeds a fresh ``torch.Generator`` on the context's device from the
-per-draw seed it is handed, so there is no global RNG state.
+Every draw goes through the Philox stream of :mod:`..kernels.hwrng` (kernel
+B3 on the card, its plain version on the CPU), seeded from the per-draw
+seed it is handed, so there is no global RNG state and one seed gives the
+same noise on both devices. Sub-draws take seeds from
+:func:`~sonar_tpu_torch.core.rng.derive_seed`, as the JAX package folds keys.
+
+The pyramids take their kernel (B4 or B5) whenever its gate, a pure
+function of the configuration, holds (``*_supported`` in
+:mod:`..kernels.fused_pyramid`); on a CPU tensor the kernel's wrapper runs
+its plain version. Otherwise they take the composed path, Philox levels
+through :func:`~sonar_tpu_torch.ops.resample.scale_samples`, as the JAX
+package does with threefry.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.normalize import scale_noise
-from ..core.rng import make_generator
-from .base import NoiseCtx, NoiseItem
+from ..core.rng import derive_seed
+from ..kernels.fused_pyramid import (
+    fused_downscale_pyramid,
+    fused_downscale_supported,
+    fused_pyramid,
+    fused_pyramid_supported,
+)
+from ..kernels.hwrng import philox_rand, philox_randn
+from ..ops.resample import scale_samples
+from .base import NoiseCtx, NoiseItem, fix_output_frames
+
+
+def _device(ctx: NoiseCtx) -> torch.device:
+    return torch.device(ctx.device if ctx.device is not None else "cpu")
 
 
 class Generator(NoiseItem):
@@ -47,13 +71,11 @@ class Generator(NoiseItem):
     # -- helpers -------------------------------------------------------------
     def randn(self, ctx: NoiseCtx, seed: int, shape=None, dtype=None):
         shape = tuple(shape) if shape is not None else ctx.adjusted_shape()
-        return torch.randn(shape, generator=make_generator(seed, ctx.device),
-                           dtype=dtype or ctx.dtype, device=ctx.device)
+        return philox_randn(seed, shape, device=_device(ctx), dtype=dtype or ctx.dtype)
 
     def rand(self, ctx: NoiseCtx, seed: int, shape=None, dtype=None):
         shape = tuple(shape) if shape is not None else ctx.adjusted_shape()
-        return torch.rand(shape, generator=make_generator(seed, ctx.device),
-                          dtype=dtype or ctx.dtype, device=ctx.device)
+        return philox_rand(seed, shape, device=_device(ctx), dtype=dtype or ctx.dtype)
 
     # -- protocol ------------------------------------------------------------
     def generate(self, ctx: NoiseCtx, state, seed, sigma, sigma_next):
@@ -108,3 +130,193 @@ class UniformGenerator(Generator):
     def generate(self, ctx, state, seed, sigma, sigma_next):
         n = self.rand(ctx, seed, shape=ctx.shape)
         return (n - self.sub_fac) * self.mul_fac + self.mean_fac, state
+
+
+def _size_ladder_highres(h: int, w: int, iterations: int, schedule_seed: int):
+    """Build-time random resize ladder for highres_pyramid
+    (py/noise_generation.py:544-555): r ~ U[2,4) per iter, sizes grow as
+    h*(r^i) capped at 15x; stop after the cap is hit."""
+    rng = np.random.default_rng(schedule_seed)
+    rs = rng.random(iterations) * 2 + 2
+    sizes = []
+    ch, cw = h, w
+    for i in range(iterations):
+        r = float(rs[i])
+        ch, cw = min(h * 15, int(ch * (r**i))), min(w * 15, int(cw * (r**i)))
+        sizes.append((ch, cw))
+        if ch >= h * 15 or cw >= w * 15:
+            break
+    return sizes
+
+
+def _size_ladder_pyramid(h: int, w: int, iterations: int, schedule_seed: int):
+    """Build-time ladder for pyramid (py/noise_generation.py:626-648):
+    sizes shrink as max(1, size/(r^i)); stop at 1."""
+    rng = np.random.default_rng(schedule_seed)
+    sizes = []
+    ch, cw = h, w
+    for i in range(iterations):
+        r = float(rng.random(1)[0] * 2 + 2)
+        cw, ch = max(1, int(cw / (r**i))), max(1, int(ch / (r**i)))
+        sizes.append((ch, cw))
+        if cw == 1 or ch == 1:
+            break
+    return sizes
+
+
+class HighresPyramidGenerator(Generator):
+    """py/noise_generation.py:517-564: an inner base (uniform by default)
+    plus ever larger gaussian levels, each downscaled to the latent."""
+
+    name = "highres_pyramid"
+    MIN_DIMS = 4
+    MAX_DIMS = 5
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {
+            "discount": 0.7,
+            "upscale_mode": "bilinear",
+            "iterations": 4,
+            "noise_generator": None,
+            "normalize_noise": False,
+            "schedule_seed": 0,
+        }
+
+    def _inner(self):
+        if self.noise_generator is not None:
+            return self.noise_generator
+        return UniformGenerator(gen_normalized=self.normalize_noise)
+
+    def init_state(self, ctx, seed):
+        return self._inner().init_state(ctx, seed)
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        b, c, h, w = ctx.adjusted_shape()
+        base, state = self._inner().hooked(ctx, state, derive_seed(seed, "inner"),
+                                           sigma, sigma_next)
+        noise = base.reshape(b, c, h, w)
+        sizes = _size_ladder_highres(h, w, self.iterations, self.schedule_seed)
+        draw = derive_seed(seed, "draw")
+        if fused_downscale_supported(sizes, h, w, self.upscale_mode):
+            # levels >= 2x the output per axis: only their tapped samples
+            # are drawn (kernel B5), the oversized levels never exist
+            coefs = [self.discount**i for i in range(len(sizes))]
+            noise = fused_downscale_pyramid(draw, (b, c, h, w), sizes, coefs,
+                                            self.upscale_mode, base=noise)
+            return fix_output_frames(ctx, noise), state
+        for i, (sh, sw) in enumerate(sizes):
+            big = self.randn(ctx, derive_seed(draw, i), (b, c, sh, sw), noise.dtype)
+            noise = noise + scale_samples(big, w, h, mode=self.upscale_mode) * (
+                self.discount**i)
+        return fix_output_frames(ctx, noise), state
+
+
+class PyramidOldGenerator(Generator):
+    """Deterministic 2^i upscale ladder, std 0.5^i, nearest-exact downscale
+    (py/noise_generation.py:567-606). 'Generates noise ~60x the latent
+    size'; kernel B5 draws only the samples the downscale taps."""
+
+    name = "pyramid_old"
+    MIN_DIMS = 4
+    MAX_DIMS = 5
+    DEFAULT_NORMALIZED = False
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {
+            "discount": 0.8,
+            "iterations": 5,
+            "upscale_mode": "nearest-exact",
+        }
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        b, c, h, w = ctx.adjusted_shape()
+        sizes = [(h * 2 ** (i + 1), w * 2 ** (i + 1)) for i in range(self.iterations)]
+        if fused_downscale_supported(sizes, h, w, self.upscale_mode):
+            coefs = [(0.5**i) * self.discount**i for i in range(self.iterations)]
+            noise = fused_downscale_pyramid(seed, (b, c, h, w), sizes, coefs,
+                                            self.upscale_mode, device=_device(ctx))
+            return fix_output_frames(ctx, noise), state
+        noise = torch.zeros((b, c, h, w), dtype=ctx.dtype, device=_device(ctx))
+        for i, (sh, sw) in enumerate(sizes):
+            big = self.randn(ctx, derive_seed(seed, i), (b, c, sh, sw)) * (0.5**i)
+            noise = noise + scale_samples(big, w, h, mode=self.upscale_mode) * (
+                self.discount**i)
+        return fix_output_frames(ctx, noise), state
+
+
+class PyramidGenerator(Generator):
+    """Whitaker multi-resolution noise (py/noise_generation.py:609-649)."""
+
+    name = "pyramid"
+    MIN_DIMS = 4
+    MAX_DIMS = 5
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {
+            "discount": 0.7,
+            "upscale_mode": "bilinear",
+            "iterations": 10,
+            "schedule_seed": 0,
+        }
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        b, c, h, w = ctx.adjusted_shape()
+        sizes = _size_ladder_pyramid(h, w, self.iterations, self.schedule_seed)
+        if fused_pyramid_supported(sizes, h, w, self.upscale_mode):
+            noise = fused_pyramid(seed, (b, c, h, w), sizes, self.discount,
+                                  self.upscale_mode, device=_device(ctx))
+            return fix_output_frames(ctx, noise), state
+        noise = self.randn(ctx, derive_seed(seed, "base"), (b, c, h, w))
+        for i, (sh, sw) in enumerate(sizes):
+            small = self.randn(ctx, derive_seed(seed, "draw", i), (b, c, sh, sw))
+            noise = noise + scale_samples(small, w, h, mode=self.upscale_mode) * (
+                self.discount**i)
+        return fix_output_frames(ctx, noise), state
+
+
+class MixedGenerator(Generator):
+    """Sum of member generators with optional transforms and an output fn
+    (py/noise_generation.py:212-249). Members keep their class-default
+    internal normalization."""
+
+    name = "mixed"
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {
+            "mix_name": "mixed_noise",
+            "noise_mix": (),
+            "output_fun": None,
+        }
+
+    def _members(self):
+        out = []
+        for item in self.noise_mix:
+            gen, transform = (item, None) if isinstance(item, Generator) else item
+            out.append((gen, transform))
+        return out
+
+    def check_dims(self, ctx):
+        for gen, _t in self._members():
+            gen.check_dims(ctx)
+
+    def init_state(self, ctx, seed):
+        return tuple(gen.init_state(ctx, derive_seed(seed, i))
+                     for i, (gen, _t) in enumerate(self._members()))
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        noise = None
+        new_states = []
+        for i, (gen, transform) in enumerate(self._members()):
+            n, st = gen.hooked(ctx, state[i], derive_seed(seed, i), sigma, sigma_next)
+            new_states.append(st)
+            if transform is not None:
+                n = transform(n) if callable(transform) else n * transform
+            noise = n if noise is None else noise + n
+        if self.output_fun is not None:
+            out = self.output_fun
+            noise = out(noise) if callable(out) else noise * out
+        return noise, tuple(new_states)

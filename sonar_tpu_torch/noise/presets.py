@@ -4,8 +4,10 @@ py/noise.py:2244-2489).
 The JAX registry imports the whole zoo when it is imported. The port
 registers lazily instead: a name maps to a loader that imports its generator
 module only when that name is first asked for, so the main path loads only
-the gaussian generator. This slice registers ``gaussian`` and ``uniform``;
-later slices add the rest of the zoo to ``_LOADERS``.
+the gaussian generator. Registered so far: ``gaussian``, ``uniform`` and
+the thirteen pyramid-family names with the JAX registry's exact presets
+(presets.py:73-75, 128-174); later slices add the rest of the zoo to
+``_LOADERS``.
 """
 
 from __future__ import annotations
@@ -36,9 +38,59 @@ def _load_uniform():
     return _simple(UniformGenerator)
 
 
+def _mixed(mix_name, members, output_fun=None):
+    """members: tuple of (cls, preset_kwargs, transform)."""
+    from .generators import MixedGenerator
+
+    def factory(factor=1.0, normalize=None, **kwargs):
+        mix = tuple((cls(**mkw), transform) for cls, mkw, transform in members)
+        return MixedGenerator(factor, normalize=normalize, mix_name=mix_name,
+                              noise_mix=mix, output_fun=output_fun, **kwargs)
+
+    return factory
+
+
+def _load_pyramid(cls_name: str, **preset):
+    def load():
+        from . import generators
+
+        return _simple(getattr(generators, cls_name), **preset)
+
+    return load
+
+
+def _load_pyramid_mix(name: str, **member):
+    """A pyramid mix: two PyramidGenerators with transforms 0.2 and -0.8."""
+
+    def load():
+        from .generators import PyramidGenerator
+
+        return _mixed(name, ((PyramidGenerator, member, 0.2),
+                             (PyramidGenerator, member, -0.8)))
+
+    return load
+
+
 _LOADERS: dict[str, Callable[[], Callable[..., Generator]]] = {
     "gaussian": _load_gaussian,
     "uniform": _load_uniform,
+    "pyramid_old": _load_pyramid("PyramidOldGenerator"),
+    "pyramid": _load_pyramid("PyramidGenerator"),
+    "highres_pyramid": _load_pyramid("HighresPyramidGenerator"),
+    "pyramid_bislerp": _load_pyramid("PyramidGenerator", upscale_mode="bislerp"),
+    "highres_pyramid_bislerp": _load_pyramid("HighresPyramidGenerator",
+                                             upscale_mode="bislerp"),
+    "pyramid_area": _load_pyramid("PyramidGenerator", upscale_mode="area"),
+    "highres_pyramid_area": _load_pyramid("HighresPyramidGenerator",
+                                          upscale_mode="area"),
+    "pyramid_old_bislerp": _load_pyramid("PyramidOldGenerator", upscale_mode="bislerp"),
+    "pyramid_old_area": _load_pyramid("PyramidOldGenerator", upscale_mode="area"),
+    "pyramid_discount5": _load_pyramid("PyramidGenerator", discount=0.5),
+    "pyramid_mix": _load_pyramid_mix("pyramid_mix", discount=0.6),
+    "pyramid_mix_area": _load_pyramid_mix("pyramid_mix_area", discount=0.5,
+                                          upscale_mode="area"),
+    "pyramid_mix_bislerp": _load_pyramid_mix("pyramid_mix_bislerp", discount=0.5,
+                                             upscale_mode="bislerp"),
 }
 
 

@@ -8,13 +8,20 @@ them without it:
 
 Tolerances: B1 1e-6 relative to max(1, |plain|) (elementwise, same order of
 operations, no FMA contraction); B2 1e-5 (its mean and std sum in another
-order than torch's reductions).
+order than torch's reductions); B3 uniforms bit for bit and normals 2e-6
+absolute (the card's libdevice logf/cosf/sinf against the host's, a few
+ulps of values up to ~5.7); B4 and B5 1e-5 relative to max(1, |plain|)
+(B4's products sum in another order; B5 inherits B3's ulps), with matmul
+TF32 off for the plain versions.
 """
 
 import pytest
 import torch
 
 import sonar_tpu_torch.kernels.fused as F
+import sonar_tpu_torch.kernels.fused_pyramid as P
+from sonar_tpu_torch.kernels import hwrng as H
+from sonar_tpu_torch.noise.generators import _size_ladder_highres, _size_ladder_pyramid
 
 GATES = [(h, i, w, 0.5) for h in (0.0, 1.0) for i in (0.0, 1.0) for w in (0.0, 1.0)]
 GATES.append((1.0, 1.0, 1.0, 0.0))
@@ -24,6 +31,7 @@ GATES.append((1.0, 1.0, 1.0, 0.0))
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -85,3 +93,81 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         F.fused_momentum_step(x, x, x, x, scal)
     with pytest.raises(ValueError):  # mismatched shapes
         F.fused_momentum_step(x, x, x, x[..., :4].contiguous(), scal.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 64, 64), (1, 4, 67, 61), (7,)])
+@pytest.mark.parametrize("seed,stream", [(0, 0), (7, 0), (2**40 + 3, 5)])
+def test_philox_kernel_matches_plain(cuda, shape, seed, stream):
+    n1, n2 = H.philox_randn.launches, H.philox_rand.launches
+    u = H.philox_rand(seed, shape, device=cuda, stream=stream)
+    z = H.philox_randn(seed, shape, device=cuda, stream=stream)
+    assert (H.philox_randn.launches, H.philox_rand.launches) == (n1 + 1, n2 + 1)
+    assert torch.equal(u, H.philox_rand_reference(seed, shape, device=cuda, stream=stream))
+    zr = H.philox_randn_reference(seed, shape, device=cuda, stream=stream)
+    assert float((z - zr).abs().max()) <= 2e-6
+    assert torch.equal(z, H.philox_randn(seed, shape, device=cuda, stream=stream))
+    zc = H.philox_randn(seed, shape, device="cpu", stream=stream)
+    assert float((z.cpu() - zc).abs().max()) <= 2e-6
+
+
+def _pyramid_case(hw):
+    return hw, _size_ladder_pyramid(*hw, 10, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", P.UP_MODES)
+@pytest.mark.parametrize("hw", [(64, 64), (67, 61), (512, 512)])
+def test_pyramid_kernel_matches_plain(cuda, mode, hw):
+    (h, w), sizes = _pyramid_case(hw)
+    n = P.fused_pyramid.launches
+    out = P.fused_pyramid(3, (1, 4, h, w), sizes, 0.7, mode, device=cuda)
+    assert P.fused_pyramid.launches == n + 1
+    ref = P.fused_pyramid_reference(3, (1, 4, h, w), sizes, 0.7, mode, device=cuda)
+    assert _rel_err(out, ref) <= 1e-5
+    base = _randn((4, h, w), cuda, 1)
+    smalls = [_randn((4, sh, sw), cuda, 2 + i) for i, (sh, sw) in enumerate(sizes[1:])]
+    disc = [0.7**i for i in range(1, len(sizes))]
+    got = P.fused_pyramid_accumulate(base, smalls, disc, mode)
+    assert _rel_err(got, P.fused_pyramid_accumulate_reference(base, smalls, disc, mode)) <= 1e-5
+
+
+def _down_cases():
+    out = []
+    for h, w in [(64, 64), (128, 128), (67, 61)]:
+        old = [(h * 2 ** (i + 1), w * 2 ** (i + 1)) for i in range(5)]
+        out.append(((h, w), old, [(0.5**i) * 0.8**i for i in range(5)]))
+        hi = _size_ladder_highres(h, w, 4, 0)
+        out.append(((h, w), hi, [0.7**i for i in range(len(hi))]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", P.DOWN_MODES)
+@pytest.mark.parametrize("case", range(6))
+def test_downscale_kernel_matches_plain(cuda, mode, case):
+    (h, w), sizes, coefs = _down_cases()[case]
+    if not P.fused_downscale_supported(sizes, h, w, mode):
+        pytest.skip(f"ladder {sizes} is not B5's in mode {mode} (the composed path's)")
+    for base in (None, _randn((1, 4, h, w), cuda, 5)):
+        out = P.fused_downscale_pyramid(9, (1, 4, h, w), sizes, coefs, mode, base=base,
+                                        device=cuda)
+        ref = P.fused_downscale_pyramid_reference(9, (1, 4, h, w), sizes, coefs, mode,
+                                                  base=base, device=cuda)
+        assert _rel_err(out, ref) <= 1e-5
+    gs = [_randn((4, 4, h, w), cuda, 10 + i) for i in range(len(sizes))]
+    got = P.fused_downscale_accumulate(gs, (h, w), sizes, coefs, mode)
+    want = P.fused_downscale_accumulate_reference(gs, (h, w), sizes, coefs, mode)
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_pyramid_kernels_refuse_what_they_cannot_take(cuda):
+    with pytest.raises(ValueError, match="not supported"):
+        P.fused_pyramid(0, (1, 4, 16, 16), [(8, 8)], 0.7, device=cuda)
+    base = torch.zeros((4, 16, 16), device=cuda)
+    with pytest.raises(TypeError):
+        P.fused_pyramid_accumulate(base, [torch.zeros((4, 4, 4), device=cuda).half()], [0.5])
+    with pytest.raises(ValueError):
+        P.fused_downscale_accumulate([torch.zeros((4, 4, 8, 8), device=cuda)], (16, 16),
+                                     [(32, 32)], [1.0])

@@ -13,7 +13,8 @@ import torch
 
 from sonar_tpu.core.normalize import scale_noise as j_scale_noise, tstd as j_tstd
 from sonar_tpu_torch.core.normalize import scale_noise, tstd
-from sonar_tpu_torch.core.rng import derive_seed, make_generator, seed_from
+from sonar_tpu_torch.core.rng import derive_seed, seed_from
+from sonar_tpu_torch.kernels.hwrng import philox_randn
 
 ATOL = 1e-6
 # the packages re-export a function named ``blend`` over the module's name
@@ -93,6 +94,7 @@ def test_seed_derivation_is_a_pure_function_of_the_path():
     assert derive_seed(s, "noise", 3) != derive_seed(s, "noise", 4)
     assert seed_from(None) == seed_from(0) != seed_from(1)
     assert seed_from(2**40 + 5) != seed_from(5)  # high bits count
-    a = torch.randn(16, generator=make_generator(derive_seed(s, "noise", 0)))
-    b = torch.randn(16, generator=make_generator(derive_seed(s, "noise", 0)))
+    a = philox_randn(derive_seed(s, "noise", 0), (16,), device="cpu")
+    b = philox_randn(derive_seed(s, "noise", 0), (16,), device="cpu")
     assert torch.equal(a, b)
+    assert not torch.equal(a, philox_randn(derive_seed(s, "noise", 1), (16,), device="cpu"))
