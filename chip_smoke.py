@@ -39,7 +39,25 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    gaussian and the three pyramids; and compares the pyramid path with the
    same sampler fed the plain versions' draws, TF32 off;
 10. times the pyramid path, pyramid noise throughput, and B3, B4 and B5
-   against their plain versions and the composed paths.
+   against their plain versions and the composed paths;
+11. holds kernel B6 (the k smallest toroidal distances of Voronoi noise)
+   against its plain version: four distances, k in {1, 2, 4, 8}, N = 37,
+   256 and 4,096 points (across its shared-memory chunks), the path's
+   shape and ragged ones, axis weights and scale 8;
+12. runs the Voronoi path — the sampler of phase 4 with
+   ``SonarConfig(noise_type="voronoi_mix")`` — and checks its launches (B6
+   three times a step, once per octave; B3 four times a step and three
+   times at set-up), reproducibility, and the trajectory against the
+   sampler fed the plain versions' draws, TF32 off; then ``voronoi_fuzz``
+   and a ``custom_noise`` NoiseChain of a VoronoiGenerator at 5 steps; and
+   one seed's noise on the CPU (plain versions) and the card for all three;
+13. holds B1 and B2 on bfloat16 and float16 latents against their plain
+   versions and runs the bf16 headline (stub denoiser, 20 steps) through
+   B1, B2 and B3, against ``use_fused=False``;
+14. times the Voronoi path against the gaussian headline, B6 against its
+   plain version at the path's shape and at bench.py's Voronoi shape for
+   k in {1, 2, 4, 8}, the k = 1 rule (per-axis path against B6), and
+   Voronoi noise throughput.
 
 Every phase passes or the script exits non-zero without a result. The last
 line is ``{"ok": true, "device": {...}}``. It needs one CUDA device and no
@@ -71,6 +89,15 @@ B3_TOL = 2e-6  # absolute on normals up to ~5.7: libdevice vs host log/cos/sin u
 PYR_TOL = 1e-5  # relative to max(1, |plain|): B4 sums in another order, B3's ulps
 XDEV_TOL = 1e-5  # relative to max(1, |cpu|): one seed, CPU plain vs card kernels
 TRAJ_TOL = 1e-4  # relative to max |trajectory|, TF32 off on both paths
+B6_SHAPES = [(1, 4, 64, 64), (1, 3, 67, 61), (2, 2, 9, 130)]
+B6_POINTS = [37, 256, 4096]
+B6_TOL = 1e-6  # minkowski only, relative to max(1, |plain|); the rest bit for bit
+# bf16/fp16: one ulp of the working type against the plain version on the
+# float32 upcast (relative to max(1, |plain|)); against the plain version
+# run in the working type, which rounds each of its ~10 steps
+LOW_TOL = {"bfloat16": (2.0**-7, 2.0**-4), "float16": (2.0**-10, 2.0**-7)}
+BF16_TRAJ_TOL = 0.1  # relative to max |trajectory|: 20 steps of bf16 carries
+VORONOI_BENCH = (1, 4, 128, 128)  # bench.py:852, 256 points
 
 
 def fail(msg: str):
@@ -160,12 +187,15 @@ def main():
     import sonar_tpu_torch.core.normalize as N
     import sonar_tpu_torch.kernels.fused as F
     import sonar_tpu_torch.kernels.fused_pyramid as P
+    import sonar_tpu_torch.kernels.voronoi as V
     import sonar_tpu_torch.noise.generators as G
+    import sonar_tpu_torch.noise.voronoi as VN
     from sonar_tpu_torch.core.rng import derive_seed, seed_from
     from sonar_tpu_torch.kernels import _build
     from sonar_tpu_torch.kernels import hwrng as H
     from sonar_tpu_torch.models import UNetConfig, init_unet_params, make_denoiser
-    from sonar_tpu_torch.noise import NoiseCtx, get_noise_item, make_noise_sampler
+    from sonar_tpu_torch.noise import (NoiseChain, NoiseCtx, VoronoiGenerator,
+                                       get_noise_item, make_noise_sampler)
     from sonar_tpu_torch.samplers import sample_sonar_euler_ancestral
     from sonar_tpu_torch.samplers.momentum import SonarConfig
 
@@ -176,7 +206,8 @@ def main():
     counters = {"B1": [F.fused_momentum_step], "B2": [F.fused_scale_noise],
                 "B3": [H.philox_randn, H.philox_rand],
                 "B4": [P.fused_pyramid, P.fused_pyramid_accumulate],
-                "B5": [P.fused_downscale_pyramid, P.fused_downscale_accumulate]}
+                "B5": [P.fused_downscale_pyramid, P.fused_downscale_accumulate],
+                "B6": [V.voronoi_ksmallest]}
 
     def reset_counts():
         for fns in counters.values():
@@ -195,6 +226,8 @@ def main():
             fused_pyramid=P.fused_pyramid_reference,
             fused_downscale_pyramid=P.fused_downscale_pyramid_reference))
         stack.enter_context(patched(N, fused_scale_noise=F.fused_scale_noise_reference))
+        stack.enter_context(patched(VN, philox_rand=H.philox_rand_reference,
+                                    voronoi_ksmallest=V.voronoi_ksmallest_reference))
         return stack
 
     def composed_path():
@@ -314,7 +347,7 @@ def main():
     need(1.0 < std < 100.0, f"headline output std {std} implausible")
     print(f"[4] headline: UNetConfig() {SHAPE}, {STEPS} steps, seed 7: output std "
           f"{std:.4f}, mean {float(out.mean()):.4f}; launches {launches}")
-    need(launches == {"B1": STEPS, "B2": STEPS, "B3": STEPS, "B4": 0, "B5": 0},
+    need(launches == {"B1": STEPS, "B2": STEPS, "B3": STEPS, "B4": 0, "B5": 0, "B6": 0},
          f"expected {STEPS} launches of B1, B2 and B3, got {launches}")
     repeat = headline()
     need(torch.equal(out, repeat), "headline is not reproducible for one seed")
@@ -500,7 +533,8 @@ def main():
          "pyramid path output malformed or not finite")
     pstd = float(pout.std())
     need(1.0 < pstd < 100.0, f"pyramid path output std {pstd} implausible")
-    want = {"B1": STEPS, "B2": STEPS, "B3": STEPS * (len(ladder) - 1), "B4": STEPS, "B5": 0}
+    want = {"B1": STEPS, "B2": STEPS, "B3": STEPS * (len(ladder) - 1), "B4": STEPS, "B5": 0,
+            "B6": 0}
     print(f"[9] pyramid path: UNetConfig() {SHAPE}, {STEPS} steps, seed 7, ladder "
           f"{ladder}: output std {pstd:.4f}; launches {path_launches}")
     need(path_launches == want, f"pyramid path: expected launches {want}")
@@ -673,6 +707,287 @@ def main():
               f"us/call (events, host cost included); device time kernel {fmt_us(kd)} "
               f"({by}), plain {fmt_us(pd)} [{card}]")
 
+    # -- phase 11: B6 against its plain version -------------------------------
+    b6_err, b6_cases = 0.0, 0
+    dists = [("euclidean", 3.0), ("quadratic", 3.0), ("chebyshev", 3.0), ("minkowski", 2.5)]
+    for n_pts in B6_POINTS:
+        for b, c, h, w in B6_SHAPES:
+            fp = torch.rand((b, c, n_pts, 3), generator=gen, device=dev)
+            ys = torch.arange(h, dtype=torch.float32, device=dev) / h
+            xs = torch.arange(w, dtype=torch.float32, device=dev) / w
+            z = torch.tensor(0.37, device=dev)
+            for dist, p in dists:
+                for k in (1, 2, 4, 8):
+                    for scale, wts in ((1.0, (1.0, 1.0, 1.0)), (8.0, (2.0, 1.0, 0.25))):
+                        kw = dict(scale=scale, k=k, dist=dist, p=p, weights=wts)
+                        o = V.voronoi_ksmallest(fp, ys, xs, z, **kw)
+                        r = V.voronoi_ksmallest_reference(fp, ys, xs, z, **kw)
+                        torch.cuda.synchronize()
+                        need(o.is_cuda and o.shape == (b, c, h, w, k) and o.dtype == torch.float32,
+                             "B6 output malformed")
+                        err, rel = rel_err(o, r)
+                        b6_err = max(b6_err, err)
+                        b6_cases += 1
+                        if dist == "minkowski":
+                            need(rel <= B6_TOL, f"B6 {dist} N={n_pts} {(b, c, h, w)} k={k}: "
+                                                f"rel err {rel:.3e}")
+                        else:
+                            need(torch.equal(o, r), f"B6 {dist} N={n_pts} {(b, c, h, w)} "
+                                                    f"k={k} scale={scale}: not bit-equal "
+                                                    f"({err:.3e})")
+    print(f"[11] B6 voronoi_ksmallest vs plain: {b6_cases} cases (N {B6_POINTS}, shapes "
+          f"{B6_SHAPES}, 4 distances, k 1/2/4/8, plain and weighted x8): euclidean, "
+          f"quadratic, chebyshev bit-equal; max abs err {b6_err:.3e} (minkowski tolerance "
+          f"{B6_TOL:g} x max(1,|plain|))")
+
+    # -- phase 12: the Voronoi path ---------------------------------------------
+    vor_cfg = SonarConfig(noise_type="voronoi_mix")
+    reset_counts()
+    vout = headline(sonar_config=vor_cfg)
+    vor_launches = read_counts()
+    need(vout.is_cuda and vout.shape == SHAPE and bool(torch.isfinite(vout).all()),
+         "voronoi path output malformed or not finite")
+    vstd = float(vout.std())
+    need(1.0 < vstd < 100.0, f"voronoi path output std {vstd} implausible")
+    # per step: B1, B2 once; B6 once per octave (3); B3 three point draws
+    # (reset mode, z_max 0) and the gaussian member; three point draws at set-up
+    want = {"B1": STEPS, "B2": STEPS, "B3": 4 * STEPS + 3, "B4": 0, "B5": 0, "B6": 3 * STEPS}
+    print(f"[12] voronoi_mix path: UNetConfig() {SHAPE}, {STEPS} steps, seed 7: output std "
+          f"{vstd:.4f}; launches {vor_launches}")
+    need(vor_launches == want, f"voronoi path: expected launches {want}")
+    need(torch.equal(vout, headline(sonar_config=vor_cfg)), "voronoi path not reproducible")
+    need(not torch.equal(vout, out), "voronoi path equals the gaussian headline")
+
+    chain_item = lambda: NoiseChain([VoronoiGenerator(  # noqa: E731
+        1.0, n_points=(128,), octaves=2, octave_mode="new_features", result_mode=("f3",),
+        distance_mode=("weight:name=euclidean:h=1.5",), z_max=3.0, z_max_mode="bounce")])
+    short_cases = {
+        # generic path (fuzz of angle_tanh): B3 for the points and the fuzz
+        # each step, the points once at set-up; no B6
+        "voronoi_fuzz": (SonarConfig(noise_type="voronoi_fuzz"),
+                         {"B1": SHORT_STEPS, "B2": SHORT_STEPS, "B3": 2 * SHORT_STEPS + 1,
+                          "B4": 0, "B5": 0, "B6": 0}),
+        # bounce mode draws points only at set-up (two groups); B6 per octave
+        "custom_noise": (SonarConfig(custom_noise=chain_item()),
+                         {"B1": SHORT_STEPS, "B2": SHORT_STEPS, "B3": 2, "B4": 0, "B5": 0,
+                          "B6": 2 * SHORT_STEPS}),
+    }
+    for nt, (c, want) in short_cases.items():
+        reset_counts()
+        o = sample_sonar_euler_ancestral(denoiser, x0, short, seed=7, sonar_config=c)
+        got = read_counts()
+        need(bool(torch.isfinite(o).all()), f"{nt} path not finite")
+        print(f"[12] {nt} path: {SHORT_STEPS} steps, output std {float(o.std()):.4f}; "
+              f"launches {got}")
+        need(got == want, f"{nt}: expected launches {want}")
+        need(torch.equal(o, sample_sonar_euler_ancestral(denoiser, x0, short, seed=7,
+                                                         sonar_config=c)),
+             f"{nt} path not reproducible")
+
+    xdev_items = {"voronoi_mix": lambda: get_noise_item("voronoi_mix"),
+                  "voronoi_fuzz": lambda: get_noise_item("voronoi_fuzz"),
+                  "custom_noise": chain_item}
+    for nt, make in xdev_items.items():
+        kw = dict(seed=1234, sigma_min=0.03, sigma_max=14.6, normalized=True)
+        cfn, cst = make_noise_sampler(make(), SHAPE, device="cpu", **kw)
+        gfn, gst = make_noise_sampler(make(), SHAPE, device=dev, **kw)
+        worst = 0.0
+        for _ in range(3):
+            a, cst = cfn(cst, 1.0, 0.9)
+            b, gst = gfn(gst, 1.0, 0.9)
+            need(a.device.type == "cpu" and b.is_cuda, f"{nt}: draws on the wrong device")
+            _, rel = rel_err(b, a)
+            worst = max(worst, rel)
+        print(f"[12] {nt}: seed 1234, 3 draws, CPU (plain) vs card (kernels): max rel diff "
+              f"{worst:.3e} (tolerance {XDEV_TOL:g})")
+        need(worst <= XDEV_TOL, f"{nt}: CPU and card streams differ ({worst:.3e})")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with plain_versions():
+        nfn, nst = make_noise_sampler(
+            get_noise_item("voronoi_mix"), SHAPE, dtype=torch.float32, device=dev,
+            sigma_min=float(sigmas[sigmas > 0].min()), sigma_max=float(sigmas.max()),
+            seed=derive_seed(seed_from(7), "noise"), normalized=True, ref_latent=x0)
+        vdraws = []
+        for i in range(STEPS):
+            d, nst = nfn(nst, sl[i], sl[i + 1])
+            vdraws.append(d)
+    kern = headline(sonar_config=vor_cfg)
+    plain = sample_sonar_euler_ancestral(denoiser, x0, sigmas, use_fused=False,
+                                         noise_sampler=lambda i, s, sn: vdraws[i])
+    torch.cuda.synchronize()
+    err, rel = rel_err(kern, plain)
+    print(f"[12] voronoi path (kernels) vs the sampler fed the plain versions' draws "
+          f"(plain momentum step), TF32 off: max abs diff {err:.3e}, max rel diff "
+          f"{rel:.3e} (tolerance {TRAJ_TOL:g})")
+    need(rel <= TRAJ_TOL, f"voronoi trajectories differ: {rel:.3e}")
+    torch.backends.cudnn.allow_tf32 = True
+
+    # -- phase 13: bf16 and fp16 latents through B1 and B2 ---------------------
+    for dt in (torch.bfloat16, torch.float16):
+        ulp, plain_tol = LOW_TOL[str(dt).split(".")[-1]]
+        worst_up, worst_plain = 0.0, 0.0
+        for shape in B1_SHAPES:
+            ts = [randn(shape).to(dt) for _ in range(4)]
+            for has, inw, hw, ns in gates:
+                scal = F.pack_momentum_scalars(
+                    sigma=5.0, dt=-2.0, momentum=0.95, hd_ratio=0.75, hd_scale=1.05,
+                    md_scale=1.0, has=has, noise_scale=ns, in_window=inw,
+                    hist_window=hw, device=dev)
+                o_k = F.fused_momentum_step(*ts, scal)
+                o_u = F.fused_momentum_step_reference(*(t.float() for t in ts), scal)
+                o_p = F.fused_momentum_step_reference(*ts, scal)
+                for o, u, q in zip(o_k, o_u, o_p):
+                    need(o.dtype == dt and o.is_cuda, f"B1 {dt}: output dtype {o.dtype}")
+                    need(torch.equal(o, u.to(dt)), f"B1 {dt} {shape}: not equal to the plain "
+                                                   f"version on the float32 upcast")
+                    worst_plain = max(worst_plain, rel_err(o, q)[1])
+            for x, factor in ((ts[0] * 3 + 0.5, 1.0), (ts[1] * 2 + 0.25, 1.7), (ts[2], 1.0)):
+                x = x.to(dt)
+                o = F.fused_scale_noise(x, factor)
+                u = F.fused_scale_noise_reference(x.float(), factor).to(dt)
+                need(o.dtype == dt and torch.equal(o, F.fused_scale_noise(x, factor)),
+                     f"B2 {dt}: dtype or repeatability")
+                e = float(((o.double() - u.double()).abs()
+                           / u.double().abs().clamp(min=1)).max())
+                worst_up = max(worst_up, e)
+                need(e <= ulp, f"B2 {dt} {shape}: {e:.3e} from the float32 upcast")
+                worst_plain = max(worst_plain, rel_err(o, F.fused_scale_noise_reference(
+                    x, factor))[1])
+        torch.cuda.synchronize()
+        print(f"[13] B1/B2 on {dt}: B1 equal to the plain version on the float32 upcast; B2 "
+              f"within {worst_up:.3e} of it (one ulp {ulp:g}); against the plain version "
+              f"run in {dt}: {worst_plain:.3e} (tolerance {plain_tol:g}) x max(1,|plain|)")
+        need(worst_plain <= plain_tol, f"{dt}: kernels and plain versions differ")
+
+    target = (torch.arange(4 * 64 * 64, dtype=torch.float32, device=dev).reshape(SHAPE)
+              / 1e3).to(torch.bfloat16)
+
+    def stub(xb, sig, **_):
+        return ((xb * 0.9 + target) / (1.0 + sig.reshape(-1, 1, 1, 1) * 0.05)).to(xb.dtype)
+
+    xb = x0.to(torch.bfloat16)
+    reset_counts()
+    bout = sample_sonar_euler_ancestral(stub, xb, sigmas, seed=7)
+    bf_launches = read_counts()
+    need(bout.dtype == torch.bfloat16 and bout.is_cuda and bout.shape == SHAPE
+         and bool(torch.isfinite(bout).all()), "bf16 headline output malformed")
+    need(bf_launches == {"B1": STEPS, "B2": STEPS, "B3": STEPS, "B4": 0, "B5": 0, "B6": 0},
+         f"bf16 headline launches {bf_launches}")
+    bplain = sample_sonar_euler_ancestral(stub, xb, sigmas, seed=7, use_fused=False)
+    berr = float((bout.double() - bplain.double()).abs().max())
+    bscale = float(bplain.double().abs().max())
+    print(f"[13] bf16 headline (stub denoiser, {SHAPE}, {STEPS} steps): dtype {bout.dtype}, "
+          f"launches {bf_launches}; vs use_fused=False max abs diff {berr:.4f} of max "
+          f"|trajectory| {bscale:.3f} (tolerance {BF16_TRAJ_TOL:g} relative)")
+    need(berr <= BF16_TRAJ_TOL * bscale, "bf16 kernel and plain trajectories differ")
+
+    # -- phase 14: timing -------------------------------------------------------
+    print(f"[14] timing on {card} (cudnn TF32 on, matmul TF32 off)")
+    runs = {"gaussian": lambda: headline(), "voronoi": lambda: headline(sonar_config=vor_cfg)}
+    ms = {"gaussian": [], "voronoi": []}
+    for which in ("gaussian", "voronoi", "voronoi", "gaussian"):
+        ms[which].append(cuda_ms(torch, runs[which], 3))
+    sps = {k: STEPS / (sum(v) / len(v) / 1000.0) for k, v in ms.items()}
+    print(f"[14] steps/s: voronoi_mix path {sps['voronoi']:.2f} (runs "
+          f"{[round(v, 3) for v in ms['voronoi']]} ms), gaussian headline "
+          f"{sps['gaussian']:.2f} (runs {[round(v, 3) for v in ms['gaussian']]} ms) [{card}]")
+    # where a run's device time goes, and the device's busy share of the run
+    for which in ("gaussian", "voronoi"):
+        tot, by = device_us(torch, runs[which], 1)
+        if tot is None:
+            print(f"[14] {which} run: device time not measured [{card}]")
+            continue
+        parts = {"B6": "voronoi_ksmallest_kernel", "B3": "philox_fill_kernel",
+                 "B1": "momentum_step_kernel", "B2": "scale_noise_"}
+        got = {k: sum(v for n_, v in by.items() if pat in n_) for k, pat in parts.items()}
+        wall = sum(ms[which]) / len(ms[which]) * 1000
+        print(f"[14] {which} run, device time: {tot:.1f} us of {wall:.1f} us wall "
+              f"(busy {100 * tot / wall:.1f} %); {', '.join(f'{k} {v:.1f} us' for k, v in got.items())}"
+              f", the rest (UNet, torch ops) {tot - sum(got.values()):.1f} us [{card}]")
+
+    def b6_fns(shape, k, n_pts=256):
+        fp = torch.rand((shape[0], shape[1], n_pts, 3), generator=gen, device=dev)
+        ys = torch.arange(shape[2], dtype=torch.float32, device=dev) / shape[2]
+        xs = torch.arange(shape[3], dtype=torch.float32, device=dev) / shape[3]
+        z = torch.tensor(0.25, device=dev)
+        return (lambda: V.voronoi_ksmallest(fp, ys, xs, z, scale=2.0, k=k),
+                lambda: V.voronoi_ksmallest_reference(fp, ys, xs, z, scale=2.0, k=k))
+
+    kf, pf = b6_fns(SHAPE, 2)
+    timing["B6"] = (cuda_ms(torch, kf, 200), cuda_ms(torch, pf, 200))
+    (kd, kby), (pd, _) = device_us(torch, kf, 50), device_us(torch, pf, 50)
+    print(f"[14] B6 at {SHAPE}, N=256, k=2 as the path calls it: kernel "
+          f"{timing['B6'][0] * 1000:.2f} us/call, plain {timing['B6'][1] * 1000:.2f} us/call "
+          f"(events, host cost included); device time kernel {fmt_us(kd)} "
+          f"({', '.join(f'{n_}: {v:.2f} us' for n_, v in sorted(kby.items()))}), plain "
+          f"{fmt_us(pd)} [{card}]")
+    for k in (1, 2, 4, 8):
+        kf, pf = b6_fns(VORONOI_BENCH, k)
+        ke, pe = cuda_ms(torch, kf, 100), cuda_ms(torch, pf, 20)
+        (kd, kby), (pd, _) = device_us(torch, kf, 20), device_us(torch, pf, 5)
+        b6k = sum(v for n_, v in kby.items() if "voronoi" in n_)
+        px = VORONOI_BENCH[0] * VORONOI_BENCH[1] * VORONOI_BENCH[2] * VORONOI_BENCH[3]
+        rate = (f"{px * 256 / (b6k * 1e-6) / 1e9:.1f} G pixel-points/s" if b6k
+                else "rate not measured")
+        print(f"[14] B6 at {VORONOI_BENCH}, N=256, k={k}: kernel {ke * 1000:.2f} us/call "
+              f"(events), device {fmt_us(kd)} (B6 alone {b6k:.2f} us, {rate}); plain "
+              f"{pe * 1000:.2f} us/call, device {fmt_us(pd)} [{card}]")
+
+    # the k = 1 rule: the per-axis path and a min, against B6 at k = 1
+    h1, w1 = VORONOI_BENCH[2], VORONOI_BENCH[3]
+    g1 = VoronoiGenerator(n_points=(256,))
+    fp1 = torch.rand((1, 4, 256, 3), generator=gen, device=dev)
+    ys1 = torch.arange(h1, dtype=torch.float32, device=dev) / h1
+    xs1 = torch.arange(w1, dtype=torch.float32, device=dev) / w1
+    z1 = torch.tensor(0.25, device=dev)
+    grid3d = torch.cat([torch.stack(torch.meshgrid(ys1, xs1, indexing="ij"), dim=-1),
+                        z1.expand(h1, w1, 1)], dim=-1)
+    axis_k1 = lambda: VN._sorted_small(  # noqa: E731
+        g1._axis_distance(("euclidean", 3.0, None, 1.0), grid3d, fp1, 1.0), 1)
+    kern_k1 = lambda: V.voronoi_ksmallest(fp1, ys1, xs1, z1, scale=1.0, k=1)  # noqa: E731
+    need(torch.equal(axis_k1()[..., 0], kern_k1()[..., 0]), "k=1: per-axis path and B6 differ")
+    ae, ke = cuda_ms(torch, axis_k1, 50), cuda_ms(torch, kern_k1, 50)
+    ad, kd = device_us(torch, axis_k1, 10)[0], device_us(torch, kern_k1, 10)[0]
+    print(f"[14] k=1 rule at {VORONOI_BENCH}, N=256: per-axis path + min {ae * 1000:.2f} "
+          f"us/call (device {fmt_us(ad)}), B6 k=1 {ke * 1000:.2f} us/call (device "
+          f"{fmt_us(kd)}); equal outputs [{card}]")
+
+    def vdraws_run(item, iters):
+        fn, st = make_noise_sampler(item, VORONOI_BENCH, device=dev, seed=5, sigma_min=0.03,
+                                    sigma_max=14.6)
+
+        def run():
+            s_ = st
+            for _ in range(iters):
+                _, s_ = fn(s_, 1.0, 0.9)
+
+        return run
+
+    never = lambda *a: False  # noqa: E731
+    viters = 20
+    px = VORONOI_BENCH[0] * VORONOI_BENCH[2] * VORONOI_BENCH[3]
+    for label, kw in (("bench (f1, 2 octaves: per-axis path)", {}),
+                      ("diff2, 2 octaves", {"result_mode": ("diff2",)})):
+        mp = {}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            ctx = (patched(VN, voronoi_kernel_supported=never) if which == "plain"
+                   else contextlib.nullcontext())
+            with ctx:
+                t = cuda_ms(torch, vdraws_run(VoronoiGenerator(n_points=(256,), octaves=2,
+                                                               **kw), viters), 2)
+            mp.setdefault(which, []).append(px * viters / (t / 1000) / 1e6)
+        print(f"[14] voronoi noise {label} at {VORONOI_BENCH}, 256 points, {viters} draws "
+              f"(normalized): as routed {[round(v, 2) for v in mp['kernel']]} Mpix/s, gate "
+              f"closed (per-axis path) {[round(v, 2) for v in mp['plain']]} Mpix/s [{card}]")
+    mp = []
+    for _ in range(2):
+        t = cuda_ms(torch, vdraws_run(get_noise_item("voronoi_mix"), viters), 2)
+        mp.append(px * viters / (t / 1000) / 1e6)
+    print(f"[14] voronoi_mix noise at {VORONOI_BENCH}: {[round(v, 2) for v in mp]} Mpix/s "
+          f"[{card}]")
+
     src = "sonar_tpu_torch/csrc/"
     rows = [
         ("fused_momentum_step", "fused.cu", "sonar_tpu/kernels/fused.py:68",
@@ -686,6 +1001,8 @@ def main():
         ("fused_downscale_pyramid", "fused_pyramid.cu",
          "sonar_tpu/kernels/fused_pyramid.py:264",
          sum(c["B5"] for c in down_launches.values()), b5_err, "B5"),
+        ("voronoi_ksmallest", "voronoi.cu", "sonar_tpu/kernels/voronoi.py:78",
+         vor_launches["B6"], b6_err, "B6"),
     ]
     for kname, _, _, n_launch, _, _ in rows:
         need(n_launch > 0, f"{kname} was not launched on its path")

@@ -16,7 +16,7 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("core", "kernels", "models", "noise", "ops", "samplers")
+_SUBPACKAGES = ("core", "kernels", "models", "noise", "ops", "samplers", "utils")
 
 
 def __getattr__(name):

@@ -3,6 +3,8 @@
 - ``tstd`` — Bessel-corrected std (ddof=1), the reference's statistic.
 - ``scale_noise`` — the canonical mean-0/std-1 normalizer with a
   2.5/sqrt(N) significance dead-band (py/utils.py:85-106).
+- ``normalize_to_scale`` — the min/max range remap (py/utils.py:452-470).
+- ``tmedian`` — torch.median's lower-middle rule along one axis.
 
 The data-dependent branches are ``torch.where`` selects on device values:
 a Python ``if`` on a tensor would wait for the card once per noise draw.
@@ -27,6 +29,34 @@ def _static_one(factor) -> bool:
 def tstd(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
     """Bessel-corrected std matching ``torch.Tensor.std`` (ddof=1)."""
     return torch.std(x, dim=dim, correction=1, keepdim=keepdim)
+
+
+def tmedian(x: torch.Tensor, axis: int = -1, keepdims: bool = False) -> torch.Tensor:
+    """torch.median semantics: the lower of the two middle elements."""
+    n = x.shape[axis]
+    s = torch.sort(x, dim=axis).values
+    return s.narrow(axis, (n - 1) // 2, 1) if keepdims else s.select(axis, (n - 1) // 2)
+
+
+def normalize_to_scale(
+    latent: torch.Tensor,
+    target_min,
+    target_max,
+    *,
+    dim=(-3, -2, -1),
+    eps: float = 1e-07,
+) -> torch.Tensor:
+    """Range remap (py/utils.py:452-470). ``dim=None`` or ``()`` → global.
+    The targets are numbers or tensors that broadcast (the Voronoi fuzz
+    modes pass the 0-dim min and max of their input)."""
+    if dim in (None, ()):
+        min_val, max_val = latent.min(), latent.max()
+    else:
+        min_val = torch.amin(latent, dim=dim, keepdim=True)
+        max_val = torch.amax(latent, dim=dim, keepdim=True)
+    normalized = (latent - min_val) / ((max_val - min_val) + eps)
+    return torch.clamp(normalized * (target_max - target_min) + target_min,
+                       target_min, target_max)
 
 
 def scale_noise(

@@ -12,7 +12,15 @@
 // -fmad=false: the plain PyTorch versions run each operation as its own
 // rounded step, so the kernels must not contract a*b+c into one FMA if they
 // are to agree with them to the last bit.
+//
+// Element types: float, __nv_bfloat16 and __half (the `dtype` argument of
+// the entry points: 0, 1, 2). As in the TPU kernels, whose float32 scalars
+// promote the arithmetic, every element is loaded into float32, computed in
+// float32 (B2's cross-block sums in double) and stored once, rounded to
+// nearest even, in the input's type.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -20,6 +28,45 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// 16 bytes of elements: one vector load or store (4 floats, 8 halves).
+template <typename T>
+struct alignas(16) Vec {
+  static constexpr int kN = 16 / sizeof(T);
+  T v[kN];
+};
+
+// Pairwise sum of f(v[0..kN)) in float32, in a fixed tree: for float it is
+// (f0 + f1) + (f2 + f3).
+template <typename T, typename F>
+__device__ __forceinline__ float vec_tree_sum(const Vec<T>& a, F f) {
+  float t[Vec<T>::kN];
+#pragma unroll
+  for (int j = 0; j < Vec<T>::kN; ++j) t[j] = f(to_f32(a.v[j]));
+#pragma unroll
+  for (int w = 1; w < Vec<T>::kN; w *= 2) {
+#pragma unroll
+    for (int j = 0; j + w < Vec<T>::kN; j += 2 * w) t[j] = t[j] + t[j + w];
+  }
+  return t[0];
+}
 
 // ---------------------------------------------------------------------------
 // B1: fused NEW-mode momentum step
@@ -31,10 +78,11 @@ constexpr int kWarps = kThreads / 32;
 //   in-window / history-window gates, and x + m*dt + noise*noise_scale.
 //
 // Bound: device memory. Per element it reads x, denoised, hd, noise and
-// writes x', hd' (24 bytes in f32) for ~20 flops, far below the H100's
-// ~20 flop/byte f32 ridge at 3.35 TB/s. The design therefore only moves
-// each byte once: 16-byte (float4) loads and stores where all six pointers
-// are aligned, a grid-stride loop sized to the card, and a scalar tail.
+// writes x', hd' (24 bytes in f32, 12 in bf16/fp16) for ~20 flops, far
+// below the H100's ~20 flop/byte f32 ridge at 3.35 TB/s. The design
+// therefore only moves each byte once: 16-byte loads and stores (4 floats
+// or 8 halves) where all six pointers are aligned, a grid-stride loop sized
+// to the card, and a scalar tail.
 // The ten step scalars live in device memory (built once per run by
 // pack_momentum_scalars), so a step needs no host round trip.
 //
@@ -83,41 +131,51 @@ __device__ __forceinline__ void momentum_elem(const MomentumScalars& s,
   *out_x = md * s.dt + x + noise * s.noise_scale;
 }
 
-__global__ void momentum_step_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ den,
-                                     const float* __restrict__ hd,
-                                     const float* __restrict__ noise,
+template <typename T>
+__global__ void momentum_step_kernel(const T* __restrict__ x,
+                                     const T* __restrict__ den,
+                                     const T* __restrict__ hd,
+                                     const T* __restrict__ noise,
                                      const float* __restrict__ scal,
-                                     float* __restrict__ out_x,
-                                     float* __restrict__ out_hd,
-                                     int64_t n, int vec) {
+                                     T* __restrict__ out_x,
+                                     T* __restrict__ out_hd, int64_t n,
+                                     int vec) {
+  constexpr int V = Vec<T>::kN;
   const MomentumScalars s = load_scalars(scal);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   int64_t done = 0;
   if (vec) {
-    const int64_t n4 = n >> 2;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const float4* d4 = reinterpret_cast<const float4*>(den);
-    const float4* h4 = reinterpret_cast<const float4*>(hd);
-    const float4* z4 = reinterpret_cast<const float4*>(noise);
-    float4* ox4 = reinterpret_cast<float4*>(out_x);
-    float4* oh4 = reinterpret_cast<float4*>(out_hd);
-    for (int64_t i = tid; i < n4; i += stride) {
-      const float4 a = x4[i], b = d4[i], c = h4[i], z = z4[i];
-      float4 ox, oh;
-      momentum_elem(s, a.x, b.x, c.x, z.x, &ox.x, &oh.x);
-      momentum_elem(s, a.y, b.y, c.y, z.y, &ox.y, &oh.y);
-      momentum_elem(s, a.z, b.z, c.z, z.z, &ox.z, &oh.z);
-      momentum_elem(s, a.w, b.w, c.w, z.w, &ox.w, &oh.w);
-      ox4[i] = ox;
-      oh4[i] = oh;
+    const int64_t nv = n / V;
+    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(x);
+    const Vec<T>* dv = reinterpret_cast<const Vec<T>*>(den);
+    const Vec<T>* hv = reinterpret_cast<const Vec<T>*>(hd);
+    const Vec<T>* zv = reinterpret_cast<const Vec<T>*>(noise);
+    Vec<T>* oxv = reinterpret_cast<Vec<T>*>(out_x);
+    Vec<T>* ohv = reinterpret_cast<Vec<T>*>(out_hd);
+    for (int64_t i = tid; i < nv; i += stride) {
+      const Vec<T> a = xv[i], b = dv[i], c = hv[i], z = zv[i];
+      Vec<T> ox, oh;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float fx, fh;
+        momentum_elem(s, to_f32(a.v[j]), to_f32(b.v[j]), to_f32(c.v[j]),
+                      to_f32(z.v[j]), &fx, &fh);
+        ox.v[j] = from_f32<T>(fx);
+        oh.v[j] = from_f32<T>(fh);
+      }
+      oxv[i] = ox;
+      ohv[i] = oh;
     }
-    done = n4 << 2;
+    done = nv * V;
   }
   // masked tail (or the whole tensor when a pointer is not 16-byte aligned)
   for (int64_t i = done + tid; i < n; i += stride) {
-    momentum_elem(s, x[i], den[i], hd[i], noise[i], out_x + i, out_hd + i);
+    float fx, fh;
+    momentum_elem(s, to_f32(x[i]), to_f32(den[i]), to_f32(hd[i]),
+                  to_f32(noise[i]), &fx, &fh);
+    out_x[i] = from_f32<T>(fx);
+    out_hd[i] = from_f32<T>(fh);
   }
 }
 
@@ -179,32 +237,34 @@ __device__ double reduce_partials(const float* __restrict__ parts, int nparts,
   return *result;
 }
 
-__global__ void scale_noise_sum_kernel(const float* __restrict__ x,
+template <typename T>
+__global__ void scale_noise_sum_kernel(const T* __restrict__ x,
                                        float* __restrict__ part_sum,
                                        int64_t n, int vec) {
+  constexpr int V = Vec<T>::kN;
   __shared__ float smem[kWarps];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   float acc = 0.f;
   int64_t done = 0;
   if (vec) {
-    const int64_t n4 = n >> 2;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    for (int64_t i = tid; i < n4; i += stride) {
-      const float4 v = x4[i];
-      acc += (v.x + v.y) + (v.z + v.w);
-    }
-    done = n4 << 2;
+    const int64_t nv = n / V;
+    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(x);
+    for (int64_t i = tid; i < nv; i += stride)
+      acc += vec_tree_sum(xv[i], [](float v) { return v; });
+    done = nv * V;
   }
-  for (int64_t i = done + tid; i < n; i += stride) acc += x[i];
+  for (int64_t i = done + tid; i < n; i += stride) acc += to_f32(x[i]);
   acc = block_sum(acc, smem);
   if (threadIdx.x == 0) part_sum[blockIdx.x] = acc;
 }
 
-__global__ void scale_noise_sqdev_kernel(const float* __restrict__ x,
+template <typename T>
+__global__ void scale_noise_sqdev_kernel(const T* __restrict__ x,
                                          const float* __restrict__ part_sum,
                                          float* __restrict__ part_sq,
                                          int64_t n, int vec) {
+  constexpr int V = Vec<T>::kN;
   __shared__ float smem[kWarps];
   __shared__ double dsmem[kWarps];
   __shared__ double total;
@@ -212,32 +272,31 @@ __global__ void scale_noise_sqdev_kernel(const float* __restrict__ x,
       (float)(reduce_partials(part_sum, gridDim.x, dsmem, &total) / (double)n);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const auto sq = [mean](float v) {
+    const float a = v - mean;
+    return a * a;
+  };
   float acc = 0.f;
   int64_t done = 0;
   if (vec) {
-    const int64_t n4 = n >> 2;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    for (int64_t i = tid; i < n4; i += stride) {
-      const float4 v = x4[i];
-      const float a = v.x - mean, b = v.y - mean, c = v.z - mean, d = v.w - mean;
-      acc += (a * a + b * b) + (c * c + d * d);
-    }
-    done = n4 << 2;
+    const int64_t nv = n / V;
+    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(x);
+    for (int64_t i = tid; i < nv; i += stride) acc += vec_tree_sum(xv[i], sq);
+    done = nv * V;
   }
-  for (int64_t i = done + tid; i < n; i += stride) {
-    const float a = x[i] - mean;
-    acc += a * a;
-  }
+  for (int64_t i = done + tid; i < n; i += stride) acc += sq(to_f32(x[i]));
   acc = block_sum(acc, smem);
   if (threadIdx.x == 0) part_sq[blockIdx.x] = acc;
 }
 
-__global__ void scale_noise_apply_kernel(const float* __restrict__ x,
+template <typename T>
+__global__ void scale_noise_apply_kernel(const T* __restrict__ x,
                                          const float* __restrict__ part_sum,
                                          const float* __restrict__ part_sq,
-                                         float* __restrict__ out, int64_t n,
+                                         T* __restrict__ out, int64_t n,
                                          float threshold, float factor,
                                          int vec) {
+  constexpr int V = Vec<T>::kN;
   __shared__ double dsmem[kWarps];
   __shared__ double total;
   const float mean =
@@ -254,22 +313,21 @@ __global__ void scale_noise_apply_kernel(const float* __restrict__ x,
   const float div = rescale ? sd : 1.f;
   int64_t done = 0;
   if (vec) {
-    const int64_t n4 = n >> 2;
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    for (int64_t i = tid; i < n4; i += stride) {
-      const float4 v = x4[i];
-      float4 o;
-      o.x = ((v.x - shift) / div) * factor;
-      o.y = ((v.y - shift) / div) * factor;
-      o.z = ((v.z - shift) / div) * factor;
-      o.w = ((v.w - shift) / div) * factor;
-      o4[i] = o;
+    const int64_t nv = n / V;
+    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(x);
+    Vec<T>* ov = reinterpret_cast<Vec<T>*>(out);
+    for (int64_t i = tid; i < nv; i += stride) {
+      const Vec<T> v = xv[i];
+      Vec<T> o;
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        o.v[j] = from_f32<T>(((to_f32(v.v[j]) - shift) / div) * factor);
+      ov[i] = o;
     }
-    done = n4 << 2;
+    done = nv * V;
   }
   for (int64_t i = done + tid; i < n; i += stride)
-    out[i] = ((x[i] - shift) / div) * factor;
+    out[i] = from_f32<T>(((to_f32(x[i]) - shift) / div) * factor);
 }
 
 int momentum_grid(int64_t work) {
@@ -278,38 +336,80 @@ int momentum_grid(int64_t work) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
+template <typename T>
+int momentum_step(const void* x, const void* den, const void* hd,
+                  const void* noise, const float* scal, void* out_x,
+                  void* out_hd, int64_t n, int vec, cudaStream_t stream) {
+  const int grid = momentum_grid(vec ? n / Vec<T>::kN : n);
+  momentum_step_kernel<T><<<grid, kThreads, 0, stream>>>(
+      (const T*)x, (const T*)den, (const T*)hd, (const T*)noise, scal,
+      (T*)out_x, (T*)out_hd, n, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int scale_noise(const void* x_, void* out_, float* part, int64_t n,
+                int nblocks, float threshold, float factor, int vec,
+                cudaStream_t s) {
+  const T* x = (const T*)x_;
+  float* part_sum = part;
+  float* part_sq = part + nblocks;
+  scale_noise_sum_kernel<T><<<nblocks, kThreads, 0, s>>>(x, part_sum, n, vec);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  scale_noise_sqdev_kernel<T><<<nblocks, kThreads, 0, s>>>(x, part_sum,
+                                                           part_sq, n, vec);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  scale_noise_apply_kernel<T><<<nblocks, kThreads, 0, s>>>(
+      x, part_sum, part_sq, (T*)out_, n, threshold, factor, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int sonar_momentum_step(const float* x, const float* den, const float* hd,
-                        const float* noise, const float* scal, float* out_x,
-                        float* out_hd, int64_t n, int vec, void* stream) {
-  const int grid = momentum_grid(vec ? (n >> 2) : n);
-  momentum_step_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, den, hd, noise, scal, out_x, out_hd, n, vec);
-  return (int)cudaGetLastError();
+// dtype: 0 float32, 1 bfloat16, 2 float16 (x, den, hd, noise and both
+// outputs share it); scal stays float32.
+int sonar_momentum_step(const void* x, const void* den, const void* hd,
+                        const void* noise, const float* scal, void* out_x,
+                        void* out_hd, int64_t n, int vec, int dtype,
+                        void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0:
+      return momentum_step<float>(x, den, hd, noise, scal, out_x, out_hd, n,
+                                  vec, s);
+    case 1:
+      return momentum_step<__nv_bfloat16>(x, den, hd, noise, scal, out_x,
+                                          out_hd, n, vec, s);
+    case 2:
+      return momentum_step<__half>(x, den, hd, noise, scal, out_x, out_hd, n,
+                                   vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // part: scratch of 2 * nblocks floats; nblocks must be in [1, 1024] and is
 // chosen by the caller from n alone, so the reduction order is a function
-// of the shape.
-int sonar_scale_noise(const float* x, float* out, float* part, int64_t n,
+// of the shape. dtype as for sonar_momentum_step (x and out share it).
+int sonar_scale_noise(const void* x, void* out, float* part, int64_t n,
                       int nblocks, float threshold, float factor, int vec,
-                      void* stream) {
+                      int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  float* part_sum = part;
-  float* part_sq = part + nblocks;
-  scale_noise_sum_kernel<<<nblocks, kThreads, 0, s>>>(x, part_sum, n, vec);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  scale_noise_sqdev_kernel<<<nblocks, kThreads, 0, s>>>(x, part_sum, part_sq,
-                                                        n, vec);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  scale_noise_apply_kernel<<<nblocks, kThreads, 0, s>>>(
-      x, part_sum, part_sq, out, n, threshold, factor, vec);
-  return (int)cudaGetLastError();
+  switch (dtype) {
+    case 0:
+      return scale_noise<float>(x, out, part, n, nblocks, threshold, factor,
+                                vec, s);
+    case 1:
+      return scale_noise<__nv_bfloat16>(x, out, part, n, nblocks, threshold,
+                                        factor, vec, s);
+    case 2:
+      return scale_noise<__half>(x, out, part, n, nblocks, threshold, factor,
+                                 vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* sonar_error_string(int err) {

@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("philox.cuh", "fused.cu", "hwrng.cu", "fused_pyramid.cu")
+SOURCES = ("philox.cuh", "fused.cu", "hwrng.cu", "fused_pyramid.cu", "voronoi.cu")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -106,9 +106,9 @@ def load_library() -> ctypes.CDLL:
     point's argument and return types declared."""
     lib = ctypes.CDLL(str(build()))
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-    lib.sonar_momentum_step.argtypes = [p, p, p, p, p, p, p, i64, i32, p]
+    lib.sonar_momentum_step.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, p]
     lib.sonar_momentum_step.restype = i32
-    lib.sonar_scale_noise.argtypes = [p, p, p, i64, i32, f32, f32, i32, p]
+    lib.sonar_scale_noise.argtypes = [p, p, p, i64, i32, f32, f32, i32, i32, p]
     lib.sonar_scale_noise.restype = i32
     u32 = ctypes.c_uint32
     lib.sonar_philox_fill.argtypes = [p, i64, u32, u32, u32, i32, p]
@@ -119,6 +119,9 @@ def load_library() -> ctypes.CDLL:
     lib.sonar_pyramid_down.argtypes = [p, p, i32, i32, i32, i32, p, p, p, i32, u32,
                                        u32, p]
     lib.sonar_pyramid_down.restype = i32
+    lib.sonar_voronoi_ksmallest.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, i32,
+                                            i32, f32, f32, f32, f32, p]
+    lib.sonar_voronoi_ksmallest.restype = i32
     lib.sonar_error_string.argtypes = [i32]
     lib.sonar_error_string.restype = ctypes.c_char_p
     return lib

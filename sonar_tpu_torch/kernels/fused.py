@@ -10,6 +10,9 @@
 
 Each wrapper sends a CUDA tensor to its kernel, or raises if the kernel
 cannot take it, and a CPU tensor to the plain PyTorch version beside it.
+Both kernels take float32, bfloat16 and float16 latents: they load each
+element into float32, compute there and store in the latent's type, as the
+TPU kernels' float32 scalars promote their arithmetic.
 There is no fallback from one to the other. Each wrapper counts its kernel
 launches in a plain integer attribute, ``launches``, so a run can show that
 it went through the kernel; the plain version does not count.
@@ -27,11 +30,17 @@ _SCALE_NOISE_ELEMS_PER_BLOCK = 4096
 _SCALE_NOISE_MAX_BLOCKS = 1024
 
 
-def _check_cuda_f32(name: str, t: torch.Tensor, like: torch.Tensor | None = None):
+# The element types the kernels take, by the code their C entry points read.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _check_cuda(name: str, t: torch.Tensor, like: torch.Tensor | None = None,
+                dtypes=tuple(_DTYPE_CODES)):
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32 only, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: the kernel takes {[str(d) for d in dtypes]}, "
+                        f"got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the kernel needs a contiguous tensor")
     if like is not None:
@@ -39,6 +48,8 @@ def _check_cuda_f32(name: str, t: torch.Tensor, like: torch.Tensor | None = None
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(like.shape)}")
         if t.device != like.device:
             raise ValueError(f"{name}: device {t.device} != {like.device}")
+        if t.dtype != like.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype} != {like.dtype}")
 
 
 def _aligned16(*ts: torch.Tensor) -> int:
@@ -88,13 +99,15 @@ def fused_momentum_step_reference(x, denoised, hd, noise, scal):
 def fused_momentum_step(x, denoised, hd, noise, scal):
     """One-pass NEW-mode momentum + Euler step + noise injection.
 
-    ``scal`` is the (10,) float32 vector of :func:`pack_momentum_scalars`,
-    on the same device as ``x``. Returns ``(x', hd')``."""
+    ``x``, ``denoised``, ``hd`` and ``noise`` share one dtype (float32,
+    bfloat16 or float16); ``scal`` is the (10,) float32 vector of
+    :func:`pack_momentum_scalars`, on the same device as ``x``. Returns
+    ``(x', hd')`` in the dtype of ``x``."""
     if x.device.type == "cpu":
         return fused_momentum_step_reference(x, denoised, hd, noise, scal)
     for name, t in (("x", x), ("denoised", denoised), ("hd", hd), ("noise", noise)):
-        _check_cuda_f32(name, t, like=x)
-    _check_cuda_f32("scal", scal)
+        _check_cuda(name, t, like=x)
+    _check_cuda("scal", scal, dtypes=(torch.float32,))
     if scal.shape != (10,) or scal.device != x.device:
         raise ValueError(f"scal: expected (10,) on {x.device}, got "
                          f"{tuple(scal.shape)} on {scal.device}")
@@ -108,7 +121,8 @@ def fused_momentum_step(x, denoised, hd, noise, scal):
         err = lib.sonar_momentum_step(
             x.data_ptr(), denoised.data_ptr(), hd.data_ptr(), noise.data_ptr(),
             scal.data_ptr(), out_x.data_ptr(), out_hd.data_ptr(), x.numel(),
-            _aligned16(x, denoised, hd, noise, out_x, out_hd), stream)
+            _aligned16(x, denoised, hd, noise, out_x, out_hd), _DTYPE_CODES[x.dtype],
+            stream)
     check(lib, err, "fused_momentum_step")
     fused_momentum_step.launches += 1
     return out_x, out_hd
@@ -151,7 +165,7 @@ def fused_scale_noise(noise, factor=1.0, *, threshold_std_devs: float = 2.5):
     if noise.device.type == "cpu":
         return fused_scale_noise_reference(noise, factor,
                                            threshold_std_devs=threshold_std_devs)
-    _check_cuda_f32("noise", noise)
+    _check_cuda("noise", noise)
     n = noise.numel()
     if n == 0:
         return noise if factor == 1 else noise * factor
@@ -167,7 +181,7 @@ def fused_scale_noise(noise, factor=1.0, *, threshold_std_devs: float = 2.5):
         err = lib.sonar_scale_noise(
             noise.data_ptr(), out.data_ptr(), part.data_ptr(), n, nblocks,
             threshold_std_devs / math.sqrt(n), float(factor),
-            _aligned16(noise, out), stream)
+            _aligned16(noise, out), _DTYPE_CODES[noise.dtype], stream)
     check(lib, err, "fused_scale_noise")
     fused_scale_noise.launches += 1
     return out

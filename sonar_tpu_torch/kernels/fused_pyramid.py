@@ -48,7 +48,7 @@ import torch
 
 from ..core.rng import derive_seed
 from ..ops.resample import _resize_separable, resize_matrix
-from .fused import _check_cuda_f32
+from .fused import _check_cuda
 from .hwrng import philox_key, philox_randn, philox_randn_reference
 
 MAX_LEVELS = 16  # kernel parameter arrays (csrc/fused_pyramid.cu kMaxLevels)
@@ -63,7 +63,7 @@ def _f32(x: float) -> float:
 
 
 def _check_input(name: str, t: torch.Tensor, ndim: int):
-    _check_cuda_f32(name, t)
+    _check_cuda(name, t, dtypes=(torch.float32,))
     if t.dim() != ndim:
         raise ValueError(f"{name}: the kernel needs a {ndim}-D tensor, "
                          f"got shape {tuple(t.shape)}")
@@ -302,7 +302,7 @@ def _launch_down(out, base, g_fields, sizes, coefs, mode, key):
 
 def _check_base(base, bc, h, w):
     if base is not None:
-        _check_cuda_f32("base", base)
+        _check_cuda("base", base, dtypes=(torch.float32,))
         if base.numel() != bc * h * w:
             raise ValueError(f"base: shape {tuple(base.shape)} != {(bc, h, w)}")
 

@@ -9,7 +9,10 @@ from .generators import (
     PyramidOldGenerator,
     UniformGenerator,
 )
+from .chain import NoiseChain
+from .items import TypedNoiseItem
 from .presets import NOISE_TYPES, get_noise_item
+from .voronoi import VoronoiGenerator
 
 __all__ = [
     "GaussianGenerator",
@@ -18,11 +21,14 @@ __all__ = [
     "MixedGenerator",
     "NOISE_TYPES",
     "NoiseCtx",
+    "NoiseChain",
     "NoiseItem",
     "NoiseSamplerHandle",
     "PyramidGenerator",
     "PyramidOldGenerator",
+    "TypedNoiseItem",
     "UniformGenerator",
+    "VoronoiGenerator",
     "fix_output_frames",
     "get_noise_item",
     "make_noise_sampler",

@@ -99,6 +99,34 @@ class NoiseItem:
     def params(self) -> dict:
         return {k: getattr(self, k) for k in self._keys}
 
+    @staticmethod
+    def _clone_value(v):
+        """Deep-clone child items inside param values (the reference's
+        per-class ``clone_key`` overrides, py/noise.py:62-67, generalized)."""
+        if isinstance(v, NoiseItem):
+            return v.clone()
+        if isinstance(v, list):
+            return [NoiseItem._clone_value(i) for i in v]
+        if isinstance(v, tuple):
+            return tuple(NoiseItem._clone_value(i) for i in v)
+        return v
+
+    def cloned_params(self) -> dict:
+        return {k: self._clone_value(v) for k, v in self.params().items()}
+
+    def clone(self) -> "NoiseItem":
+        p = self.cloned_params()
+        factor = p.pop("factor")
+        return self.__class__(factor, **p)
+
+    def set_factor(self, factor: float) -> "NoiseItem":
+        self.factor = factor
+        return self
+
+    def get_normalize(self, k: str, default=None):
+        val = getattr(self, k, None)
+        return default if val is None else val
+
     def __repr__(self) -> str:
         body = ", ".join(f"{k}={v!r}" for k, v in self.params().items())
         return f"{self.__class__.__name__}({body})"

@@ -68,6 +68,12 @@ class Generator(NoiseItem):
             "normalize_dims": None,
         }
 
+    def clone(self):
+        p = self.cloned_params()
+        factor = p.pop("factor")
+        opts = p.pop("options", {})
+        return self.__class__(factor, **p, **opts)
+
     # -- helpers -------------------------------------------------------------
     def randn(self, ctx: NoiseCtx, seed: int, shape=None, dtype=None):
         shape = tuple(shape) if shape is not None else ctx.adjusted_shape()

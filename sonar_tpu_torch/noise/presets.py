@@ -5,9 +5,9 @@ The JAX registry imports the whole zoo when it is imported. The port
 registers lazily instead: a name maps to a loader that imports its generator
 module only when that name is first asked for, so the main path loads only
 the gaussian generator. Registered so far: ``gaussian``, ``uniform`` and
-the thirteen pyramid-family names with the JAX registry's exact presets
-(presets.py:73-75, 128-174); later slices add the rest of the zoo to
-``_LOADERS``.
+the thirteen pyramid-family names and the two Voronoi presets, with the
+JAX registry's exact parameters (presets.py:73-75, 128-174, 188-221); later
+slices add the rest of the zoo to ``_LOADERS``.
 """
 
 from __future__ import annotations
@@ -71,6 +71,25 @@ def _load_pyramid_mix(name: str, **member):
     return load
 
 
+def _load_voronoi_fuzz():
+    from .voronoi import VoronoiGenerator
+
+    return _simple(VoronoiGenerator, n_points=(256,), octaves=1,
+                   distance_mode=("fuzz:name=angle_tanh:fuzz=0.1",),
+                   result_mode=("diff2",), z_max=0.0)
+
+
+def _load_voronoi_mix():
+    from .generators import GaussianGenerator
+    from .voronoi import VoronoiGenerator
+
+    voronoi = {"n_points": (256,), "octaves": 3, "distance_mode": ("euclidean",),
+               "result_mode": ("diff2",), "octave_mode": "new_features",
+               "lacunarity": 2.0, "gain": 0.75, "z_max": 0.0}
+    return _mixed("voronoi_mix", ((VoronoiGenerator, voronoi, 0.6),
+                                  (GaussianGenerator, {}, 0.4)))
+
+
 _LOADERS: dict[str, Callable[[], Callable[..., Generator]]] = {
     "gaussian": _load_gaussian,
     "uniform": _load_uniform,
@@ -91,6 +110,8 @@ _LOADERS: dict[str, Callable[[], Callable[..., Generator]]] = {
                                           upscale_mode="area"),
     "pyramid_mix_bislerp": _load_pyramid_mix("pyramid_mix_bislerp", discount=0.5,
                                              upscale_mode="bislerp"),
+    "voronoi_fuzz": _load_voronoi_fuzz,
+    "voronoi_mix": _load_voronoi_mix,
 }
 
 

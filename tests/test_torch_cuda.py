@@ -13,6 +13,24 @@ absolute (the card's libdevice logf/cosf/sinf against the host's, a few
 ulps of values up to ~5.7); B4 and B5 1e-5 relative to max(1, |plain|)
 (B4's products sum in another order; B5 inherits B3's ulps), with matmul
 TF32 off for the plain versions.
+
+B1 and B2 on bfloat16 and float16 latents compute in float32 and round once
+to the working type, as the JAX kernels' float32 scalars promote their
+arithmetic: each is held against its plain version run on the float32
+upcast of the same inputs and rounded to the working type, within one ulp
+of that type relative to max(1, |plain|) (2^-7 bf16, 2^-10 fp16; B1 comes
+out bit-equal, B2's mean and std may move a rounding by one ulp), and
+against the plain version run in the working type, which rounds each of
+its ~10 steps, within 2^-4 (bf16) and 2^-7 (fp16) relative to
+max(1, |plain|). The bf16 sampler run against ``use_fused=False`` (20 steps,
+the carry rounded to bf16 at other points on the two paths): 0.1 relative
+to the trajectory's largest magnitude (0.034 in a CPU simulation).
+
+B6 against its plain version: bit for bit for euclidean, quadratic and
+chebyshev (same operations in the same order, no FMA contraction, sqrtf
+correctly rounded); minkowski within 1e-6 relative to max(1, |plain|) (both
+take powf on the card; torch special-cases p = 2 and 3, and the kernel
+follows it).
 """
 
 import pytest
@@ -20,8 +38,12 @@ import torch
 
 import sonar_tpu_torch.kernels.fused as F
 import sonar_tpu_torch.kernels.fused_pyramid as P
+import sonar_tpu_torch.kernels.voronoi as V
 from sonar_tpu_torch.kernels import hwrng as H
 from sonar_tpu_torch.noise.generators import _size_ladder_highres, _size_ladder_pyramid
+
+# one ulp of the working type, and the bound against the plain version run in it
+LOW_PRECISION = {torch.bfloat16: (2.0**-7, 2.0**-4), torch.float16: (2.0**-10, 2.0**-7)}
 
 GATES = [(h, i, w, 0.5) for h in (0.0, 1.0) for i in (0.0, 1.0) for w in (0.0, 1.0)]
 GATES.append((1.0, 1.0, 1.0, 0.0))
@@ -81,9 +103,73 @@ def test_scale_noise_kernel_matches_plain(cuda, shape, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(1, 4, 64, 64), (1, 3, 67, 61)])
+def test_low_precision_momentum_and_scale_noise(cuda, dtype, shape):
+    ulp, plain_tol = LOW_PRECISION[dtype]
+    ts = [_randn(shape, cuda, seed).to(dtype) for seed in range(4)]
+    for has, inw, hw, ns in GATES:
+        scal = F.pack_momentum_scalars(sigma=5.0, dt=-2.0, momentum=0.95, hd_ratio=0.75,
+                                       hd_scale=1.05, md_scale=1.0, has=has, noise_scale=ns,
+                                       in_window=inw, hist_window=hw, device=cuda)
+        out = F.fused_momentum_step(*ts, scal)
+        up = F.fused_momentum_step_reference(*(t.float() for t in ts), scal)
+        low = F.fused_momentum_step_reference(*ts, scal)
+        for o, u, q in zip(out, up, low):
+            assert o.dtype == dtype
+            assert torch.equal(o, u.to(dtype))
+            assert _rel_err(o, q) <= plain_tol
+    for x, factor in ((ts[0] * 3 + 0.5, 1.0), (ts[1] * 2 + 0.25, 1.7), (ts[2], 1.0)):
+        x = x.to(dtype)
+        n = F.fused_scale_noise.launches
+        out = F.fused_scale_noise(x, factor)
+        assert F.fused_scale_noise.launches == n + 1 and out.dtype == dtype
+        want = F.fused_scale_noise_reference(x.float(), factor).to(dtype)
+        err = (out.double() - want.double()).abs() / want.double().abs().clamp(min=1)
+        assert float(err.max()) <= ulp
+        assert _rel_err(out, F.fused_scale_noise_reference(x, factor)) <= plain_tol
+        assert torch.equal(out, F.fused_scale_noise(x, factor))
+
+
+@pytest.mark.cuda
+def test_bf16_latent_runs_the_sampler_on_the_card(cuda):
+    """The repaired fault: a bf16 latent used to raise at its first
+    scale_noise on the card. It now runs B1, B2 and B3 once per step."""
+    from sonar_tpu_torch.samplers.sonar import sample_sonar_euler_ancestral
+
+    shape, steps = (1, 4, 64, 64), 20
+    ramp = torch.linspace(0, 1, steps, dtype=torch.float64)
+    s = (14.6 ** (1 / 7.0) + ramp * (0.03 ** (1 / 7.0) - 14.6 ** (1 / 7.0))) ** 7.0
+    sigmas = torch.cat([s, torch.zeros(1, dtype=torch.float64)]).float()
+    target = (torch.arange(4 * 64 * 64, dtype=torch.float32, device=cuda).reshape(shape)
+              / 1e3).to(torch.bfloat16)
+
+    def stub(x, sig, **_):
+        return ((x * 0.9 + target) / (1.0 + sig.reshape(-1, 1, 1, 1) * 0.05)).to(x.dtype)
+
+    x0 = (_randn(shape, cuda, 1) * 14.6).to(torch.bfloat16)
+    counts = (F.fused_momentum_step.launches, F.fused_scale_noise.launches,
+              H.philox_randn.launches)
+    out = sample_sonar_euler_ancestral(stub, x0, sigmas, seed=7)
+    torch.cuda.synchronize()
+    assert (F.fused_momentum_step.launches - counts[0], F.fused_scale_noise.launches - counts[1],
+            H.philox_randn.launches - counts[2]) == (steps, steps, steps)
+    assert out.dtype == torch.bfloat16 and out.is_cuda and torch.isfinite(out).all()
+    plain = sample_sonar_euler_ancestral(stub, x0, sigmas, seed=7, use_fused=False)
+    err = float((out.double() - plain.double()).abs().max())
+    assert plain.dtype == torch.bfloat16
+    assert err <= 0.1 * float(plain.double().abs().max())
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(TypeError):
-        F.fused_scale_noise(torch.zeros((1, 4, 8, 8), device=cuda, dtype=torch.float16))
+        F.fused_scale_noise(torch.zeros((1, 4, 8, 8), device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError):  # mixed dtypes
+        z = torch.zeros((1, 4, 8, 8), device=cuda)
+        F.fused_momentum_step(z, z, z, z.half(), F.pack_momentum_scalars(
+            sigma=1.0, dt=-0.5, momentum=0.9, hd_ratio=0.75, hd_scale=1.0, md_scale=1.0,
+            has=0.0, noise_scale=0.0, device=cuda))
     with pytest.raises(ValueError):
         F.fused_scale_noise(torch.zeros((1, 4, 8, 8), device=cuda).transpose(2, 3))
     x = torch.zeros((1, 4, 8, 8), device=cuda)
@@ -171,3 +257,42 @@ def test_pyramid_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError):
         P.fused_downscale_accumulate([torch.zeros((4, 4, 8, 8), device=cuda)], (16, 16),
                                      [(32, 32)], [1.0])
+
+
+B6_SHAPES = [(1, 4, 64, 64), (1, 3, 67, 61), (2, 2, 9, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist,p", [("euclidean", 3.0), ("quadratic", 3.0),
+                                    ("chebyshev", 3.0), ("minkowski", 2.5)])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_voronoi_kernel_matches_plain(cuda, dist, p, k):
+    g = torch.Generator(device=cuda).manual_seed(k)
+    for n in (37, 256, 4096):  # 4,096 points cross B6's 1,024-point chunks
+        for b, c, h, w in B6_SHAPES:
+            fp = torch.rand((b, c, n, 3), generator=g, device=cuda)
+            ys = torch.arange(h, dtype=torch.float32, device=cuda) / h
+            xs = torch.arange(w, dtype=torch.float32, device=cuda) / w
+            z = torch.tensor(0.37, device=cuda)
+            for scale, weights in ((1.0, (1.0, 1.0, 1.0)), (8.0, (2.0, 1.0, 0.25))):
+                kw = dict(scale=scale, k=k, dist=dist, p=p, weights=weights)
+                launches = V.voronoi_ksmallest.launches
+                out = V.voronoi_ksmallest(fp, ys, xs, z, **kw)
+                assert V.voronoi_ksmallest.launches == launches + 1
+                ref = V.voronoi_ksmallest_reference(fp, ys, xs, z, **kw)
+                assert out.shape == (b, c, h, w, k) and out.dtype == torch.float32
+                if dist == "minkowski":
+                    assert _rel_err(out, ref) <= 1e-6
+                else:
+                    assert torch.equal(out, ref), (n, (b, c, h, w), scale)
+
+
+@pytest.mark.cuda
+def test_voronoi_kernel_refuses_what_it_cannot_take(cuda):
+    fp = torch.rand((1, 4, 5, 3), device=cuda)
+    ys = torch.arange(8, dtype=torch.float32, device=cuda) / 8
+    for bad in (dict(k=9), dict(k=6), dict(k=2, dist="angle")):
+        with pytest.raises(ValueError):
+            V.voronoi_ksmallest(fp, ys, ys, 0.0, scale=1.0, **bad)
+    with pytest.raises(ValueError, match="on cpu"):
+        V.voronoi_ksmallest(fp, ys.cpu(), ys, 0.0, scale=1.0, k=2)
