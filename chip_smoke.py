@@ -26,8 +26,10 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    uniforms bit for bit, normals within 2e-6, on a ragged shape and on more
    than 2**24 elements, two calls equal, seeds distinct, and the moments;
 7. holds kernel B4 (upscale pyramid) against its plain version on the
-   64×64, 512×512 and a ragged ladder in five modes, base drawn in-kernel
-   (same seed) and given;
+   64×64, 512×512, a ragged and a 263×260 ladder in five modes, base drawn
+   in-kernel (same seed) and given, and on ladders that stress its tap tables
+   (bicubic's clamped edges on 2- and 3-wide levels, widths that are not
+   multiples of 4, a level as tall as the output, sixteen levels);
 8. holds kernel B5 (downscale ladders) against its plain version on the
    highres_pyramid and pyramid_old ladders, with and without a base, fields
    drawn in-kernel and given;
@@ -39,11 +41,13 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    gaussian and the three pyramids; and compares the pyramid path with the
    same sampler fed the plain versions' draws, TF32 off;
 10. times the pyramid path, pyramid noise throughput, and B3, B4 and B5
-   against their plain versions and the composed paths;
+   against their plain versions and the composed paths (B4's device time
+   at 1×4×64×64 and 4×4×512×512 beside the composed path's);
 11. holds kernel B6 (the k smallest toroidal distances of Voronoi noise)
    against its plain version: four distances, k in {1, 2, 4, 8}, N = 37,
    256 and 4,096 points (across its shared-memory chunks), the path's
-   shape and ragged ones, axis weights and scale 8;
+   shape and ragged ones, axis weights and scale 8; then every tile height
+   and point split, k = N = 8, 13 and 100 points, strided grid vectors;
 12. runs the Voronoi path — the sampler of phase 4 with
    ``SonarConfig(noise_type="voronoi_mix")`` — and checks its launches (B6
    three times a step, once per octave; B3 four times a step and three
@@ -54,12 +58,18 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
 13. holds B1 and B2 on bfloat16 and float16 latents against their plain
    versions and runs the bf16 headline (stub denoiser, 20 steps) through
    B1, B2 and B3, against ``use_fused=False``;
-14. times the Voronoi path against the gaussian headline, B6 against its
-   plain version at the path's shape and at bench.py's Voronoi shape for
-   k in {1, 2, 4, 8}, the k = 1 rule (per-axis path against B6), and
-   Voronoi noise throughput.
+14. times the Voronoi path against the gaussian headline (with the launches
+   and device time of one run of each), B6 against its plain version at
+   the path's shape and at bench.py's Voronoi shape for k in {1, 2, 4, 8},
+   f1 through B6 against the per-axis path, and Voronoi noise throughput.
 
-Every phase passes or the script exits non-zero without a result. The last
+Every phase passes or the script exits non-zero without a result. Before
+the last line it prints one JSON object listing the six kernels with their
+launches on the paths, their error, their device time (``ms``), the plain
+version's, the least time the card could take (``bound_ms``, from this
+run's shapes: bytes at 3.35 TB/s against operations at 33.5 T/s, the
+67 TFLOP/s fp32 peak counted as fused multiply-adds) and, where one PyTorch
+route computes the same function, its time (``library_ms``). The last
 line is ``{"ok": true, "device": {...}}``. It needs one CUDA device and no
 network, and imports nothing of JAX.
 """
@@ -81,7 +91,7 @@ B1_SHAPES = [(1, 4, 64, 64), (4, 4, 128, 128), (1, 4, 67, 61), (1, 3, 67, 61)]
 B2_SHAPES = [(1, 4, 64, 64), (4, 4, 128, 128), (1, 4, 67, 61), (1, 4, 2304, 2048)]
 B3_SHAPES = [(1, 4, 64, 64), (1, 4, 67, 61), (1, 4, 2304, 2048)]
 B3_SEEDS = [(0, 0), (7, 0), (2**40 + 3, 5)]  # (seed, stream)
-PYR_HW = [(64, 64), (512, 512), (67, 61)]
+PYR_HW = [(64, 64), (512, 512), (67, 61), (263, 260)]
 DOWN_HW = [(64, 64), (128, 128), (67, 61)]
 B1_TOL = 1e-6  # relative to max(1, |plain|): elementwise, same order of operations
 B2_TOL = 1e-5  # relative to max(1, |plain|): mean/std summed in another order
@@ -91,6 +101,16 @@ XDEV_TOL = 1e-5  # relative to max(1, |cpu|): one seed, CPU plain vs card kernel
 TRAJ_TOL = 1e-4  # relative to max |trajectory|, TF32 off on both paths
 B6_SHAPES = [(1, 4, 64, 64), (1, 3, 67, 61), (2, 2, 9, 130)]
 B6_POINTS = [37, 256, 4096]
+# every tile height B6 picks (4, 8, 16, 32 rows), with few points too
+B6_TILE_SHAPES = [(1, 1, 8, 8), (1, 3, 128, 128), (1, 2, 256, 160), (4, 4, 128, 128)]
+B6_TILE_POINTS = [8, 13, 100]
+# B4 ladders beyond the generator's: (h, w), the levels below the base
+PYR_EDGE = [((8, 6), [(3, 2), (2, 3), (1, 1)]),
+            ((5, 7), [(5, 3), (1, 7), (2, 2)]),
+            ((33, 130), [(33, 47), (12, 130), (3, 3), (1, 1)]),
+            ((16, 18), [(max(1, 16 - i), max(1, 18 - 2 * i)) for i in range(1, 17)])]
+HBM_BYTES_S = 3.35e12  # H100 SXM, published
+INSTR_S = 33.5e12  # 67 TFLOP/s fp32, a fused multiply-add counted as two
 B6_TOL = 1e-6  # minkowski only, relative to max(1, |plain|); the rest bit for bit
 # bf16/fp16: one ulp of the working type against the plain version on the
 # float32 upcast (relative to max(1, |plain|)); against the plain version
@@ -143,27 +163,124 @@ def cuda_ms(torch, fn, iters: int) -> float:
 
 def device_us(torch, fn, iters: int):
     """Mean device time per call in µs, summed and by kernel name: the GPU
-    kernels ``fn`` launches, from torch.profiler (None if it saw none)."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels ``fn`` launches, from torch.profiler (None if it saw none).
+
+    The profiler misses the first launches after it starts (eight of them,
+    late in this script), so a few untimed calls run inside it first and
+    only the kernels that start after them count; their number must be a
+    multiple of ``iters``. ``device_us.launched`` is that number per call."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        return None, {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(min(iters, 10)):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.004)  # the device idles: the timed kernels start well after
+            with record_function("device_us_timed"):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        marks = [e.time_range.start for e in events if e.name == "device_us_timed"]
+        if not marks:
+            return None, {}
+        t0 = min(marks) - 2000.0  # µs: inside the idle gap
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name != "device_us_timed" and e.time_range.start >= t0]
+        if not kernels:
+            return None, {}
+        if len(kernels) % iters == 0:
+            break
+    else:
+        fail(f"device_us: the profiler saw {len(kernels)} kernels for {iters} calls")
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    device_us.launched = len(kernels) / iters
     return (sum(by_name.values()) / iters,
             {k: v / iters for k, v in by_name.items()})
 
 
 def fmt_us(v):
     return "not measured" if v is None else f"{v:.2f} us"
+
+
+# -- the least time the card could take -------------------------------------
+#
+# The larger of (bytes moved: every input read once, every output written
+# once) / 3.35 TB/s and (arithmetic operations the function needs on these
+# inputs) / 33.5 T/s. The published fp32 peak, 67 TFLOP/s, is 33.5 T fused
+# multiply-adds a second; an add, a min or an integer multiply fills the same
+# dispatch slot, so every arithmetic operation counts as one (a lower bound:
+# the card has half as many int32 lanes). A sparse product counts its
+# nonzeros. One Philox4x32-10 call is 10 rounds of 2 mul.lo, 2 mul.hi, 4 xor,
+# 2 add = 100 operations for four values; Box-Muller is a log, a sqrt, a
+# cos, a sin, four multiplies and four conversions for two normals.
+
+PHILOX_INSTR = 25  # per 32-bit value
+NORMAL_INSTR = PHILOX_INSTR + 6  # per normal
+B1_INSTR, B2_INSTR = 27, 7  # per element, from the plain versions' operations
+
+
+def bound(nbytes: float, instr: float) -> dict:
+    tb, ti = nbytes / HBM_BYTES_S, instr / INSTR_S
+    return {"bytes": nbytes, "instr": instr, "us": max(tb, ti) * 1e6,
+            "by": "bytes" if tb >= ti else "operations"}
+
+
+def b1_bound(n: int, itemsize: int = 4) -> dict:
+    return bound(6 * itemsize * n + 40, B1_INSTR * n)  # 4 inputs, 2 outputs, the scalars
+
+
+def b2_bound(n: int, itemsize: int = 4) -> dict:
+    return bound(2 * itemsize * n, B2_INSTR * n)
+
+
+def b3_bound(n: int) -> dict:
+    return bound(4 * n, NORMAL_INSTR * n)
+
+
+def b4_bound(shape, ladder, mode: str, *, gen: bool) -> dict:
+    """B4 on ``ladder`` (level 0 the base): the output, the small levels,
+    the tap tables and a given base; per pixel the base pair (two normals
+    and their sum) when drawn in-kernel, and per level th*tw + tw fused
+    multiply-adds, the discount's multiply and the add."""
+    from sonar_tpu_torch.ops.resample import _resize_taps
+
+    (b, c, h, w), bc = shape, shape[0] * shape[1]
+    px = bc * h * w
+    nbytes, instr = 4 * px * (1 if gen else 2), px * (2 * NORMAL_INSTR + 2 if gen else 0)
+    for sh, sw in ladder[1:]:
+        th = _resize_taps(sh, h, mode)[0].shape[1]
+        tw = _resize_taps(sw, w, mode)[0].shape[1]
+        nbytes += 4 * bc * sh * sw + 8 * (h * th + w * tw)
+        instr += px * (th * tw + tw + 2)
+    return bound(nbytes, instr)
+
+
+def b5_bound(P, shape, sizes, coefs, mode: str, *, base: bool) -> dict:
+    """B5 with fields drawn in-kernel: the output and a given base; per
+    pixel and level one normal and a multiply-add, or four normals, the two
+    weight pairs (10) and the 2x2 blend (9) for bilinear."""
+    (b, c, h, w), px = shape, shape[0] * shape[1] * shape[2] * shape[3]
+    instr = 0
+    for planes, *_ in P._down_levels(sizes, coefs, h, w, mode):
+        instr += px * (NORMAL_INSTR + 2 if planes == 1 else 4 * NORMAL_INSTR + 19)
+    return bound(4 * px * (2 if base else 1), instr)
+
+
+def b6_bound(shape, n_pts: int, k: int) -> dict:
+    """B6: the points read and k floats a pixel written; per (pixel, point)
+    the two adds of the separable distance and the 2k min/max of the
+    insertion; per (row or column, point) a wrap and its term (~10); k
+    roots a pixel at most."""
+    b, c, h, w = shape
+    px = b * c * h * w
+    return bound(4 * (3 * b * c * n_pts + h + w + k * px),
+                 px * n_pts * (2 + 2 * k) + b * c * (h + w) * n_pts * 10 + px * k)
 
 
 @contextlib.contextmanager
@@ -407,8 +524,10 @@ def main():
                   lambda: F.fused_momentum_step_reference(x, den, hd, noise, scal)),
            "B2": (lambda: F.fused_scale_noise(draw),
                   lambda: F.fused_scale_noise_reference(draw))}
+    dev_timing = {}  # device µs per call at the path's shape: (kernel, plain)
     for k, (kf, pf) in fns.items():
         kd, pd = device_us(torch, kf, 50)[0], device_us(torch, pf, 50)[0]
+        dev_timing[k] = (kd, pd)
         print(f"[5] {k} at {SHAPE}: device time per call (torch.profiler, summed "
               f"kernels): kernel {fmt_us(kd)}, plain {fmt_us(pd)} [{card}]")
     big = [randn((4, 4, 128, 128)) for _ in range(4)]
@@ -417,11 +536,14 @@ def main():
     large = randn(B2_SHAPES[-1]) * 1.3 + 0.2
     b2_big = cuda_ms(torch, lambda: F.fused_scale_noise(large), 20)
     b2_plain_big = cuda_ms(torch, lambda: F.fused_scale_noise_reference(large), 20)
+    bd1, bd2 = b1_bound(big[0].numel()), b2_bound(large.numel())
     print(f"[5] B1 at (4, 4, 128, 128): {b1_big * 1000:.2f} us/call, "
-          f"{gbs:.0f} GB/s at 24 B/element [{card}]")
+          f"{gbs:.0f} GB/s at 24 B/element (bound {bd1['us']:.2f} us by {bd1['by']}) "
+          f"[{card}]")
     print(f"[5] B2 at {B2_SHAPES[-1]}: kernel {b2_big * 1000:.1f} us/call "
-          f"({16 * large.numel() / (b2_big / 1000) / 1e9:.0f} GB/s at 16 B/element), "
-          f"plain {b2_plain_big * 1000:.1f} us/call [{card}]")
+          f"({16 * large.numel() / (b2_big / 1000) / 1e9:.0f} GB/s at 16 B/element; bound "
+          f"{bd2['us']:.2f} us by {bd2['by']}), plain {b2_plain_big * 1000:.1f} us/call "
+          f"[{card}]")
     del big, large
 
     # -- phase 6: B3 against its plain version --------------------------------
@@ -480,6 +602,28 @@ def main():
                 need(rel <= PYR_TOL, f"B4 {hw} {mode} {what}: rel err {rel:.3e}")
         print(f"[7] B4 pyramid {hw} ladder {sizes}: {len(P.UP_MODES)} modes, in-kernel "
               f"and given base agree")
+    for hw, below in PYR_EDGE:
+        sizes = [hw, *below]
+        for bc in (1, 3):
+            shape = (1, bc, *hw)
+            disc = [0.7**i for i in range(1, len(sizes))]
+            base = randn((bc, *hw))
+            smalls = [randn((bc, sh, sw)) for sh, sw in below]
+            for mode in P.UP_MODES:
+                for what, out, ref in (
+                        ("gen_base", P.fused_pyramid(17, shape, sizes, 0.7, mode, device=dev),
+                         P.fused_pyramid_reference(17, shape, sizes, 0.7, mode, device=dev)),
+                        ("given base", P.fused_pyramid_accumulate(base, smalls, disc, mode),
+                         P.fused_pyramid_accumulate_reference(base, smalls, disc, mode))):
+                    torch.cuda.synchronize()
+                    need(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+                         f"B4 {hw} {mode}: malformed or non-finite")
+                    err, rel = rel_err(out, ref)
+                    b4_err = max(b4_err, err)
+                    need(rel <= PYR_TOL, f"B4 edge {sizes} bc={bc} {mode} {what}: rel err "
+                                         f"{rel:.3e}")
+    print(f"[7] B4 edge ladders {[(hw, len(b)) for hw, b in PYR_EDGE]} (size, levels), 1 and "
+          f"3 planes, {len(P.UP_MODES)} modes, in-kernel and given base agree")
     print(f"[7] B4 fused_pyramid vs plain: max abs err {b4_err:.3e} (tolerance "
           f"{PYR_TOL:g} x max(1,|plain|), matmul TF32 off)")
 
@@ -644,17 +788,31 @@ def main():
     print(f"[10] pyramid draw at {bshape} (B3 small levels + B4): kernel "
           f"{b4['kernel'] * 1000:.1f} us, plain {b4['plain'] * 1000:.1f} us, composed "
           f"path {b4['composed'] * 1000:.1f} us per draw [{card}]")
-    # what sets B4's time here: its dense fp32 products or its launches
-    _, by = device_us(torch, lambda: P.fused_pyramid(5, bshape, blad, 0.7, device=dev), 10)
-    up = sum(v for k, v in by.items() if "pyramid_up_kernel" in k)
-    ph = sum(v for k, v in by.items() if "philox_fill_kernel" in k)
-    cd, _ = device_us(torch, composed(generate("pyramid", bshape)), 10)
-    bc, h, w = bshape[0] * bshape[1], bshape[2], bshape[3]
-    macs = bc * (h * sum(sh * sw for sh, sw in blad[1:]) + h * w * sum(sw for _, sw in blad[1:]))
-    rate = f"{2 * macs / (up * 1e-6) / 1e12:.2f} TFLOP/s" if up else "rate not measured"
-    print(f"[10] pyramid draw at {bshape}, device time: B4 {up:.1f} us for {macs / 1e9:.3f} G "
-          f"dense fp32 multiply-adds ({rate}; H100 SXM fp32 peak 67), "
-          f"{len(blad) - 1} B3 launches {ph:.1f} us; composed path {fmt_us(cd)} [{card}]")
+    # B4 alone on the device beside the composed path (Philox levels through
+    # scale_samples' dense products), in turns, at the large shape and the path's
+    def b4_device(shape, lad, iters):
+        kf = lambda: P.fused_pyramid(5, shape, lad, 0.7, device=dev)  # noqa: E731
+        cf = composed(generate("pyramid", shape))
+        got = {"B4": [], "B3": [], "composed": []}
+        for which in ("kernel", "composed", "composed", "kernel"):
+            if which == "kernel":
+                _, by = device_us(torch, kf, iters)
+                got["B4"].append(sum(v for k, v in by.items() if "pyramid_up_kernel" in k))
+                got["B3"].append(sum(v for k, v in by.items() if "philox_fill_kernel" in k))
+            else:
+                got["composed"].append(device_us(torch, cf, iters)[0])
+        return got
+
+    b4_dev = {}
+    for shape, lad, iters in ((bshape, blad, 10), (SHAPE, ladder, 50)):
+        got = b4_dev[shape] = b4_device(shape, lad, iters)
+        bound = b4_bound(shape, lad, "bilinear", gen=True)
+        need(all(got["B4"]) and all(got["composed"]), "B4: device time not measured")
+        print(f"[10] pyramid draw at {shape}, ladder {lad}, device time per draw: B4 alone "
+              f"{[round(v, 2) for v in got['B4']]} us (bound {bound['us']:.2f} us by "
+              f"{bound['by']}: {bound['bytes'] / 1e6:.3f} MB, {bound['instr'] / 1e6:.2f} M "
+              f"operations), {len(lad) - 1} B3 launches {[round(v, 2) for v in got['B3']]} "
+              f"us; composed path {[round(v, 2) for v in got['composed']]} us [{card}]")
     dshape = (1, 4, 128, 128)
     dbase = randn(dshape)
     hl = G._size_ladder_highres(128, 128, 4, 0)
@@ -679,8 +837,10 @@ def main():
     n = 1
     for d in lshape:
         n *= d
+    bd3 = b3_bound(n)
     print(f"[10] B3 at {lshape} ({n} elements): kernel {b3['kernel'] * 1000:.1f} us "
-          f"({4 * n / (b3['kernel'] / 1000) / 1e9:.0f} GB/s written), plain "
+          f"({4 * n / (b3['kernel'] / 1000) / 1e9:.0f} GB/s written; bound "
+          f"{bd3['us']:.2f} us by {bd3['by']}), plain "
           f"{b3['plain'] * 1000:.1f} us, torch.randn {b3['torch.randn'] * 1000:.1f} us "
           f"[{card}]")
 
@@ -701,44 +861,78 @@ def main():
     for k, (kf, pf) in path_fns.items():
         timing[k] = (cuda_ms(torch, kf, 200), cuda_ms(torch, pf, 200))
         (kd, kby), (pd, _) = device_us(torch, kf, 50), device_us(torch, pf, 50)
+        # B4's draw also launches B3 for the small levels: B4 is its own kernel's time
+        dev_timing[k] = (sum(v for n_, v in kby.items() if "pyramid_up_kernel" in n_)
+                         if k == "B4" else kd, pd)
         by = ", ".join(f"{n_}: {v:.2f} us" for n_, v in sorted(kby.items()))
         print(f"[10] {k} at {SHAPE} as the path calls it: kernel "
               f"{timing[k][0] * 1000:.2f} us/call, plain {timing[k][1] * 1000:.2f} "
               f"us/call (events, host cost included); device time kernel {fmt_us(kd)} "
               f"({by}), plain {fmt_us(pd)} [{card}]")
 
+    library_us = {"B3": device_us(torch, lambda: torch.randn(SHAPE, device=dev), 50)[0],
+                  "B4": sum(b4_dev[SHAPE]["composed"]) / 2}
+    print(f"[10] PyTorch routes for the same functions at {SHAPE}, device time: torch.randn "
+          f"{fmt_us(library_us['B3'])} (B3), the composed pyramid draw "
+          f"{fmt_us(library_us['B4'])} (B4) [{card}]")
+
     # -- phase 11: B6 against its plain version -------------------------------
     b6_err, b6_cases = 0.0, 0
     dists = [("euclidean", 3.0), ("quadratic", 3.0), ("chebyshev", 3.0), ("minkowski", 2.5)]
+
+    def b6_case(fp, ys, xs, z, what, **kw):
+        nonlocal b6_err, b6_cases
+        o = V.voronoi_ksmallest(fp, ys, xs, z, **kw)
+        r = V.voronoi_ksmallest_reference(fp, ys, xs, z, **kw)
+        torch.cuda.synchronize()
+        need(o.is_cuda and o.shape == r.shape and o.dtype == torch.float32,
+             "B6 output malformed")
+        err, rel = rel_err(o, r)
+        b6_err = max(b6_err, err)
+        b6_cases += 1
+        if kw["dist"] == "minkowski":
+            need(rel <= B6_TOL, f"B6 {what} {kw}: rel err {rel:.3e}")
+        else:
+            need(torch.equal(o, r), f"B6 {what} {kw}: not bit-equal ({err:.3e})")
+
+    def b6_inputs(b, c, h, w, n_pts):
+        return (torch.rand((b, c, n_pts, 3), generator=gen, device=dev),
+                torch.arange(h, dtype=torch.float32, device=dev) / h,
+                torch.arange(w, dtype=torch.float32, device=dev) / w)
+
     for n_pts in B6_POINTS:
-        for b, c, h, w in B6_SHAPES:
-            fp = torch.rand((b, c, n_pts, 3), generator=gen, device=dev)
-            ys = torch.arange(h, dtype=torch.float32, device=dev) / h
-            xs = torch.arange(w, dtype=torch.float32, device=dev) / w
+        for shape in B6_SHAPES:
+            fp, ys, xs = b6_inputs(*shape, n_pts)
             z = torch.tensor(0.37, device=dev)
             for dist, p in dists:
                 for k in (1, 2, 4, 8):
                     for scale, wts in ((1.0, (1.0, 1.0, 1.0)), (8.0, (2.0, 1.0, 0.25))):
-                        kw = dict(scale=scale, k=k, dist=dist, p=p, weights=wts)
-                        o = V.voronoi_ksmallest(fp, ys, xs, z, **kw)
-                        r = V.voronoi_ksmallest_reference(fp, ys, xs, z, **kw)
-                        torch.cuda.synchronize()
-                        need(o.is_cuda and o.shape == (b, c, h, w, k) and o.dtype == torch.float32,
-                             "B6 output malformed")
-                        err, rel = rel_err(o, r)
-                        b6_err = max(b6_err, err)
-                        b6_cases += 1
-                        if dist == "minkowski":
-                            need(rel <= B6_TOL, f"B6 {dist} N={n_pts} {(b, c, h, w)} k={k}: "
-                                                f"rel err {rel:.3e}")
-                        else:
-                            need(torch.equal(o, r), f"B6 {dist} N={n_pts} {(b, c, h, w)} "
-                                                    f"k={k} scale={scale}: not bit-equal "
-                                                    f"({err:.3e})")
+                        b6_case(fp, ys, xs, z, f"N={n_pts} {shape}", scale=scale, k=k,
+                                dist=dist, p=p, weights=wts)
     print(f"[11] B6 voronoi_ksmallest vs plain: {b6_cases} cases (N {B6_POINTS}, shapes "
           f"{B6_SHAPES}, 4 distances, k 1/2/4/8, plain and weighted x8): euclidean, "
           f"quadratic, chebyshev bit-equal; max abs err {b6_err:.3e} (minkowski tolerance "
           f"{B6_TOL:g} x max(1,|plain|))")
+    first = b6_cases
+    for n_pts in B6_TILE_POINTS:
+        for shape in B6_TILE_SHAPES:
+            fp, ys, xs = b6_inputs(*shape, n_pts)
+            for dist, p in dists:
+                for k in (1, 3, 8):
+                    b6_case(fp, ys, xs, 0.37, f"N={n_pts} {shape}", scale=3.0, k=k,
+                            dist=dist, p=p, weights=(1.0, 1.5, 0.5))
+    # the generator's call: strided views of the grid, a 0-dim z, points outside [0, 1)
+    h, w = 67, 61
+    fp, ys, xs = b6_inputs(1, 3, h, w, 50)
+    grid3d = torch.cat([torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1),
+                        torch.tensor(0.81, device=dev).expand(h, w, 1)], dim=-1)
+    for dist, p in dists:
+        b6_case(fp * 3.0 - 1.0, grid3d[:, 0, 0], grid3d[0, :, 1], grid3d[0, 0, 2],
+                "strided grid", scale=2.0, k=2, dist=dist, p=p, weights=(1.0, 1.0, 1.0))
+    print(f"[11] B6 tiles and splits: {b6_cases - first} more cases (shapes {B6_TILE_SHAPES}: "
+          f"tiles of 4, 8, 16 and 32 rows; N {B6_TILE_POINTS}, k 1/3/8 with k = N = 8; "
+          f"strided grid vectors, points outside [0, 1)): same limits, max abs err "
+          f"{b6_err:.3e}")
 
     # -- phase 12: the Voronoi path ---------------------------------------------
     vor_cfg = SonarConfig(noise_type="voronoi_mix")
@@ -903,7 +1097,8 @@ def main():
                  "B1": "momentum_step_kernel", "B2": "scale_noise_"}
         got = {k: sum(v for n_, v in by.items() if pat in n_) for k, pat in parts.items()}
         wall = sum(ms[which]) / len(ms[which]) * 1000
-        print(f"[14] {which} run, device time: {tot:.1f} us of {wall:.1f} us wall "
+        print(f"[14] {which} run, {device_us.launched:.0f} device kernels, device time: "
+              f"{tot:.1f} us of {wall:.1f} us wall "
               f"(busy {100 * tot / wall:.1f} %); {', '.join(f'{k} {v:.1f} us' for k, v in got.items())}"
               f", the rest (UNet, torch ops) {tot - sum(got.values()):.1f} us [{card}]")
 
@@ -918,26 +1113,31 @@ def main():
     kf, pf = b6_fns(SHAPE, 2)
     timing["B6"] = (cuda_ms(torch, kf, 200), cuda_ms(torch, pf, 200))
     (kd, kby), (pd, _) = device_us(torch, kf, 50), device_us(torch, pf, 50)
+    dev_timing["B6"] = (kd, pd)
     print(f"[14] B6 at {SHAPE}, N=256, k=2 as the path calls it: kernel "
           f"{timing['B6'][0] * 1000:.2f} us/call, plain {timing['B6'][1] * 1000:.2f} us/call "
           f"(events, host cost included); device time kernel {fmt_us(kd)} "
           f"({', '.join(f'{n_}: {v:.2f} us' for n_, v in sorted(kby.items()))}), plain "
           f"{fmt_us(pd)} [{card}]")
-    for k in (1, 2, 4, 8):
-        kf, pf = b6_fns(VORONOI_BENCH, k)
-        ke, pe = cuda_ms(torch, kf, 100), cuda_ms(torch, pf, 20)
-        (kd, kby), (pd, _) = device_us(torch, kf, 20), device_us(torch, pf, 5)
-        b6k = sum(v for n_, v in kby.items() if "voronoi" in n_)
-        px = VORONOI_BENCH[0] * VORONOI_BENCH[1] * VORONOI_BENCH[2] * VORONOI_BENCH[3]
-        rate = (f"{px * 256 / (b6k * 1e-6) / 1e9:.1f} G pixel-points/s" if b6k
-                else "rate not measured")
-        print(f"[14] B6 at {VORONOI_BENCH}, N=256, k={k}: kernel {ke * 1000:.2f} us/call "
-              f"(events), device {fmt_us(kd)} (B6 alone {b6k:.2f} us, {rate}); plain "
-              f"{pe * 1000:.2f} us/call, device {fmt_us(pd)} [{card}]")
+    for shape in (SHAPE, VORONOI_BENCH):
+        px = shape[0] * shape[1] * shape[2] * shape[3]
+        for k in (1, 2, 4, 8):
+            kf, pf = b6_fns(shape, k)
+            ke = cuda_ms(torch, kf, 100)
+            (kd, kby), (pd, _) = device_us(torch, kf, 20), device_us(torch, pf, 5)
+            b6k = sum(v for n_, v in kby.items() if "voronoi" in n_)
+            need(b6k > 0, "B6: device time not measured")
+            bd = b6_bound(shape, 256, k)
+            print(f"[14] B6 at {shape}, N=256, k={k}: kernel {ke * 1000:.2f} us/call "
+                  f"(events), device {fmt_us(kd)} (B6 alone {b6k:.2f} us, "
+                  f"{px * 256 / (b6k * 1e-6) / 1e9:.1f} G pixel-points/s; bound "
+                  f"{bd['us']:.2f} us by {bd['by']}); plain device {fmt_us(pd)} [{card}]")
 
-    # the k = 1 rule: the per-axis path and a min, against B6 at k = 1
+    # f1 (k = 1): B6, the route the generator takes, against the per-axis path and a min
     h1, w1 = VORONOI_BENCH[2], VORONOI_BENCH[3]
     g1 = VoronoiGenerator(n_points=(256,))
+    need(g1._kernel_plan(NoiseCtx(shape=VORONOI_BENCH, device=dev), 0, h1, w1)
+         == ("euclidean", 3.0, None, 1.0, 1), "f1 does not plan kernel B6")
     fp1 = torch.rand((1, 4, 256, 3), generator=gen, device=dev)
     ys1 = torch.arange(h1, dtype=torch.float32, device=dev) / h1
     xs1 = torch.arange(w1, dtype=torch.float32, device=dev) / w1
@@ -950,9 +1150,9 @@ def main():
     need(torch.equal(axis_k1()[..., 0], kern_k1()[..., 0]), "k=1: per-axis path and B6 differ")
     ae, ke = cuda_ms(torch, axis_k1, 50), cuda_ms(torch, kern_k1, 50)
     ad, kd = device_us(torch, axis_k1, 10)[0], device_us(torch, kern_k1, 10)[0]
-    print(f"[14] k=1 rule at {VORONOI_BENCH}, N=256: per-axis path + min {ae * 1000:.2f} "
-          f"us/call (device {fmt_us(ad)}), B6 k=1 {ke * 1000:.2f} us/call (device "
-          f"{fmt_us(kd)}); equal outputs [{card}]")
+    print(f"[14] f1 (k=1) at {VORONOI_BENCH}, N=256: B6 {ke * 1000:.2f} us/call (device "
+          f"{fmt_us(kd)}), per-axis path + min {ae * 1000:.2f} us/call (device "
+          f"{fmt_us(ad)}); equal outputs [{card}]")
 
     def vdraws_run(item, iters):
         fn, st = make_noise_sampler(item, VORONOI_BENCH, device=dev, seed=5, sigma_min=0.03,
@@ -968,7 +1168,7 @@ def main():
     never = lambda *a: False  # noqa: E731
     viters = 20
     px = VORONOI_BENCH[0] * VORONOI_BENCH[2] * VORONOI_BENCH[3]
-    for label, kw in (("bench (f1, 2 octaves: per-axis path)", {}),
+    for label, kw in (("bench (f1, 2 octaves)", {}),
                       ("diff2, 2 octaves", {"result_mode": ("diff2",)})):
         mp = {}
         for which in ("kernel", "plain", "plain", "kernel"):
@@ -989,28 +1189,37 @@ def main():
           f"[{card}]")
 
     src = "sonar_tpu_torch/csrc/"
+    n_el = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
     rows = [
         ("fused_momentum_step", "fused.cu", "sonar_tpu/kernels/fused.py:68",
-         launches["B1"], b1_err, "B1"),
+         launches["B1"], b1_err, "B1", b1_bound(n_el)),
         ("fused_scale_noise", "fused.cu", "sonar_tpu/kernels/fused.py:173",
-         launches["B2"], b2_err, "B2"),
+         launches["B2"], b2_err, "B2", b2_bound(n_el)),
         ("philox_randn", "hwrng.cu", "sonar_tpu/kernels/hwrng.py:63",
-         path_launches["B3"], b3_err, "B3"),
+         path_launches["B3"], b3_err, "B3", b3_bound(n_el)),
         ("fused_pyramid", "fused_pyramid.cu", "sonar_tpu/kernels/fused_pyramid.py:100",
-         path_launches["B4"], b4_err, "B4"),
+         path_launches["B4"], b4_err, "B4", b4_bound(SHAPE, ladder, "bilinear", gen=True)),
         ("fused_downscale_pyramid", "fused_pyramid.cu",
          "sonar_tpu/kernels/fused_pyramid.py:264",
-         sum(c["B5"] for c in down_launches.values()), b5_err, "B5"),
+         sum(c["B5"] for c in down_launches.values()), b5_err, "B5",
+         b5_bound(P, SHAPE, hl64, hc64, "bilinear", base=True)),
         ("voronoi_ksmallest", "voronoi.cu", "sonar_tpu/kernels/voronoi.py:78",
-         vor_launches["B6"], b6_err, "B6"),
+         vor_launches["B6"], b6_err, "B6", b6_bound(SHAPE, 256, 2)),
     ]
-    for kname, _, _, n_launch, _, _ in rows:
+    for kname, _, _, n_launch, _, k, _ in rows:
         need(n_launch > 0, f"{kname} was not launched on its path")
+        need(all(v is not None and v > 0 for v in dev_timing[k]),
+             f"{kname}: device time not measured")
+    # ms, plain_ms, library_ms: device time per call at the path's shape
+    # (torch.profiler); call_ms, plain_call_ms: CUDA events, host cost included
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src + f, "replaces": rep,
-         "launches": n_launch, "max_abs_err": e, "ms": timing[k][0],
-         "plain_ms": timing[k][1]}
-        for kname, f, rep, n_launch, e, k in rows]}))
+         "launches": n_launch, "max_abs_err": e, "ms": dev_timing[k][0] / 1000,
+         "plain_ms": dev_timing[k][1] / 1000, "bound_ms": bd["us"] / 1000,
+         "bound_by": bd["by"],
+         "library_ms": library_us[k] / 1000 if k in library_us else None,
+         "call_ms": timing[k][0], "plain_call_ms": timing[k][1]}
+        for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

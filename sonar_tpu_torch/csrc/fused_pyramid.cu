@@ -11,7 +11,6 @@
 namespace {
 
 constexpr int kMaxLevels = 16;  // fused_pyramid.py MAX_LEVELS
-constexpr int kMaxSmem = 227 * 1024;
 
 // ---------------------------------------------------------------------------
 // B4: upscale pyramid
@@ -25,33 +24,52 @@ constexpr int kMaxSmem = 227 * 1024;
 // with (g1, g2) the full-size base pair drawn in-kernel (streams 0 and 1 of
 // the base key, the counter layout of philox_randn) or a given base.
 //
-// Bound: at the ladders pyramid draws (levels shrink by 2-4x each, so the
-// sum of the small widths is at most ~0.6 w) the dense interpolation
-// products cost about h*w*(sum_i sw_i) multiply-adds per plane, tens of
-// flops per output byte, so the kernel is bound by the SMs' fp32 rate and
-// its shared-memory reads, not by the one output write. The TPU kernel ran
-// these products on the MXU in bf16 (Precision.DEFAULT); this one keeps
-// full fp32, as the plain version does.
+// Bound: an interpolation matrix has 1 (nearest), 2 (bilinear, upscaling
+// area) or at most 4 (bicubic) nonzeros a row, so an output pixel needs
+// T * T gathered multiply-adds a level (4 for bilinear), not the sh + sw of
+// the dense products the TPU ran on its MXU. The small levels (42,543
+// floats a plane at 512 x 512) stay in L1/L2; what is left is the one
+// output write, 4 bytes a pixel (plus a read of the base where it is
+// given), and arithmetic: with the base pair drawn in-kernel the two
+// Philox calls and Box-Mullers a group outweigh the write (by a count of
+// their operations about twice its time; logf, cosf and sinf expand to
+// many more than one each).
 //
-// Design: one block per (bc, tile of kTileRows output rows). It stages, for
-// every level, T_i = Wh_i[rows, :] . small_i[bc] (tile_rows x sw_i) in
-// shared memory (the same association as the plain version: rows first,
-// then columns), then each thread walks output columns x and accumulates
-// sum_b T_i[r, b] * WwT_i[b, x] for the tile's rows in registers; WwT is
-// read coalesced along x, T is a broadcast. Each output element is written
-// once. The base pair of element e is drawn from its Philox group (e >> 2),
-// lane e & 3, so it equals philox_randn's element e. Ragged edges: the last
-// row tile is masked, columns are a strided loop. Wh's zeros (2 nonzeros
-// per row for bilinear) are not skipped yet: that, tensor cores and TMA are
-// later work.
+// Design: the kernel takes each matrix as its padded sparse rows (tap
+// tables idx, val of shape (out, T), columns ascending, padding weight 0;
+// ops/resample.py resize_taps), never the dense matrix. T is one of 1, 2, 4
+// for the whole call (the widest row of any level, padded up) and a
+// template parameter, so every tap loop unrolls and the taps live in
+// registers. A flat grid over Philox groups: one thread owns the four
+// consecutive flat elements 4g..4g+3, draws both base streams once
+// (philox_group + normal4; the counter is the element index, so the stream
+// is philox_randn's) and stores 16 bytes (masked tail). Per level and output
+// it gathers
+//   sum_b (sum_a rval[y,a] * small[ridx[y,a], cidx[x,b]]) * cval[x,b],
+// rows first, then columns, ascending: the dense sums with their exact
+// zeros skipped. When the four elements lie in one row (always when
+// w % 4 == 0) the row taps are loaded once for the four and the column taps
+// of the four columns, contiguous in their table, come as 16-byte loads
+// where aligned: a warp's tap reads are then contiguous, where one
+// 4-byte load a tap touched eight cache lines a load. Otherwise
+// each element finds its own plane, row and column. Small shapes launch
+// 32-thread blocks so that 1 x 4 x 64 x 64 (4,096 groups) still spreads
+// over 128 SMs. (Four rows a thread, sharing a level's column taps, was
+// tried at 4 x 4 x 512 x 512 on an H100 80GB HBM3 at 700 W: 22 % faster on
+// a given base, 5 % slower with the base pair drawn in-kernel, as the
+// generator draws it. The flat grid stays.)
 
-constexpr int kTileRows = 8;
+constexpr int kMaxTaps = 4;  // ops/resample.py: bicubic's row
 constexpr int kUpThreads = 128;
+constexpr int kUpThreadsSmall = 32;
+constexpr int64_t kUpSmallGroups = 132 * 128;
 
 struct UpLevel {
-  const float* wh;     // (h, sh)
   const float* small;  // (bc, sh, sw)
-  const float* wwt;    // (sw, w)
+  const int* ridx;     // (h, T) rows of small_i tapped by output row y
+  const float* rval;   // (h, T)
+  const int* cidx;     // (w, T) columns of small_i tapped by output column x
+  const float* cval;   // (w, T)
   int sh, sw;
   float discount;
 };
@@ -61,64 +79,153 @@ struct UpLevels {
   UpLevel lv[kMaxLevels];
 };
 
+// Plane, row and column of flat element e; 32-bit division where n fits.
+__device__ __forceinline__ void up_locate(int64_t e, int64_t hw, int w, bool narrow,
+                                          int64_t& bc, int& y, int& x) {
+  if (narrow) {
+    const unsigned b = (unsigned)e / (unsigned)hw;
+    const unsigned rem = (unsigned)e - b * (unsigned)hw;
+    y = (int)(rem / (unsigned)w);
+    x = (int)(rem - (unsigned)y * (unsigned)w);
+    bc = b;
+  } else {
+    bc = e / hw;
+    const int64_t rem = e - bc * hw;
+    y = (int)(rem / w);
+    x = (int)(rem - (int64_t)y * w);
+  }
+}
+
+// The T taps of output index o of one axis.
+template <int T>
+__device__ __forceinline__ void up_taps(const int* __restrict__ idx,
+                                        const float* __restrict__ val, int o,
+                                        int* ti, float* tv) {
+#pragma unroll
+  for (int a = 0; a < T; ++a) {
+    ti[a] = __ldg(idx + (int64_t)o * T + a);
+    tv[a] = __ldg(val + (int64_t)o * T + a);
+  }
+}
+
+// (Wh_i . small_i[bc] . WwT_i)[y, x]: sm is small_i[bc], rofs the offsets of
+// y's tapped rows in it, (ci, cv) x's column taps.
+template <int T>
+__device__ __forceinline__ float up_value(const float* __restrict__ sm,
+                                          const int* rofs, const float* rv,
+                                          const int* ci, const float* cv) {
+  float up = 0.f;
+#pragma unroll
+  for (int b = 0; b < T; ++b) {
+    float t = 0.f;
+#pragma unroll
+    for (int a = 0; a < T; ++a) t = fmaf(rv[a], __ldg(sm + rofs[a] + ci[b]), t);
+    up = fmaf(t, cv[b], up);
+  }
+  return up;
+}
+
+// The 4 * T column taps of columns x0..x0+3, contiguous in their table: T
+// 16-byte loads where (x0 * T) % 4 == 0 and the tables are aligned.
+template <int T>
+__device__ __forceinline__ void up_col_taps4(const UpLevel& lv, int x0, bool vec,
+                                             int* ci, float* cv) {
+  if (vec) {
+    const int4* pi = reinterpret_cast<const int4*>(lv.cidx + (int64_t)x0 * T);
+    const float4* pv = reinterpret_cast<const float4*>(lv.cval + (int64_t)x0 * T);
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      const int4 qi = __ldg(pi + j);
+      const float4 qv = __ldg(pv + j);
+      ci[4 * j] = qi.x, ci[4 * j + 1] = qi.y, ci[4 * j + 2] = qi.z, ci[4 * j + 3] = qi.w;
+      cv[4 * j] = qv.x, cv[4 * j + 1] = qv.y, cv[4 * j + 2] = qv.z, cv[4 * j + 3] = qv.w;
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < 4 * T; ++f) {
+      ci[f] = __ldg(lv.cidx + (int64_t)x0 * T + f);
+      cv[f] = __ldg(lv.cval + (int64_t)x0 * T + f);
+    }
+  }
+}
+
+// The base pair of Philox group g: g1 + g2 * level0_discount, four values.
+__device__ __forceinline__ void up_base_pair(int64_t g, uint32_t k0, uint32_t k1,
+                                             float level0_discount, float* acc) {
+  const float4 a = sonar::normal4(sonar::philox_group((uint64_t)g, 0u, k0, k1));
+  const float4 b = sonar::normal4(sonar::philox_group((uint64_t)g, 1u, k0, k1));
+  acc[0] = a.x + b.x * level0_discount;
+  acc[1] = a.y + b.y * level0_discount;
+  acc[2] = a.z + b.z * level0_discount;
+  acc[3] = a.w + b.w * level0_discount;
+}
+
+template <int T>
 __global__ void __launch_bounds__(kUpThreads)
     pyramid_up_kernel(const float* __restrict__ base, float* __restrict__ out,
-                      int h, int w, int tile_rows, const UpLevels L, int gen,
-                      uint32_t k0, uint32_t k1, float level0_discount) {
-  extern __shared__ float tmp[];
-  const int bc = blockIdx.y;
-  const int y0 = blockIdx.x * tile_rows;
-  const int rows = min(tile_rows, h - y0);
+                      int64_t n, int h, int w, const UpLevels L, int gen,
+                      uint32_t k0, uint32_t k1, float level0_discount,
+                      int aligned) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t e0 = g << 2;
+  if (e0 >= n) return;
+  const int cnt = (int)min((int64_t)4, n - e0);
+  const int64_t hw = (int64_t)h * w;
+  const bool narrow = n <= 0x7fffffffLL;
 
-  int off = 0;
-  for (int i = 0; i < L.n; ++i) {
-    const int sh = L.lv[i].sh, sw = L.lv[i].sw;
-    const float* __restrict__ sm = L.lv[i].small + (int64_t)bc * sh * sw;
-    for (int idx = threadIdx.x; idx < rows * sw; idx += blockDim.x) {
-      const int r = idx / sw, b = idx - r * sw;
-      const float* __restrict__ whr = L.lv[i].wh + (int64_t)(y0 + r) * sh;
-      float acc = 0.f;
-      for (int a = 0; a < sh; ++a) acc = fmaf(whr[a], sm[(int64_t)a * sw + b], acc);
-      tmp[off + r * sw + b] = acc;
-    }
-    off += tile_rows * sw;
+  float acc[4];
+  if (gen) {
+    up_base_pair(g, k0, k1, level0_discount, acc);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = k < cnt ? base[e0 + k] : 0.f;
   }
-  __syncthreads();
 
-  for (int x = threadIdx.x; x < w; x += blockDim.x) {
-    float acc[kTileRows];
-#pragma unroll
-    for (int r = 0; r < kTileRows; ++r) {
-      acc[r] = 0.f;
-      if (r < rows) {
-        const int64_t e = ((int64_t)bc * h + y0 + r) * w + x;
-        acc[r] = gen ? sonar::normal_at((uint64_t)e, 0u, k0, k1) +
-                           sonar::normal_at((uint64_t)e, 1u, k0, k1) * level0_discount
-                     : base[e];
-      }
-    }
-    int o = 0;
+  int64_t bc0;
+  int y0, x0;
+  up_locate(e0, hw, w, narrow, bc0, y0, x0);
+  int rofs[T], ci[4 * T];
+  float rv[T], cv[4 * T];
+  if (x0 + 3 < w) {  // the four elements share plane and row
+    const bool vec = aligned && ((x0 * T) & 3) == 0;
+#pragma unroll 2
     for (int i = 0; i < L.n; ++i) {
-      const int sw = L.lv[i].sw;
-      const float* __restrict__ wwt = L.lv[i].wwt;
-      const float* T = tmp + o;
-      float up[kTileRows];
+      const UpLevel& lv = L.lv[i];
+      const float* __restrict__ sm = lv.small + bc0 * lv.sh * lv.sw;
+      up_taps<T>(lv.ridx, lv.rval, y0, rofs, rv);
 #pragma unroll
-      for (int r = 0; r < kTileRows; ++r) up[r] = 0.f;
-      for (int b = 0; b < sw; ++b) {
-        const float wv = __ldg(wwt + (int64_t)b * w + x);
+      for (int a = 0; a < T; ++a) rofs[a] *= lv.sw;
+      up_col_taps4<T>(lv, x0, vec, ci, cv);
 #pragma unroll
-        for (int r = 0; r < kTileRows; ++r)
-          if (r < rows) up[r] = fmaf(T[r * sw + b], wv, up[r]);
-      }
-      const float d = L.lv[i].discount;
-#pragma unroll
-      for (int r = 0; r < kTileRows; ++r) acc[r] = acc[r] + up[r] * d;
-      o += tile_rows * sw;
+      for (int k = 0; k < 4; ++k)
+        acc[k] = acc[k] + up_value<T>(sm, rofs, rv, ci + k * T, cv + k * T) * lv.discount;
     }
+  } else {
 #pragma unroll
-    for (int r = 0; r < kTileRows; ++r)
-      if (r < rows) out[((int64_t)bc * h + y0 + r) * w + x] = acc[r];
+    for (int k = 0; k < 4; ++k) {
+      if (k < cnt) {
+        int64_t bc;
+        int y, x;
+        up_locate(e0 + k, hw, w, narrow, bc, y, x);
+        float v = acc[k];
+        for (int i = 0; i < L.n; ++i) {
+          const UpLevel& lv = L.lv[i];
+          up_taps<T>(lv.ridx, lv.rval, y, rofs, rv);
+#pragma unroll
+          for (int a = 0; a < T; ++a) rofs[a] *= lv.sw;
+          up_taps<T>(lv.cidx, lv.cval, x, ci, cv);
+          v = v + up_value<T>(lv.small + bc * lv.sh * lv.sw, rofs, rv, ci, cv) * lv.discount;
+        }
+        acc[k] = v;
+      }
+    }
+  }
+  if (cnt == 4) {
+    reinterpret_cast<float4*>(out)[g] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < cnt) out[e0 + k] = acc[k];
   }
 }
 
@@ -234,38 +341,41 @@ __global__ void __launch_bounds__(kDownThreads)
 
 extern "C" {
 
-// ptrs: 3 per level (wh, small, wwt) as integers; dims: 2 per level
-// (sh, sw); base is null when gen != 0. out: (bc, h, w), contiguous.
+// ptrs: 5 per level (small, ridx, rval, cidx, cval) as integers, the tap
+// tables all `taps` wide (1, 2 or 4); dims: 2 per level (sh, sw); base is
+// null when gen != 0. out: (bc, h, w), contiguous and 16-byte aligned.
 int sonar_pyramid_up(const float* base, float* out, int bc, int h, int w,
-                     int n_levels, const int64_t* ptrs, const int* dims,
+                     int n_levels, int taps, const int64_t* ptrs, const int* dims,
                      const float* discounts, int gen, uint32_t k0, uint32_t k1,
                      float level0_discount, void* stream) {
-  if (n_levels < 0 || n_levels > kMaxLevels || bc <= 0 || h <= 0 || w <= 0)
+  if (n_levels < 0 || n_levels > kMaxLevels || bc <= 0 || h <= 0 || w <= 0 ||
+      (taps != 1 && taps != 2 && taps != kMaxTaps))
     return (int)cudaErrorInvalidValue;
   UpLevels L;
   L.n = n_levels;
-  int64_t sum_sw = 0;
+  int aligned = 1;  // the column tables take 16-byte loads
   for (int i = 0; i < n_levels; ++i) {
-    L.lv[i].wh = reinterpret_cast<const float*>(ptrs[3 * i]);
-    L.lv[i].small = reinterpret_cast<const float*>(ptrs[3 * i + 1]);
-    L.lv[i].wwt = reinterpret_cast<const float*>(ptrs[3 * i + 2]);
-    L.lv[i].sh = dims[2 * i];
-    L.lv[i].sw = dims[2 * i + 1];
-    L.lv[i].discount = discounts[i];
-    sum_sw += dims[2 * i + 1];
+    UpLevel& lv = L.lv[i];
+    lv.small = reinterpret_cast<const float*>(ptrs[5 * i]);
+    lv.ridx = reinterpret_cast<const int*>(ptrs[5 * i + 1]);
+    lv.rval = reinterpret_cast<const float*>(ptrs[5 * i + 2]);
+    lv.cidx = reinterpret_cast<const int*>(ptrs[5 * i + 3]);
+    lv.cval = reinterpret_cast<const float*>(ptrs[5 * i + 4]);
+    lv.sh = dims[2 * i];
+    lv.sw = dims[2 * i + 1];
+    lv.discount = discounts[i];
+    if (lv.sh < 1 || lv.sw < 1) return (int)cudaErrorInvalidValue;
+    if (((ptrs[5 * i + 3] | ptrs[5 * i + 4]) & 15) != 0) aligned = 0;
   }
-  int tile_rows = kTileRows;
-  while (tile_rows > 1 && (int64_t)tile_rows * sum_sw * 4 > kMaxSmem) tile_rows >>= 1;
-  const int64_t smem = (int64_t)tile_rows * sum_sw * 4;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pyramid_up_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((h + tile_rows - 1) / tile_rows, bc);
-  pyramid_up_kernel<<<grid, kUpThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      base, out, h, w, tile_rows, L, gen, k0, k1, level0_discount);
+  const int64_t n = (int64_t)bc * h * w;
+  const int64_t groups = (n + 3) >> 2;
+  const int threads = groups < kUpSmallGroups ? kUpThreadsSmall : kUpThreads;
+  const int64_t blocks = (groups + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto fn = taps == 1 ? pyramid_up_kernel<1>
+            : taps == 2 ? pyramid_up_kernel<2> : pyramid_up_kernel<kMaxTaps>;
+  fn<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      base, out, n, h, w, L, gen, k0, k1, level0_discount, aligned);
   return (int)cudaGetLastError();
 }
 

@@ -113,14 +113,14 @@ def load_library() -> ctypes.CDLL:
     u32 = ctypes.c_uint32
     lib.sonar_philox_fill.argtypes = [p, i64, u32, u32, u32, i32, p]
     lib.sonar_philox_fill.restype = i32
-    lib.sonar_pyramid_up.argtypes = [p, p, i32, i32, i32, i32, p, p, p, i32, u32, u32,
-                                     f32, p]
+    lib.sonar_pyramid_up.argtypes = [p, p, i32, i32, i32, i32, i32, p, p, p, i32, u32,
+                                     u32, f32, p]
     lib.sonar_pyramid_up.restype = i32
     lib.sonar_pyramid_down.argtypes = [p, p, i32, i32, i32, i32, p, p, p, i32, u32,
                                        u32, p]
     lib.sonar_pyramid_down.restype = i32
-    lib.sonar_voronoi_ksmallest.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, i32,
-                                            i32, f32, f32, f32, f32, p]
+    lib.sonar_voronoi_ksmallest.argtypes = [p, i64, p, i64, p, p, p, i32, i32, i32, i32,
+                                            i32, i32, f32, f32, f32, f32, f32, f32, p]
     lib.sonar_voronoi_ksmallest.restype = i32
     lib.sonar_error_string.argtypes = [i32]
     lib.sonar_error_string.restype = ctypes.c_char_p

@@ -9,6 +9,9 @@ fused_pyramid.py:100)::
 where ``g1 + g2`` is the full-size base pair (ladder level 0 is the
 identity and is folded into it) and ``Wh_i``/``Ww_i`` are the exact
 interpolation matrices of :func:`~sonar_tpu_torch.ops.resample._resize_matrix`.
+The plain version multiplies by the dense matrices; the kernel takes their
+sparse rows (:func:`~sonar_tpu_torch.ops.resample.resize_taps`, at most four
+taps an axis) and gathers, which skips exact zeros and nothing else.
 
 B5, the downscale ladders (``highres_pyramid``, ``pyramid_old``; replaces
 ``_make_down_kernel``, fused_pyramid.py:264). At a scale of 2× or more per
@@ -47,11 +50,12 @@ import numpy as np
 import torch
 
 from ..core.rng import derive_seed
-from ..ops.resample import _resize_separable, resize_matrix
+from ..ops.resample import _resize_separable, _resize_taps, resize_taps
 from .fused import _check_cuda
 from .hwrng import philox_key, philox_randn, philox_randn_reference
 
 MAX_LEVELS = 16  # kernel parameter arrays (csrc/fused_pyramid.cu kMaxLevels)
+MAX_TAPS = 4  # nonzeros in a row of an upscaling matrix (csrc/fused_pyramid.cu kMaxTaps)
 UP_MODES = ("bilinear", "bicubic", "nearest", "nearest-exact", "area")
 DOWN_MODES = ("bilinear", "nearest", "nearest-exact", "area")
 _LEVEL0_DISCOUNT = 1.0  # level 0 (the identity) folded into the base pair
@@ -145,24 +149,40 @@ def fused_pyramid_reference(seed: int, shape, sizes, discount: float,
                                               mode).reshape(b, c, h, w)
 
 
+def _call_taps(sizes, h: int, w: int, mode: str) -> int:
+    """The tap-table width of one B4 call: the widest row of any level's
+    row or column matrix, padded up to 1, 2 or 4 (the kernel's
+    instantiations)."""
+    widest = max((_resize_taps(i, o, mode)[0].shape[1]
+                  for sh, sw in sizes for i, o in ((sh, h), (sw, w))), default=1)
+    if widest > MAX_TAPS:
+        raise ValueError(f"fused_pyramid: rows of {widest} taps to {h}x{w} in mode "
+                         f"{mode!r} (the kernel takes {MAX_TAPS})")
+    return 1 if widest == 1 else 2 if widest == 2 else MAX_TAPS
+
+
 def _launch_up(out, base, smalls, discounts, mode, key):
+    """Launch B4 on the levels' tap tables (the sparse rows of their
+    interpolation matrices); the dense matrices never reach the kernel."""
     bc, h, w = out.shape
     n = len(smalls)
-    ptrs = (ctypes.c_int64 * max(1, 3 * n))()
+    taps = _call_taps([s.shape[-2:] for s in smalls], h, w, mode)
+    ptrs = (ctypes.c_int64 * max(1, 5 * n))()
     dims = (ctypes.c_int * max(1, 2 * n))()
     disc = (ctypes.c_float * max(1, n))()
     for i, (small, d) in enumerate(zip(smalls, discounts)):
         sh, sw = small.shape[-2:]
-        wh = resize_matrix(sh, h, mode, device=out.device)  # (h, sh)
-        wwt = resize_matrix(sw, w, mode, device=out.device, transpose=True)  # (sw, w)
-        ptrs[3 * i:3 * i + 3] = [wh.data_ptr(), small.data_ptr(), wwt.data_ptr()]
+        ridx, rval = resize_taps(sh, h, mode, device=out.device, taps=taps)  # (h, taps)
+        cidx, cval = resize_taps(sw, w, mode, device=out.device, taps=taps)  # (w, taps)
+        ptrs[5 * i:5 * i + 5] = [small.data_ptr(), ridx.data_ptr(), rval.data_ptr(),
+                                 cidx.data_ptr(), cval.data_ptr()]
         dims[2 * i:2 * i + 2] = [sh, sw]
         disc[i] = d
     k0, k1 = key if key is not None else (0, 0)
     with torch.cuda.device(out.device):
         _call_kernel("sonar_pyramid_up",
                      None if base is None else base.data_ptr(), out.data_ptr(),
-                     bc, h, w, n, ptrs, dims, disc, int(key is not None), k0, k1,
+                     bc, h, w, n, taps, ptrs, dims, disc, int(key is not None), k0, k1,
                      _LEVEL0_DISCOUNT)
 
 

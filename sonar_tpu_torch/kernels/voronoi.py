@@ -8,14 +8,17 @@ tensor axis by axis and takes ``torch.topk(largest=False)``; the kernel
 (``csrc/voronoi.cu``; replaces ``_make_kernel`` of the JAX package) keeps the
 k smallest per pixel in registers and never builds it.
 
-Both start from the same tensors, computed here on the input's device with
-the JAX package's operations (voronoi.py:186-201): the scaled and wrapped
-grid vectors ``gy``, ``gx``, the scaled point coordinates, and the per-point
-z term ``dz`` in the form the distance adds it (squared, ``|.|`` or
-``|.|^p``). The kernel then repeats the plain version's operations in its
-order, so the two agree bit for bit for euclidean, quadratic and chebyshev;
-minkowski's ``^(1/p)`` is ``powf`` in both on the card, and the host's
-``pow`` differs from it by an ulp.
+The plain version first computes, with the JAX package's operations
+(voronoi.py:186-201), the scaled and wrapped grid vectors ``gy``, ``gx``, the
+scaled point coordinates, and the per-point z term ``dz`` in the form the
+distance adds it (squared, ``|.|`` or ``|.|^p``): :func:`_prepare`. The
+kernel starts from the caller's tensors and repeats all of it in its
+prologue and table fill, operation by operation in the same order, so the
+two agree bit for bit for euclidean, quadratic and chebyshev (the kernel
+selects on the squared euclidean distance and takes k roots at the end:
+``sqrt`` is correctly rounded, hence monotone); minkowski's powers are
+``powf`` in both on the card, and the host's ``pow`` differs from it by an
+ulp. No torch op runs between the caller and the launch.
 
 :func:`voronoi_ksmallest` runs the plain version on a CPU tensor and the
 kernel on a CUDA tensor, or raises; it counts kernel launches in
@@ -38,7 +41,8 @@ def voronoi_kernel_supported(h: int, w: int, k: int, dist: str, bc: int, n: int)
     kernel would leave +inf where the plain path's indexing stays finite),
     and at most 65,535 planes. The JAX gate's conditions on the TPU's tiling
     (``h % 8``, the SMEM budget) do not apply: B6 stages the points in
-    chunks and masks the ragged edge."""
+    chunks and masks the ragged edge. Every prefix length is the kernel's,
+    f1's single distance included."""
     return (dist in DISTS and 0 < k <= MAX_K and k <= n
             and h >= 1 and w >= 1 and 1 <= bc <= _MAX_PLANES)
 
@@ -122,8 +126,10 @@ def voronoi_ksmallest(fp, ys, xs, z_norm, *, scale: float, k: int,
                          f"points on {fp.device}")
     b, c, n, _ = fp.shape
     h, w = ys.shape[0], xs.shape[0]
-    gy, gx, fy, fx, dz = _prepare(fp, ys, xs, z_norm, scale=scale, dist=dist, p=p,
-                                  weights=weights)
+    # no-ops on the generator's float32 tensors; the grid vectors may be strided
+    fp = fp.to(torch.float32).contiguous()
+    ys, xs = ys.to(torch.float32), xs.to(torch.float32)
+    z = torch.as_tensor(z_norm, dtype=torch.float32, device=fp.device).reshape(())
     from ._build import check, load_library
 
     lib = load_library()
@@ -131,9 +137,10 @@ def voronoi_ksmallest(fp, ys, xs, z_norm, *, scale: float, k: int,
     with torch.cuda.device(fp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sonar_voronoi_ksmallest(
-            gy.data_ptr(), gx.data_ptr(), fy.data_ptr(), fx.data_ptr(), dz.data_ptr(),
-            out.data_ptr(), b * c, n, h, w, k, DISTS.index(dist), float(p),
-            float(1.0 / p), float(weights[0]), float(weights[1]), stream)
+            ys.data_ptr(), ys.stride(0), xs.data_ptr(), xs.stride(0), fp.data_ptr(),
+            z.data_ptr(), out.data_ptr(), b * c, n, h, w, k, DISTS.index(dist),
+            float(scale), float(p), float(1.0 / p), float(weights[0]),
+            float(weights[1]), float(weights[2]), stream)
     check(lib, err, "voronoi_ksmallest")
     voronoi_ksmallest.launches += 1
     return out

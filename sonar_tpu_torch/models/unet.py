@@ -34,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.misc import default_device
+
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
@@ -236,7 +238,10 @@ def init_unet_params(generator: torch.Generator, cfg: UNetConfig = UNetConfig(),
     """A UNet with random weights drawn from ``generator`` (a CPU generator):
     each conv and dense weight is normal with std ``init_scale/sqrt(fan_in)``,
     as in the JAX init; biases are zero and norms the identity. The weights
-    are drawn on the host and moved to ``device`` once."""
+    are drawn on the host and moved to ``device`` once; ``device=None`` means
+    the card, and without one this raises before any weight is drawn."""
+    device = default_device(device)
+    torch.empty(0, device=device)
     with torch.device("meta"):  # skip torch's default init and its global RNG
         model = UNet(cfg)
     model = model.to_empty(device="cpu")

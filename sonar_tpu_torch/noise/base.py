@@ -25,11 +25,13 @@ import torch
 
 from ..core.normalize import scale_noise
 from ..core.rng import derive_seed, seed_from
+from ..utils.misc import default_device
 
 
 @dataclasses.dataclass(frozen=True)
 class NoiseCtx:
-    """Static sampling context captured from the exemplar latent."""
+    """Static sampling context captured from the exemplar latent.
+    ``device=None`` means the card (:func:`~..utils.misc.default_device`)."""
 
     shape: tuple[int, ...]
     dtype: Any = torch.float32
@@ -180,9 +182,11 @@ def make_noise_sampler(
     mutate ``state``: the draw counter advances in the returned state, so
     repeated calls give independent draws and a saved state replays
     exactly. ``seed`` is an integer (a user seed or one from
-    :func:`~sonar_tpu_torch.core.rng.derive_seed`; None → 0).
+    :func:`~sonar_tpu_torch.core.rng.derive_seed`; None → 0). The draws are
+    made on ``device``; ``None`` means the card, never the CPU
+    (:func:`~sonar_tpu_torch.utils.misc.default_device`).
     """
-    ctx = NoiseCtx(shape=tuple(shape), dtype=dtype, device=device,
+    ctx = NoiseCtx(shape=tuple(shape), dtype=dtype, device=default_device(device),
                    sigma_min=sigma_min, sigma_max=sigma_max, ref=ref_latent)
     item.check_dims(ctx)
     stream = seed_from(seed)
@@ -202,7 +206,8 @@ def make_noise_sampler(
 
 class NoiseSamplerHandle:
     """Stateful wrapper with the reference's calling convention
-    ``ns(sigma, sigma_next) -> noise`` for eager use."""
+    ``ns(sigma, sigma_next) -> noise`` for eager use. Keyword arguments
+    are :func:`make_noise_sampler`'s (``device=None`` means the card)."""
 
     def __init__(self, item: NoiseItem, shape, **kwargs):
         self.sample_fn, self.state = make_noise_sampler(item, shape, **kwargs)

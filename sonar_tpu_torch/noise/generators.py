@@ -32,11 +32,13 @@ from ..kernels.fused_pyramid import (
 )
 from ..kernels.hwrng import philox_rand, philox_randn
 from ..ops.resample import scale_samples
+from ..utils.misc import default_device
 from .base import NoiseCtx, NoiseItem, fix_output_frames
 
 
 def _device(ctx: NoiseCtx) -> torch.device:
-    return torch.device(ctx.device if ctx.device is not None else "cpu")
+    """The context's device; one that names none runs on the card."""
+    return default_device(ctx.device)
 
 
 class Generator(NoiseItem):

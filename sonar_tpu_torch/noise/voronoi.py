@@ -15,14 +15,17 @@ Three routes to the distances, as in the JAX package:
 - **kernel B6** (:func:`~sonar_tpu_torch.kernels.voronoi.voronoi_ksmallest`)
   when :meth:`VoronoiGenerator._kernel_plan` holds: float32, one simple
   distance with ``dscale > 0``, result modes that read only a sorted prefix
-  of 2 to 8 distances. On a CPU tensor the wrapper runs its plain version;
+  of 1 to 8 distances (f1, the default, included). On a CPU tensor the
+  wrapper runs its plain version;
 - the per-axis path for a simple distance: the (B, C, H, W, N) tensor built
   axis by axis, then the k smallest by ``torch.topk``;
 - the generic path over the (B, C, H, W, N, 3) wrapped differences.
 
-A prefix of one (f1) takes the per-axis path: on the TPU one fused min
-beat the kernel's point loop (voronoi.py:500-503 of the JAX package). The
-rule is kept; the H100's times for it are in PERF.md.
+The JAX package keeps a prefix of one (f1) on the per-axis path, where on
+the TPU one fused min beat its kernel's point loop (voronoi.py:500-503
+there). On this card the kernel is the faster route for every prefix, so f1
+takes it too; its values are the per-axis path's bit for bit (minkowski
+to an ulp of ``pow``).
 
 Seeds: every ``fold_in``/``split`` of the JAX package is a
 :func:`~sonar_tpu_torch.core.rng.derive_seed` label of its own; feature
@@ -477,10 +480,8 @@ class VoronoiGenerator(Generator):
         if not all(_result_sorted_only(n, kw) for n, kw, _ in parsed_r):
             return None
         k = _sorted_prefix(parsed_r)
-        # k == 1 stays on the per-axis path (a TPU measurement, kept as the
-        # rule; the H100's times for it are in PERF.md)
         npts = self._npoints(octave % self._octave_groups())
-        if k is None or k < 2 or not voronoi_kernel_supported(
+        if k is None or not voronoi_kernel_supported(
                 h, w, k, simple[0], ctx.batch * ctx.channels, npts):
             return None
         return simple + (k,)

@@ -7,6 +7,8 @@ Every separable method is two precomputed interpolation matrices,
 the JAX package (so the two index and weigh alike), cached as device tensors
 per (in, out, mode, device, dtype). ``F.interpolate`` is not used: its
 nearest and area conventions differ from ``_resize_matrix``'s.
+An upscaling matrix has at most four nonzeros a row; ``resize_taps`` gives
+them as padded sparse rows, the form kernel B4 gathers from.
 
 - ``bilinear``/``bicubic``: half-pixel source coordinates, border-clamped
   taps; bicubic is Keys with a = -0.75.
@@ -95,6 +97,48 @@ def _device_matrix(in_size, out_size, mode, device, dtype, transpose):
     m = _resize_matrix(in_size, out_size, mode)
     m = torch.from_numpy(np.ascontiguousarray(m.T if transpose else m))
     return m.to(device=device, dtype=dtype)
+
+
+@lru_cache(maxsize=256)
+def _resize_taps(in_size: int, out_size: int, mode: str, taps: int | None = None):
+    """``_resize_matrix(in_size, out_size, mode)`` as padded sparse rows:
+    ``idx`` (out_size, T) int32 and ``val`` (out_size, T) float32, the
+    nonzero columns of each row in ascending order and their weights, the
+    matrix's own bytes. ``T`` is the largest count of nonzeros in a row (1
+    nearest, 2 bilinear and upscaling area, up to 4 bicubic), or ``taps``
+    where given (at least that count); a shorter row repeats its last
+    column with weight 0. Derived from the dense matrix, so every mode and
+    every ragged size is served."""
+    m = _resize_matrix(in_size, out_size, mode)
+    nz = m != 0
+    count = nz.sum(axis=1)
+    t = max(1, int(count.max()))
+    if taps is not None:
+        if taps < t:
+            raise ValueError(f"{mode} {in_size}->{out_size} has rows of {t} taps, not {taps}")
+        t = taps
+    # a stable sort on "is zero" lists each row's nonzero columns first, ascending
+    idx = np.argsort(~nz, axis=1, kind="stable")[:, :min(t, in_size)]
+    idx = np.pad(idx, ((0, 0), (0, t - idx.shape[1])))
+    val = np.take_along_axis(m, idx, axis=1)
+    pad = np.arange(t)[None, :] >= count[:, None]
+    last = np.take_along_axis(idx, np.maximum(count - 1, 0)[:, None], axis=1)
+    idx = np.where(pad, last, idx).astype(np.int32)
+    val = np.where(pad, np.float32(0.0), val).astype(np.float32)
+    return idx, val
+
+
+def resize_taps(in_size: int, out_size: int, mode: str, *, device, taps: int | None = None):
+    """``_resize_taps`` as contiguous device tensors ``(idx, val)``, uploaded
+    once per (in, out, mode, taps, device)."""
+    return _device_taps(in_size, out_size, mode, taps, torch.device(device))
+
+
+@lru_cache(maxsize=256)
+def _device_taps(in_size, out_size, mode, taps, device):
+    idx, val = _resize_taps(in_size, out_size, mode, taps)
+    return (torch.from_numpy(idx).to(device),
+            torch.from_numpy(val).to(device))
 
 
 def _resize_separable(samples: torch.Tensor, width: int, height: int,

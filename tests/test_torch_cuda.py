@@ -11,7 +11,8 @@ operations, no FMA contraction); B2 1e-5 (its mean and std sum in another
 order than torch's reductions); B3 uniforms bit for bit and normals 2e-6
 absolute (the card's libdevice logf/cosf/sinf against the host's, a few
 ulps of values up to ~5.7); B4 and B5 1e-5 relative to max(1, |plain|)
-(B4's products sum in another order; B5 inherits B3's ulps), with matmul
+(B4 gathers the nonzero taps of the matrices its plain version multiplies
+by, so its sums run in another order; B5 inherits B3's ulps), with matmul
 TF32 off for the plain versions.
 
 B1 and B2 on bfloat16 and float16 latents compute in float32 and round once
@@ -28,7 +29,8 @@ to the trajectory's largest magnitude (0.034 in a CPU simulation).
 
 B6 against its plain version: bit for bit for euclidean, quadratic and
 chebyshev (same operations in the same order, no FMA contraction, sqrtf
-correctly rounded); minkowski within 1e-6 relative to max(1, |plain|) (both
+correctly rounded, so the roots of the k smallest squares are the k
+smallest roots); minkowski within 1e-6 relative to max(1, |plain|) (both
 take powf on the card; torch special-cases p = 2 and 3, and the kernel
 follows it).
 """
@@ -203,7 +205,7 @@ def _pyramid_case(hw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", P.UP_MODES)
-@pytest.mark.parametrize("hw", [(64, 64), (67, 61), (512, 512)])
+@pytest.mark.parametrize("hw", [(64, 64), (67, 61), (512, 512), (263, 260)])
 def test_pyramid_kernel_matches_plain(cuda, mode, hw):
     (h, w), sizes = _pyramid_case(hw)
     n = P.fused_pyramid.launches
@@ -215,6 +217,35 @@ def test_pyramid_kernel_matches_plain(cuda, mode, hw):
     smalls = [_randn((4, sh, sw), cuda, 2 + i) for i, (sh, sw) in enumerate(sizes[1:])]
     disc = [0.7**i for i in range(1, len(sizes))]
     got = P.fused_pyramid_accumulate(base, smalls, disc, mode)
+    assert _rel_err(got, P.fused_pyramid_accumulate_reference(base, smalls, disc, mode)) <= 1e-5
+
+
+# ladders that stress B4's tap tables: bicubic's clamped edge taps on 2- and
+# 3-wide levels, widths and element counts that are not multiples of 4 (a
+# thread's four elements then cross rows and planes), a level as tall as the
+# output, a 1x1 level, the sixteen levels the kernel takes at most
+PYR_EDGE = [((8, 6), [(3, 2), (2, 3), (1, 1)]),
+            ((5, 7), [(5, 3), (1, 7), (2, 2)]),
+            ((33, 130), [(33, 47), (12, 130), (3, 3), (1, 1)]),
+            ((16, 18), [(max(1, 16 - i), max(1, 18 - 2 * i)) for i in range(1, 17)])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", P.UP_MODES)
+@pytest.mark.parametrize("case", range(len(PYR_EDGE)))
+@pytest.mark.parametrize("bc", [1, 3])
+def test_pyramid_kernel_edge_ladders(cuda, mode, case, bc):
+    (h, w), below = PYR_EDGE[case]
+    sizes = [(h, w), *below]
+    out = P.fused_pyramid(3, (1, bc, h, w), sizes, 0.7, mode, device=cuda)
+    ref = P.fused_pyramid_reference(3, (1, bc, h, w), sizes, 0.7, mode, device=cuda)
+    assert out.shape == ref.shape and _rel_err(out, ref) <= 1e-5
+    base = _randn((bc, h, w), cuda, 1)
+    smalls = [_randn((bc, sh, sw), cuda, 2 + i) for i, (sh, sw) in enumerate(below)]
+    disc = [0.7**i for i in range(1, len(sizes))]
+    n = P.fused_pyramid_accumulate.launches
+    got = P.fused_pyramid_accumulate(base, smalls, disc, mode)
+    assert P.fused_pyramid_accumulate.launches == n + 1
     assert _rel_err(got, P.fused_pyramid_accumulate_reference(base, smalls, disc, mode)) <= 1e-5
 
 
@@ -285,6 +316,72 @@ def test_voronoi_kernel_matches_plain(cuda, dist, p, k):
                     assert _rel_err(out, ref) <= 1e-6
                 else:
                     assert torch.equal(out, ref), (n, (b, c, h, w), scale)
+
+
+def _voronoi_agrees(out, ref, dist):
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    if dist == "minkowski":
+        assert _rel_err(out, ref) <= 1e-6
+    else:
+        assert torch.equal(out, ref)
+
+
+# the tile heights B6 picks (4, 8, 16 and 32 rows: 8, 4, 2 and 1 parts of the points)
+B6_TILE_SHAPES = [(1, 1, 8, 8), (1, 3, 128, 128), (1, 2, 256, 160), (4, 4, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist,p", [("euclidean", 3.0), ("quadratic", 3.0),
+                                    ("chebyshev", 3.0), ("minkowski", 2.5)])
+@pytest.mark.parametrize("shape", B6_TILE_SHAPES)
+def test_voronoi_kernel_tiles_and_point_splits(cuda, dist, p, shape):
+    """Every tile height, with point counts that do not divide by the split
+    (13, 100), k = N = 8, and parts that hold fewer than k points."""
+    b, c, h, w = shape
+    g = torch.Generator(device=cuda).manual_seed(h)
+    ys = torch.arange(h, dtype=torch.float32, device=cuda) / h
+    xs = torch.arange(w, dtype=torch.float32, device=cuda) / w
+    for n in (8, 13, 100):
+        fp = torch.rand((b, c, n, 3), generator=g, device=cuda)
+        for k in (1, 3, 8):
+            kw = dict(scale=3.0, k=k, dist=dist, p=p, weights=(1.0, 1.5, 0.5))
+            _voronoi_agrees(V.voronoi_ksmallest(fp, ys, xs, 0.37, **kw),
+                            V.voronoi_ksmallest_reference(fp, ys, xs, 0.37, **kw), dist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist,p", [("euclidean", 3.0), ("quadratic", 3.0),
+                                    ("chebyshev", 3.0), ("minkowski", 2.5)])
+def test_voronoi_kernel_takes_the_generators_views(cuda, dist, p):
+    """Strided views of the (H, W, 3) grid, a 0-dim z on the card, points
+    outside [0, 1) (negative arguments of the wraps)."""
+    h, w = 67, 61
+    ys = torch.arange(h, dtype=torch.float32, device=cuda) / h
+    xs = torch.arange(w, dtype=torch.float32, device=cuda) / w
+    grid3d = torch.cat([torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1),
+                        torch.tensor(0.81, device=cuda).expand(h, w, 1)], dim=-1)
+    fp = torch.rand((1, 3, 50, 3), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda) * 3.0 - 1.0
+    args = (fp, grid3d[:, 0, 0], grid3d[0, :, 1], grid3d[0, 0, 2])
+    kw = dict(scale=2.0, k=2, dist=dist, p=p)
+    _voronoi_agrees(V.voronoi_ksmallest(*args, **kw),
+                    V.voronoi_ksmallest_reference(*args, **kw), dist)
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card(cuda):
+    from sonar_tpu_torch.models import UNetConfig, init_unet_params
+    from sonar_tpu_torch.noise import (NoiseSamplerHandle, VoronoiGenerator, get_noise_item,
+                                       make_noise_sampler)
+
+    fn, st = make_noise_sampler(VoronoiGenerator(), (1, 4, 16, 16), seed=1)
+    n = V.voronoi_ksmallest.launches
+    noise, _ = fn(st, 1.0, 0.5)
+    assert noise.is_cuda and V.voronoi_ksmallest.launches == n + 1  # f1 takes B6
+    assert NoiseSamplerHandle(get_noise_item("gaussian"), (1, 4, 16, 16), seed=1)().is_cuda
+    cfg = UNetConfig(model_channels=32, channel_mult=(1, 2), attention_levels=(1,))
+    model = init_unet_params(torch.Generator().manual_seed(0), cfg)
+    assert all(p.is_cuda for p in model.parameters())
 
 
 @pytest.mark.cuda

@@ -117,7 +117,7 @@ def test_draw_is_a_pure_function_of_seed_and_counter(shape):
 def test_noise_sampler_gaussian_draws_the_philox_stream():
     shape = (1, 4, 6, 5)
     fn, state = make_noise_sampler(get_noise_item("gaussian"), shape, seed=11,
-                                   normalized=False)
+                                   normalized=False, device="cpu")
     draws = []
     for _ in range(2):
         noise, state = fn(state, 1.0, 0.5)
@@ -126,7 +126,7 @@ def test_noise_sampler_gaussian_draws_the_philox_stream():
         want, _ = _reference_stream(derive_seed(seed_from(11), counter), 120)
         np.testing.assert_allclose(got.numpy().reshape(-1), want, rtol=0, atol=1e-6)
     fn, state = make_noise_sampler(get_noise_item("uniform", normalize=False), shape,
-                                   seed=11)
+                                   seed=11, device="cpu")
     u, _ = fn(state, None, None)
     _, uni = _reference_stream(derive_seed(seed_from(11), 0), 120)
     np.testing.assert_allclose(u.numpy().reshape(-1), (uni.astype(np.float32) - 0.5) * 3.46,

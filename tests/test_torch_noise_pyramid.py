@@ -32,6 +32,7 @@ import sonar_tpu_torch.samplers.sonar as ts
 from sonar_tpu_torch.core.rng import derive_seed
 from sonar_tpu_torch.kernels import hwrng
 from sonar_tpu_torch.noise import NoiseCtx, get_noise_item, make_noise_sampler
+from sonar_tpu_torch.ops.resample import resize_taps
 from sonar_tpu_torch.samplers.momentum import SonarConfig
 
 PYRAMID_NAMES = [
@@ -95,6 +96,66 @@ def test_pyramid_accumulate_ragged_matches_jax_composition(mode):
     got = TFP.fused_pyramid_accumulate(torch.from_numpy(base),
                                        [torch.from_numpy(s) for s in smalls],
                                        [0.7, 0.49, 0.343], mode)
+    _close(got, want, UP_TOL)
+
+
+def _tap_gather_accumulate(base, smalls, discounts, mode):
+    """Kernel B4's arithmetic in plain torch: per level and output pixel the
+    th x tw gathered taps of the level's tap tables, rows first, then
+    columns, ascending; levels added in order."""
+    bc, h, w = base.shape
+    out = base
+    for small, d in zip(smalls, discounts):
+        sh, sw = small.shape[-2:]
+        ridx, rval = resize_taps(sh, h, mode, device="cpu")
+        cidx, cval = resize_taps(sw, w, mode, device="cpu")
+        up = torch.zeros_like(base)
+        for b in range(cidx.shape[1]):
+            t = torch.zeros_like(base)
+            for a in range(ridx.shape[1]):
+                tapped = small[:, ridx[:, a].long()][:, :, cidx[:, b].long()]  # (bc, h, w)
+                t = t + rval[:, a, None] * tapped
+            up = up + t * cval[:, b]
+        out = out + up * float(np.float32(d))
+    return out
+
+
+# (h, w), the levels below the base: the 64 and 512 ladders' shapes cut in
+# width, the ragged one, clamped bicubic edges, a level as tall as the output
+GATHER_CASES = [((64, 64), [(25, 25), (5, 5), (1, 1)]),
+                ((512, 96), [(201, 38), (46, 9), (5, 1), (1, 1)]),
+                ((67, 61), [(26, 23), (5, 5), (1, 1)]),
+                ((9, 7), [(9, 3), (2, 3), (3, 2)])]
+
+
+@pytest.mark.parametrize("mode", TFP.UP_MODES)
+@pytest.mark.parametrize("case", range(len(GATHER_CASES)))
+def test_tap_gather_matches_plain_version(mode, case):
+    """Gathering over the tap tables skips the dense products' exact zeros
+    and nothing else: 1e-6 relative to max(1, |plain|) (float32 sums in
+    another order)."""
+    (h, w), below = GATHER_CASES[case]
+    rng = np.random.default_rng(case)
+    base = torch.from_numpy(_randn(rng, 3, h, w))
+    smalls = [torch.from_numpy(_randn(rng, 3, sh, sw)) for sh, sw in below]
+    discounts = [0.7**i for i in range(1, len(below) + 1)]
+    want = TFP.fused_pyramid_accumulate_reference(base, smalls, discounts, mode)
+    got = _tap_gather_accumulate(base, smalls, discounts, mode)
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= 1e-6 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.parametrize("mode", TFP.UP_MODES)
+def test_tap_gather_matches_pallas_interpret(mode):
+    rng = np.random.default_rng(0)
+    bc, h, w = 3, 64, 128
+    base = _randn(rng, bc, h, w)
+    smalls = [_randn(rng, bc, sh, sw) for sh, sw in [(25, 50), (7, 11), (1, 1)]]
+    discounts = [0.7, 0.49, 0.343]
+    want = JFP.fused_pyramid_accumulate(jnp.asarray(base), [jnp.asarray(s) for s in smalls],
+                                        discounts, mode=mode, interpret=True)
+    got = _tap_gather_accumulate(torch.from_numpy(base),
+                                 [torch.from_numpy(s) for s in smalls], discounts, mode)
     _close(got, want, UP_TOL)
 
 
@@ -303,7 +364,7 @@ def numpy_draws(monkeypatch):
 
 def _generate(name, shape, **kw):
     gen = get_noise_item(name, **kw)
-    ctx = NoiseCtx(shape=shape)
+    ctx = NoiseCtx(shape=shape, device="cpu")
     return gen, gen.generate(ctx, gen.init_state(ctx, 1), 77, 1.0, 0.5)[0]
 
 
@@ -356,7 +417,7 @@ def test_pyramid_old_composed_path_matches_jax_composition(numpy_draws):
 def test_kernel_paths_take_the_fused_plain_versions():
     """Where the gate holds, the generators draw what the B4/B5 plain
     versions draw for the same seeds."""
-    ctx = NoiseCtx(shape=(1, 2, 16, 16))
+    ctx = NoiseCtx(shape=(1, 2, 16, 16), device="cpu")
     seed = 4242
     gen = get_noise_item("pyramid")
     got, _ = gen.generate(ctx, (), seed, 1.0, 0.5)
@@ -381,13 +442,14 @@ def test_kernel_paths_take_the_fused_plain_versions():
 def test_five_d_latents_fold_frames():
     shape = (1, 2, 3, 16, 16)
     for name in ("pyramid", "highres_pyramid", "pyramid_old", "pyramid_mix"):
-        fn, st = make_noise_sampler(get_noise_item(name), shape, seed=3)
+        fn, st = make_noise_sampler(get_noise_item(name), shape, seed=3, device="cpu")
         noise, _ = fn(st, 1.0, 0.5)
         assert noise.shape == shape and torch.isfinite(noise).all()
-        fn4, st4 = make_noise_sampler(get_noise_item(name), (1, 6, 16, 16), seed=3)
+        fn4, st4 = make_noise_sampler(get_noise_item(name), (1, 6, 16, 16), seed=3,
+                                      device="cpu")
         assert torch.equal(noise.reshape(1, 6, 16, 16), fn4(st4, 1.0, 0.5)[0])
     with pytest.raises(ValueError, match="at least 4"):
-        make_noise_sampler(get_noise_item("pyramid"), (4, 16, 16), seed=0)
+        make_noise_sampler(get_noise_item("pyramid"), (4, 16, 16), seed=0, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -414,7 +476,7 @@ def _radial_band_fractions(batch: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("name", PYRAMID_NAMES)
 def test_noise_type_statistics_match_jax(name):
     kw = dict(seed=1234, sigma_min=0.03, sigma_max=14.6, normalized=True)
-    fn, st = make_noise_sampler(get_noise_item(name), STATS_SHAPE, **kw)
+    fn, st = make_noise_sampler(get_noise_item(name), STATS_SHAPE, device="cpu", **kw)
     jfn, jst = j_make_noise_sampler(j_get_noise_item(name), STATS_SHAPE, **kw)
     ours, theirs = [], []
     for _ in range(DRAWS):
@@ -484,7 +546,8 @@ def test_cpu_paths_count_no_launches():
                 TFP.fused_downscale_accumulate)
     before = [f.launches for f in counters]
     for name in ("pyramid", "highres_pyramid", "pyramid_old"):
-        fn, st = make_noise_sampler(get_noise_item(name), (1, 4, 16, 16), seed=1)
+        fn, st = make_noise_sampler(get_noise_item(name), (1, 4, 16, 16), seed=1,
+                                    device="cpu")
         fn(st, 1.0, 0.5)
     assert [f.launches for f in counters] == before
     with pytest.raises(ValueError, match="no kernel"):

@@ -23,7 +23,9 @@ from sonar_tpu.samplers.momentum import SonarConfig as JCfg
 import sonar_tpu_torch.kernels.fused as TF
 import sonar_tpu_torch.models.unet as tu
 import sonar_tpu_torch.samplers.sonar as ts
-from sonar_tpu_torch.noise import NoiseSamplerHandle, get_noise_item
+from sonar_tpu_torch.models import UNetConfig, init_unet_params
+from sonar_tpu_torch.noise import (NoiseCtx, NoiseSamplerHandle, get_noise_item,
+                                   make_noise_sampler)
 from sonar_tpu_torch.samplers.momentum import SonarConfig as TCfg
 
 REL = 1e-4
@@ -167,8 +169,8 @@ def test_stop_and_resume_is_bitwise(use_fused, stop):
 
 def test_gaussian_noise_is_seeded_and_standard():
     shape = (1, 4, 64, 64)
-    h1 = NoiseSamplerHandle(get_noise_item("gaussian"), shape, seed=3)
-    h2 = NoiseSamplerHandle(get_noise_item("gaussian"), shape, seed=3)
+    h1 = NoiseSamplerHandle(get_noise_item("gaussian"), shape, seed=3, device="cpu")
+    h2 = NoiseSamplerHandle(get_noise_item("gaussian"), shape, seed=3, device="cpu")
     a, b = h1(1.0, 0.5), h2(1.0, 0.5)
     assert torch.equal(a, b) and a.shape == shape and a.dtype == torch.float32
     assert not torch.equal(a, h1(1.0, 0.5))  # the counter advances
@@ -177,7 +179,8 @@ def test_gaussian_noise_is_seeded_and_standard():
     assert abs(float(draws.std()) - 1.0) < 0.01
     kurt = float(((draws - draws.mean()) ** 4).mean() / draws.var() ** 2)
     assert abs(kurt - 3.0) < 0.1
-    u = NoiseSamplerHandle(get_noise_item("uniform", normalize=False), shape, seed=3)()
+    u = NoiseSamplerHandle(get_noise_item("uniform", normalize=False), shape, seed=3,
+                           device="cpu")()
     assert -1.74 < float(u.min()) and float(u.max()) < 1.74
     with pytest.raises(ValueError, match="Unknown noise type"):
         get_noise_item("brownian_typo")
@@ -217,3 +220,76 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_import_no_jax():
+    """No module of the port, and not chip_smoke.py, names jax or the JAX
+    package in an import statement."""
+    import pathlib
+    import re
+
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|sonar_tpu)(?![\w])", re.M)
+    files = sorted(pathlib.Path(REPO, "sonar_tpu_torch").rglob("*.py"))
+    files.append(pathlib.Path(REPO, "chip_smoke.py"))
+    assert len(files) >= 30
+    bad = [str(f) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# the default device: the card, never the CPU
+# ---------------------------------------------------------------------------
+
+
+def _on_the_card_or_raises(make):
+    """With a card ``make()`` gives CUDA tensors; without one it raises
+    torch's own error at its first allocation (decided here, at run time)."""
+    if torch.cuda.is_available():
+        return make()
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda|nvidia"):
+        make()
+    return None
+
+
+def test_default_device_is_the_card():
+    from sonar_tpu_torch.noise.generators import _device
+    from sonar_tpu_torch.utils.misc import default_device
+
+    assert default_device() == default_device(None) == torch.device("cuda")
+    assert default_device("cpu") == torch.device("cpu")
+    assert default_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+    assert _device(NoiseCtx(shape=(1, 4, 8, 8))) == torch.device("cuda")
+    assert _device(NoiseCtx(shape=(1, 4, 8, 8), device="cpu")) == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["make_noise_sampler", "NoiseSamplerHandle"])
+@pytest.mark.parametrize("name", ["gaussian", "pyramid", "voronoi_mix"])
+def test_noise_entry_points_default_to_the_card(entry, name):
+    shape = (1, 4, 8, 8)
+
+    def draw(**kw):
+        if entry == "NoiseSamplerHandle":
+            return NoiseSamplerHandle(get_noise_item(name), shape, seed=3, **kw)(1.0, 0.5)
+        fn, st = make_noise_sampler(get_noise_item(name), shape, seed=3, **kw)
+        return fn(st, 1.0, 0.5)[0]
+
+    got = _on_the_card_or_raises(draw)
+    assert got is None or (got.is_cuda and got.shape == shape)
+    cpu = draw(device="cpu")
+    assert cpu.device.type == "cpu" and torch.isfinite(cpu).all()
+    assert torch.equal(cpu, draw(device=torch.device("cpu")))
+
+
+def test_init_unet_params_defaults_to_the_card():
+    cfg = UNetConfig(model_channels=16, channel_mult=(1, 2), attention_levels=(1,),
+                     num_heads=2, norm_groups=4)
+    gen = torch.Generator().manual_seed(0)
+    before = gen.get_state()
+    model = _on_the_card_or_raises(lambda: init_unet_params(gen, cfg))
+    if model is None:
+        # it raised before drawing a weight: the generator has not moved
+        assert torch.equal(gen.get_state(), before)
+    else:
+        assert all(p.is_cuda for p in model.parameters())
+    cpu = init_unet_params(gen, cfg, device="cpu")
+    assert all(p.device.type == "cpu" for p in cpu.parameters())

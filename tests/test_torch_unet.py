@@ -167,8 +167,8 @@ def test_predictions_match_jax(name):
 def test_init_unet_params_is_seeded_and_leaves_global_rng_alone():
     cfg = tu.UNetConfig(**NARROW)
     before = torch.random.get_rng_state()
-    a = tu.init_unet_params(torch.Generator().manual_seed(3), cfg)
-    b = tu.init_unet_params(torch.Generator().manual_seed(3), cfg)
+    a = tu.init_unet_params(torch.Generator().manual_seed(3), cfg, device="cpu")
+    b = tu.init_unet_params(torch.Generator().manual_seed(3), cfg, device="cpu")
     assert torch.equal(torch.random.get_rng_state(), before)
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)

@@ -22,6 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import sonar_tpu.kernels.voronoi as JKV
 import sonar_tpu.models.unet as ju
@@ -131,6 +133,54 @@ def test_ksmallest_plain_ragged_matches_jax_composition(dist, p, k):
     _assert_b6(got, want, dist)
 
 
+def _insert(mins, d):
+    """Kernel B6's sorted insertion on float32: mins stays ascending."""
+    for j in range(len(mins)):
+        lo, hi = min(mins[j], d), max(mins[j], d)
+        mins[j], d = lo, hi
+
+
+_F32 = st.floats(min_value=0.0, max_value=4.0, width=32, allow_nan=False)
+_SQUARES = st.lists(st.one_of(_F32, st.sampled_from([0.0, 0.25, 1.0, 2.0**-149, 2.0**-126])),
+                    min_size=1, max_size=40)
+
+
+@settings(max_examples=200, deadline=None)
+@given(squares=_SQUARES, k=st.integers(1, 8))
+def test_roots_of_the_k_smallest_squares_are_the_k_smallest_roots(squares, k):
+    """B6 selects on the squared euclidean distance and takes k roots at the
+    end: sqrt is correctly rounded, hence monotone, so the result equals
+    selecting on the roots bit for bit, ties and zeros included."""
+    sq = torch.tensor(squares, dtype=torch.float32)
+    k = min(k, len(squares))
+    deferred = torch.sqrt(torch.topk(sq, k, largest=False, sorted=True).values)
+    direct = torch.topk(torch.sqrt(sq), k, largest=False, sorted=True).values
+    assert torch.equal(deferred, direct)
+
+
+@settings(max_examples=200, deadline=None)
+@given(values=_SQUARES, k=st.integers(1, 8), parts=st.sampled_from([1, 2, 4, 8]))
+def test_merged_part_prefixes_are_the_k_smallest(values, k, parts):
+    """B6 splits a tile's points over the warps of a block: each part keeps
+    its own sorted k-prefix (+inf where it holds fewer than k points) and
+    the prefixes are merged by the same insertion. The k smallest of the
+    union of the parts' k smallest are the k smallest of the whole."""
+    vals = np.asarray(values, np.float32)
+    k = min(k, len(vals))
+    prefixes = []
+    for part in range(parts):  # the kernel's split: point i goes to part i % parts
+        mins = [np.float32(np.inf)] * k
+        for d in vals[part::parts]:
+            _insert(mins, d)
+        prefixes.append(mins)
+    merged = list(prefixes[0])
+    for other in prefixes[1:]:
+        for d in other:
+            _insert(merged, d)
+    want = torch.topk(torch.from_numpy(vals), k, largest=False, sorted=True).values.numpy()
+    np.testing.assert_array_equal(np.asarray(merged, np.float32), want)
+
+
 def test_ksmallest_wrapper_routes_and_refuses():
     fp, ys, xs = _b6_inputs(1, 2, 5, 8, 8)
     n = TKV.voronoi_ksmallest.launches
@@ -192,13 +242,18 @@ def test_kernel_plan_matches_jax(monkeypatch, spec):
     monkeypatch.setattr(JKV, "use_voronoi_kernel", lambda: True)
     kw = {"n_points": (16,), **PLAN_SPECS[spec]}
     want = JV.VoronoiGenerator(**kw)._kernel_plan(_JCtx(), 0, 64, 64)
-    ctx = NoiseCtx(shape=(1, 4, 64, 64))
+    if PLAN_SPECS[spec] == {}:
+        # f1, the default: the JAX package keeps a prefix of one off its TPU
+        # kernel; the port's kernel takes it, as a prefix like any other
+        assert want is None
+        want = ("euclidean", 3.0, None, 1.0, 1)
+    ctx = NoiseCtx(shape=(1, 4, 64, 64), device="cpu")
     gen = TV.VoronoiGenerator(**kw)
     assert gen._kernel_plan(ctx, 0, 64, 64) == want
     # the TPU's tiling conditions are gone: a ragged height plans the same
     assert gen._kernel_plan(ctx, 0, 67, 61) == want
     # a non-float32 context takes the plain path, as in JAX (voronoi.py:489)
-    assert gen._kernel_plan(NoiseCtx(shape=(1, 4, 64, 64), dtype=torch.bfloat16),
+    assert gen._kernel_plan(NoiseCtx(shape=(1, 4, 64, 64), dtype=torch.bfloat16, device="cpu"),
                             0, 64, 64) is None
 
 
@@ -283,7 +338,7 @@ def _inject_gaussian(monkeypatch, seed=1):
 
 def _draws_both(jitem, titem, shape, n=3, sigmas=(1.0, 0.9)):
     jfn, jst = j_make_noise_sampler(jitem, shape, seed=5)
-    tfn, tst = make_noise_sampler(titem, shape, seed=5)
+    tfn, tst = make_noise_sampler(titem, shape, seed=5, device="cpu")
     out = []
     for _ in range(n):
         a, jst = jfn(jst, *sigmas)
@@ -333,6 +388,44 @@ def test_generator_cellid_matches_jax(monkeypatch):
     # argmin of the distances: quadratic, bit-equal in both packages, so no
     # near-tie can pick another cell
     _check_generator(monkeypatch, distance_mode=("quadratic",), result_mode=("cellid",))
+
+
+F1_DISTANCES = ["euclidean", "quadratic", "chebyshev", "minkowski:p=2.5",
+                "weight:name=euclidean:h=2:z=0.5", "euclidean:dscale=0.5"]
+
+
+@pytest.mark.parametrize("distance", F1_DISTANCES)
+def test_f1_takes_the_kernel_route(monkeypatch, distance):
+    """f1 (a prefix of one) goes through voronoi_ksmallest, once per octave;
+    its values are the per-axis path's bit for bit (gate closed: the
+    distance tensor and a min; minkowski within 1e-6), and the JAX
+    generator's at 2e-5."""
+    calls = []
+    real = TV.voronoi_ksmallest
+    monkeypatch.setattr(TV, "voronoi_ksmallest",
+                        lambda *a, **kw: calls.append(kw["k"]) or real(*a, **kw))
+    kw = dict(n_points=(16, 9), octaves=2, octave_mode="new_features",
+              distance_mode=(distance,), result_mode=("f1",), z_max=0.0)
+    _check_generator(monkeypatch, shape=(1, 3, 12, 20), n=2, **kw)
+    assert calls == [1, 1, 1, 1]  # two draws, two octaves, k = 1
+
+    def draw():
+        _inject_points(monkeypatch)  # the same points for both routes
+        fn, st = make_noise_sampler(TV.VoronoiGenerator(**kw), (1, 3, 12, 20), seed=5,
+                                    normalized=False, device="cpu")
+        return fn(st, 1.0, 0.9)[0]
+
+    routed = draw()
+    assert len(calls) == 6
+    monkeypatch.setattr(TV, "voronoi_kernel_supported", lambda *a: False)
+    per_axis = draw()
+    assert len(calls) == 6  # the gate is closed: no further call
+    if distance.startswith("minkowski"):
+        # the host's pow takes its vector or its scalar loop by the operands'
+        # layout and the two differ by an ulp: the kernel's own limit, 1e-6
+        _close_rel(routed.numpy(), per_axis.numpy(), 1e-6)
+    else:
+        assert torch.equal(routed, per_axis)
 
 
 OCTAVE_MODES = ["same_features", "new_features", "same_invert_odd", "same_invert_even",
@@ -407,7 +500,7 @@ def test_voronoi_presets_have_the_jax_parameters():
 
 def test_philox_feature_points_are_uniform_and_seeded():
     gen = TV.VoronoiGenerator(n_points=(4096,), octaves=2, octave_mode="new_features")
-    ctx = NoiseCtx(shape=(1, 4, 8, 8))
+    ctx = NoiseCtx(shape=(1, 4, 8, 8), device="cpu")
     a, b = gen.init_state(ctx, 3), gen.init_state(ctx, 3)
     assert all(torch.equal(x, y) for x, y in zip(a["fp"], b["fp"]))
     assert not torch.equal(a["fp"][0], a["fp"][1])  # the two groups draw apart
@@ -433,7 +526,8 @@ def test_fuzz_modes_by_statistics(spec):
     packages' raw fields agree in their moments."""
     kw = {"n_points": (32,), "z_max": 0.0, **spec}
     shape = (1, 4, 32, 32)
-    tfn, tst = make_noise_sampler(TV.VoronoiGenerator(**kw), shape, seed=2, normalized=False)
+    tfn, tst = make_noise_sampler(TV.VoronoiGenerator(**kw), shape, seed=2, normalized=False,
+                                  device="cpu")
     jfn, jst = j_make_noise_sampler(JV.VoronoiGenerator(**kw), shape, seed=2,
                                     normalized=False)
     t_draws, j_draws = [], []
@@ -442,7 +536,8 @@ def test_fuzz_modes_by_statistics(spec):
         a, jst = jfn(jst, 1.0, 0.9)
         t_draws.append(b.double())
         j_draws.append(torch.from_numpy(np.asarray(a, np.float64)))
-    fn2, st2 = make_noise_sampler(TV.VoronoiGenerator(**kw), shape, seed=2, normalized=False)
+    fn2, st2 = make_noise_sampler(TV.VoronoiGenerator(**kw), shape, seed=2, normalized=False,
+                                  device="cpu")
     first, _ = fn2(st2, 1.0, 0.9)
     assert torch.equal(first.double(), t_draws[0])
     assert not torch.equal(t_draws[0], t_draws[1])
@@ -453,7 +548,8 @@ def test_fuzz_modes_by_statistics(spec):
 
 
 def test_voronoi_fuzz_preset_draws():
-    fn, st = make_noise_sampler(get_noise_item("voronoi_fuzz"), (1, 4, 16, 16), seed=9)
+    fn, st = make_noise_sampler(get_noise_item("voronoi_fuzz"), (1, 4, 16, 16), seed=9,
+                                device="cpu")
     a, st = fn(st, 1.0, 0.9)
     b, _ = fn(st, 1.0, 0.9)
     assert torch.isfinite(a).all() and not torch.equal(a, b)
