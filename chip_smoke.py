@@ -11,8 +11,10 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
 2. holds kernel B1 (fused momentum step) against its plain PyTorch version
    at the main path's shape and others, in every gate combination;
 3. holds kernel B2 (fused scale_noise) against its plain version in every
-   dead-band branch, on a tensor of more than 2**24 elements too, and checks
-   that two runs agree bit for bit;
+   dead-band branch, on a tensor of more than 2**24 elements too and on
+   both sides of the sizes where its launch changes (one block, one cluster,
+   one cooperative grid), checks that two runs agree bit for bit and that a
+   call is one device kernel;
 4. runs the main path — ``sample_sonar_euler_ancestral`` with the default
    SonarConfig and gaussian noise, 20 Karras steps (14.6 → 0.03, then 0) on
    a 1×4×64×64 latent, through the flagship ``UNetConfig()`` with random
@@ -22,9 +24,12 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    step, plain scale_noise), TF32 off, and compares the trajectories;
 5. times both paths end to end and B1 and B2 against their plain versions
    with CUDA events;
-6. holds kernel B3 (Philox4x32-10 Box-Muller) against its plain version:
-   uniforms bit for bit, normals within 2e-6, on a ragged shape and on more
-   than 2**24 elements, two calls equal, seeds distinct, and the moments;
+6. runs all 2**24 arguments of kernel B3's Box-Muller radius and of its
+   sine and cosine against float64, then holds B3 (Philox4x32-10
+   Box-Muller) against its plain version: uniforms bit for bit, normals
+   within 2e-6, bfloat16 and float16 draws equal to the float32 draw rounded
+   once, on a ragged shape and on more than 2**24 elements, two calls equal,
+   seeds distinct, and the moments;
 7. holds kernel B4 (upscale pyramid) against its plain version on the
    64×64, 512×512, a ragged and a 263×260 ladder in five modes, base drawn
    in-kernel (same seed) and given, and on ladders that stress its tap tables
@@ -42,7 +47,8 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    same sampler fed the plain versions' draws, TF32 off;
 10. times the pyramid path, pyramid noise throughput, and B3, B4 and B5
    against their plain versions and the composed paths (B4's device time
-   at 1×4×64×64 and 4×4×512×512 beside the composed path's);
+   at 1×4×64×64 and 4×4×512×512 beside the composed path's; B3's at
+   1×4×2304×2048 beside ``torch.randn``'s);
 11. holds kernel B6 (the k smallest toroidal distances of Voronoi noise)
    against its plain version: four distances, k in {1, 2, 4, 8}, N = 37,
    256 and 4,096 points (across its shared-memory chunks), the path's
@@ -56,7 +62,7 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    and a ``custom_noise`` NoiseChain of a VoronoiGenerator at 5 steps; and
    one seed's noise on the CPU (plain versions) and the card for all three;
 13. holds B1 and B2 on bfloat16 and float16 latents against their plain
-   versions and runs the bf16 headline (stub denoiser, 20 steps) through
+   versions (B2 at its launches' size limits too) and runs the bf16 headline (stub denoiser, 20 steps) through
    B1, B2 and B3, against ``use_fused=False``;
 14. times the Voronoi path against the gaussian headline (with the launches
    and device time of one run of each), B6 against its plain version at
@@ -76,6 +82,7 @@ network, and imports nothing of JAX.
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -95,7 +102,7 @@ PYR_HW = [(64, 64), (512, 512), (67, 61), (263, 260)]
 DOWN_HW = [(64, 64), (128, 128), (67, 61)]
 B1_TOL = 1e-6  # relative to max(1, |plain|): elementwise, same order of operations
 B2_TOL = 1e-5  # relative to max(1, |plain|): mean/std summed in another order
-B3_TOL = 2e-6  # absolute on normals up to ~5.7: libdevice vs host log/cos/sin ulps
+B3_TOL = 2e-6  # absolute on normals up to ~5.7: the kernel's vs torch's log/cos/sin ulps
 PYR_TOL = 1e-5  # relative to max(1, |plain|): B4 sums in another order, B3's ulps
 XDEV_TOL = 1e-5  # relative to max(1, |cpu|): one seed, CPU plain vs card kernels
 TRAJ_TOL = 1e-4  # relative to max |trajectory|, TF32 off on both paths
@@ -165,17 +172,18 @@ def device_us(torch, fn, iters: int):
     """Mean device time per call in µs, summed and by kernel name: the GPU
     kernels ``fn`` launches, from torch.profiler (None if it saw none).
 
-    The profiler misses the first launches after it starts (eight of them,
-    late in this script), so a few untimed calls run inside it first and
-    only the kernels that start after them count; their number must be a
-    multiple of ``iters``. ``device_us.launched`` is that number per call."""
+    The profiler misses the first launches after it starts (eight of them
+    late in this script, more after many profiles), so untimed calls run
+    inside it first, four times as many at each new attempt, and only the
+    kernels that start after them count; their number must be a multiple of
+    ``iters``. ``device_us.launched`` is that number per call."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(min(iters, 10)):
+            for _ in range(min(iters, 10) * 4**attempt):
                 fn()
             torch.cuda.synchronize()
             time.sleep(0.004)  # the device idles: the timed kernels start well after
@@ -239,8 +247,8 @@ def b2_bound(n: int, itemsize: int = 4) -> dict:
     return bound(2 * itemsize * n, B2_INSTR * n)
 
 
-def b3_bound(n: int) -> dict:
-    return bound(4 * n, NORMAL_INSTR * n)
+def b3_bound(n: int, itemsize: int = 4) -> dict:
+    return bound(itemsize * n, NORMAL_INSTR * n)
 
 
 def b4_bound(shape, ladder, mode: str, *, gen: bool) -> dict:
@@ -412,7 +420,28 @@ def main():
 
     # -- phase 3: B2 against its plain version --------------------------------
     b2_err = 0.0
-    for shape in B2_SHAPES:
+
+    # one element under, at and over each size where B2's launch changes
+    b2_limit_shapes = [(cap + d,) for cap in (F.SCALE_NOISE_BLOCK_ELEMS,
+                                              F.SCALE_NOISE_CLUSTER_ELEMS)
+                       for d in (-1, 0, 1)]
+
+    def b2_one_kernel(x, what):
+        """The tier B2 takes for ``x`` and the device kernels one call launches."""
+        tier = F.scale_noise_tier(x.numel(), x.element_size())
+        need(device_us(torch, lambda: F.fused_scale_noise(x), 10)[0] is not None,
+             f"B2 {what}: device time not measured")
+        need(device_us.launched == 1, f"B2 {what}: tier {tier} launched "
+                                      f"{device_us.launched} device kernels a call, not 1")
+        return tier
+
+    def b2_hold(shape, dt, tol):
+        """The six dead-band cases on ``shape`` in ``dt``: each within ``tol`` of
+        the plain version (run on the float32 upcast and rounded once, for a
+        2-byte type), elementwise relative to max(1, |plain|); bit-equal
+        across two runs; passed through as is where the noise is standard or
+        zero. Returns the largest absolute error and the tier, after checking
+        that a call is one device kernel."""
         base = randn(shape)
         std_normal = ((base.double() - base.double().mean()) / base.double().std()).float()
         cases = {
@@ -423,23 +452,39 @@ def main():
             "zeros": (torch.zeros(shape, device=dev), 1.0),
             "factor": (base * 2.0 + 0.25, 1.7),
         }
+        worst = 0.0
         for case, (x, factor) in cases.items():
+            x = x.to(dt)
             out = F.fused_scale_noise(x, factor)
-            ref = F.fused_scale_noise_reference(x, factor)
+            ref = F.fused_scale_noise_reference(x.float(), factor).to(dt)
             again = F.fused_scale_noise(x, factor)
             torch.cuda.synchronize()
-            need(out.is_cuda and out.shape == x.shape, "B2 output malformed")
-            need(bool(torch.isfinite(out).all()), f"B2 {shape} {case}: non-finite output")
-            err, rel = rel_err(out, ref)
-            b2_err = max(b2_err, err)
-            need(rel <= B2_TOL, f"B2 {shape} {case}: rel err {rel:.3e} > {B2_TOL}")
-            need(torch.equal(out, again), f"B2 {shape} {case}: two runs differ")
+            need(out.is_cuda and out.shape == x.shape and out.dtype == dt,
+                 f"B2 {dt} output malformed")
+            need(bool(torch.isfinite(out).all()), f"B2 {dt} {shape} {case}: non-finite output")
+            err = (out.double() - ref.double()).abs()
+            rel = float((err / ref.double().abs().clamp(min=1)).max())
+            worst = max(worst, float(err.max()))
+            need(rel <= tol, f"B2 {dt} {shape} {case}: rel err {rel:.3e} > {tol}")
+            need(torch.equal(out, again), f"B2 {dt} {shape} {case}: two runs differ")
             if case in ("standard", "zeros"):
-                need(torch.equal(out, x), f"B2 {shape} {case}: should pass through as is")
-        print(f"[3] B2 fused_scale_noise {shape} ({base.numel()} elements): "
-              f"{len(cases)} branch cases agree, bitwise equal across runs")
+                need(torch.equal(out, x), f"B2 {dt} {shape} {case}: should pass through as is")
+        return worst, b2_one_kernel(x, f"{dt} {shape}")
+
+    for shape in B2_SHAPES + b2_limit_shapes:
+        err, tier = b2_hold(shape, torch.float32, B2_TOL)
+        b2_err = max(b2_err, err)
+        print(f"[3] B2 fused_scale_noise {shape} ({math.prod(shape)} elements): tier {tier}, "
+              f"{device_us.launched:.0f} device kernel a call; 6 branch cases agree, bitwise "
+              f"equal across runs")
+    # a view that is not 16-byte aligned loads by elements: same tree, same bits
+    flat = randn((1 + 4 * 64 * 64,)) * 2.0 + 0.25
+    need(torch.equal(F.fused_scale_noise(flat[1:], 1.7),
+                     F.fused_scale_noise(flat[1:].clone(), 1.7)),
+         "B2: an unaligned view and its aligned copy differ")
     print(f"[3] B2 fused_scale_noise vs plain: max abs err {b2_err:.3e} "
-          f"(tolerance {B2_TOL:g} x max(1,|plain|))")
+          f"(tolerance {B2_TOL:g} x max(1,|plain|)); unaligned view bit-equal to its copy")
+    del flat
 
     # -- phase 4: the main path ------------------------------------------------
     cfg = UNetConfig()
@@ -532,21 +577,60 @@ def main():
               f"kernels): kernel {fmt_us(kd)}, plain {fmt_us(pd)} [{card}]")
     big = [randn((4, 4, 128, 128)) for _ in range(4)]
     b1_big = cuda_ms(torch, lambda: F.fused_momentum_step(*big, scal), 200)
+    b1_big_dev = device_us(torch, lambda: F.fused_momentum_step(*big, scal), 50)[0]
     gbs = 24 * big[0].numel() / (b1_big / 1000) / 1e9
     large = randn(B2_SHAPES[-1]) * 1.3 + 0.2
     b2_big = cuda_ms(torch, lambda: F.fused_scale_noise(large), 20)
     b2_plain_big = cuda_ms(torch, lambda: F.fused_scale_noise_reference(large), 20)
+    b2_big_dev = device_us(torch, lambda: F.fused_scale_noise(large), 10)[0]
+    mid = big[0] * 1.3 + 0.2
+    b2_mid_dev = (device_us(torch, lambda: F.fused_scale_noise(mid), 50)[0],
+                  device_us(torch, lambda: F.fused_scale_noise_reference(mid), 50)[0])
     bd1, bd2 = b1_bound(big[0].numel()), b2_bound(large.numel())
-    print(f"[5] B1 at (4, 4, 128, 128): {b1_big * 1000:.2f} us/call, "
-          f"{gbs:.0f} GB/s at 24 B/element (bound {bd1['us']:.2f} us by {bd1['by']}) "
+    print(f"[5] B1 at (4, 4, 128, 128): {b1_big * 1000:.2f} us/call by events, "
+          f"{gbs:.0f} GB/s at 24 B/element; device time {fmt_us(b1_big_dev)} (bound "
+          f"{bd1['us']:.2f} us by {bd1['by']}) [{card}]")
+    print(f"[5] B2 at (4, 4, 128, 128): device time kernel {fmt_us(b2_mid_dev[0])}, plain "
+          f"{fmt_us(b2_mid_dev[1])} (bound {b2_bound(mid.numel())['us']:.2f} us by bytes) "
           f"[{card}]")
-    print(f"[5] B2 at {B2_SHAPES[-1]}: kernel {b2_big * 1000:.1f} us/call "
-          f"({16 * large.numel() / (b2_big / 1000) / 1e9:.0f} GB/s at 16 B/element; bound "
+    print(f"[5] B2 at {B2_SHAPES[-1]}: kernel {b2_big * 1000:.1f} us/call by events, device "
+          f"time {fmt_us(b2_big_dev)} "
+          f"({8 * large.numel() / (b2_big_dev * 1e-6) / 1e9:.0f} GB/s at 8 B/element; bound "
           f"{bd2['us']:.2f} us by {bd2['by']}), plain {b2_plain_big * 1000:.1f} us/call "
           f"[{card}]")
+    del mid
     del big, large
 
     # -- phase 6: B3 against its plain version --------------------------------
+    # Box-Muller's two factors over every argument: a normal is r(u1) * c(u2),
+    # so 2 * 2**24 values bound the error of all 2**48 products
+    lib = _build.load_library()
+    n_arg = 1 << 24
+    probe = torch.empty((3, n_arg), device=dev)
+    _build.check(lib, lib.sonar_box_muller_probe(
+        probe[0].data_ptr(), probe[1].data_ptr(), probe[2].data_ptr(), 0, n_arg,
+        torch.cuda.current_stream().cuda_stream), "box_muller_probe")
+    torch.cuda.synchronize()
+    arg = torch.arange(n_arg, device=dev, dtype=torch.float64)
+    exact = torch.stack([torch.sqrt(-2.0 * torch.log((arg + 1.0) * 2.0**-24)),
+                         torch.cos(arg * (2.0 * math.pi * 2.0**-24)),
+                         torch.sin(arg * (2.0 * math.pi * 2.0**-24))])
+    dist = (probe.double() - exact).abs()
+    ulps = dist / (2.0**-23 * 2.0 ** torch.floor(torch.log2(exact.abs().clamp(min=2.0**-24))))
+    worst = [float(v) for v in dist.max(dim=1).values]
+    worst_ulp = [float(v) for v in ulps.max(dim=1).values]
+    # |r c - r' c'| <= |r - r'| + r' max|c - c'|, at each u1
+    implied = float((dist[0] + probe[0].double() * max(worst[1], worst[2])).max())
+    print(f"[6] B3 Box-Muller over all {n_arg} arguments against float64: radius max abs "
+          f"err {worst[0]:.3e} ({worst_ulp[0]:.2f} ulp), cosine {worst[1]:.3e} "
+          f"({worst_ulp[1]:.2f} ulp of the value), sine {worst[2]:.3e} "
+          f"({worst_ulp[2]:.2f} ulp of the value); largest radius "
+          f"{float(probe[0].max()):.4f}; worst normal they imply {implied:.3e} (tolerance "
+          f"{B3_TOL:g})")
+    need(bool(torch.isfinite(probe).all()), "B3 Box-Muller: non-finite factor")
+    need(implied <= B3_TOL, f"B3 Box-Muller: implied error {implied:.3e} > {B3_TOL}")
+    del probe, arg, exact, dist, ulps
+
     b3_err = 0.0
     for shape in B3_SHAPES:
         firsts = []
@@ -565,11 +649,24 @@ def main():
             b3_err = max(b3_err, err)
             need(err <= B3_TOL, f"B3 {shape} seed {seed}: normals differ by {err:.3e}")
             need(torch.equal(z, again), f"B3 {shape} seed {seed}: two calls differ")
+            # a 2-byte draw is the float32 draw rounded once, as the plain
+            # version's .to(dtype): equal to it wherever the float32 values are
+            for dt in (torch.bfloat16, torch.float16):
+                zl = H.philox_randn(seed, shape, device=dev, stream=stream, dtype=dt)
+                ul = H.philox_rand(seed, shape, device=dev, stream=stream, dtype=dt)
+                need(zl.dtype == dt and zl.shape == shape, f"B3 {dt} output malformed")
+                need(torch.equal(zl, z.to(dt)), f"B3 {shape} {dt}: normals are not the "
+                                                f"float32 draw rounded once")
+                need(torch.equal(ul, ur.to(dt)), f"B3 {shape} {dt}: uniforms differ from "
+                                                 f"plain.to({dt})")
+                need(bool((zl[z == zr] == zr.to(dt)[z == zr]).all()),
+                     f"B3 {shape} {dt}: differs from plain.to({dt}) where float32 agrees")
             firsts.append(z)
         need(all(not torch.equal(a, b) for i, a in enumerate(firsts) for b in firsts[i + 1:]),
              f"B3 {shape}: two seeds gave equal draws")
         print(f"[6] B3 philox {shape} ({firsts[0].numel()} elements), seeds "
-              f"{B3_SEEDS}: uniforms bitwise equal, normals agree, calls repeat")
+              f"{B3_SEEDS}: uniforms bitwise equal, normals agree, calls repeat; bfloat16 "
+              f"and float16 draws are the float32 draw rounded once")
     z = firsts[0].double()
     mean, sd = float(z.mean()), float(z.std())
     kurt = float(((z - z.mean()) ** 4).mean() / z.var() ** 2)
@@ -579,7 +676,7 @@ def main():
          "B3 moments off")
     print(f"[6] B3 philox_randn vs plain: max abs err {b3_err:.3e} (tolerance "
           f"{B3_TOL:g} absolute)")
-    del z, firsts, u, ur, zr, again
+    del z, firsts, u, ur, zr, again, zl, ul
 
     # -- phase 7: B4 against its plain version --------------------------------
     b4_err = 0.0
@@ -798,7 +895,7 @@ def main():
             if which == "kernel":
                 _, by = device_us(torch, kf, iters)
                 got["B4"].append(sum(v for k, v in by.items() if "pyramid_up_kernel" in k))
-                got["B3"].append(sum(v for k, v in by.items() if "philox_fill_kernel" in k))
+                got["B3"].append(sum(v for k, v in by.items() if "philox_fill" in k))
             else:
                 got["composed"].append(device_us(torch, cf, iters)[0])
         return got
@@ -822,27 +919,43 @@ def main():
         "highres_pyramid": (hl, [0.7**i for i in range(len(hl))], "bilinear", dbase),
     }
     for nt, (sz, cf, mode, b) in b5_cases.items():
-        k = cuda_ms(torch, lambda: P.fused_downscale_pyramid(5, dshape, sz, cf, mode, base=b,
-                                                             device=dev), 50)
+        kf = lambda: P.fused_downscale_pyramid(5, dshape, sz, cf, mode, base=b,  # noqa: E731
+                                               device=dev)
+        k = cuda_ms(torch, kf, 50)
         p = cuda_ms(torch, lambda: P.fused_downscale_pyramid_reference(
             5, dshape, sz, cf, mode, base=b, device=dev), 50)
         c = cuda_ms(torch, composed(generate(nt, dshape)), 5)
-        print(f"[10] B5 {nt} at {dshape}, ladder {sz}: kernel {k * 1000:.1f} us, plain "
+        kd = device_us(torch, kf, 20)[0]
+        bd5 = b5_bound(P, dshape, sz, cf, mode, base=b is not None)
+        print(f"[10] B5 {nt} at {dshape}, ladder {sz}: kernel {k * 1000:.1f} us by events, "
+              f"device time {fmt_us(kd)} (bound {bd5['us']:.2f} us by {bd5['by']}), plain "
               f"{p * 1000:.1f} us, composed path (oversized levels built) "
               f"{c * 1000:.1f} us per draw [{card}]")
     lshape = B3_SHAPES[-1]
-    b3 = {"kernel": cuda_ms(torch, lambda: H.philox_randn(5, lshape, device=dev), 20),
-          "plain": cuda_ms(torch, lambda: H.philox_randn_reference(5, lshape, device=dev), 20),
-          "torch.randn": cuda_ms(torch, lambda: torch.randn(lshape, device=dev), 20)}
-    n = 1
-    for d in lshape:
-        n *= d
+    b3_fns = {"kernel": lambda: H.philox_randn(5, lshape, device=dev),
+              "torch.randn": lambda: torch.randn(lshape, device=dev),
+              "plain": lambda: H.philox_randn_reference(5, lshape, device=dev)}
+    b3 = {k: cuda_ms(torch, f, 20) for k, f in b3_fns.items()}
+    b3_dev = {k: [] for k in ("kernel", "torch.randn")}
+    for which in ("kernel", "torch.randn", "torch.randn", "kernel"):
+        b3_dev[which].append(device_us(torch, b3_fns[which], 20)[0])
+    n = math.prod(lshape)
     bd3 = b3_bound(n)
-    print(f"[10] B3 at {lshape} ({n} elements): kernel {b3['kernel'] * 1000:.1f} us "
-          f"({4 * n / (b3['kernel'] / 1000) / 1e9:.0f} GB/s written; bound "
-          f"{bd3['us']:.2f} us by {bd3['by']}), plain "
-          f"{b3['plain'] * 1000:.1f} us, torch.randn {b3['torch.randn'] * 1000:.1f} us "
-          f"[{card}]")
+    need(all(b3_dev["kernel"]) and all(b3_dev["torch.randn"]), "B3: device time not measured")
+    print(f"[10] B3 at {lshape} ({n} elements): device time kernel "
+          f"{[round(v, 2) for v in b3_dev['kernel']]} us "
+          f"({4 * n / (min(b3_dev['kernel']) * 1e-6) / 1e9:.0f} GB/s written; bound "
+          f"{bd3['us']:.2f} us by {bd3['by']}), torch.randn "
+          f"{[round(v, 2) for v in b3_dev['torch.randn']]} us, kernel / torch.randn "
+          f"{sum(b3_dev['kernel']) / sum(b3_dev['torch.randn']):.3f}; by events kernel "
+          f"{b3['kernel'] * 1000:.1f} us, torch.randn {b3['torch.randn'] * 1000:.1f} us, "
+          f"plain {b3['plain'] * 1000:.1f} us [{card}]")
+    for dt in (torch.bfloat16, torch.float16):
+        kd = device_us(torch, lambda: H.philox_randn(5, lshape, device=dev, dtype=dt), 20)[0]
+        kl = device_us.launched
+        ld = device_us(torch, lambda: torch.randn(lshape, device=dev, dtype=dt), 20)[0]
+        print(f"[10] B3 at {lshape} in {dt}: device time kernel {fmt_us(kd)} ({kl:.0f} "
+              f"device kernel a call), torch.randn {fmt_us(ld)} [{card}]")
 
     # the path's calls at its shape: events (host cost included) and device time
     hl64 = G._size_ladder_highres(*SHAPE[2:], 4, 0)
@@ -1049,6 +1162,10 @@ def main():
                 need(e <= ulp, f"B2 {dt} {shape}: {e:.3e} from the float32 upcast")
                 worst_plain = max(worst_plain, rel_err(o, F.fused_scale_noise_reference(
                     x, factor))[1])
+        limits = [(shape[0], b2_hold(shape, dt, ulp)[1]) for shape in b2_limit_shapes]
+        print(f"[13] B2 on {dt} at its launches' size limits (elements, tier): {limits}: 6 "
+              f"branch cases each within one ulp of the plain version on the float32 "
+              f"upcast, bitwise equal across runs, one device kernel a call")
         torch.cuda.synchronize()
         print(f"[13] B1/B2 on {dt}: B1 equal to the plain version on the float32 upcast; B2 "
               f"within {worst_up:.3e} of it (one ulp {ulp:g}); against the plain version "
@@ -1093,7 +1210,7 @@ def main():
         if tot is None:
             print(f"[14] {which} run: device time not measured [{card}]")
             continue
-        parts = {"B6": "voronoi_ksmallest_kernel", "B3": "philox_fill_kernel",
+        parts = {"B6": "voronoi_ksmallest_kernel", "B3": "philox_fill",
                  "B1": "momentum_step_kernel", "B2": "scale_noise_"}
         got = {k: sum(v for n_, v in by.items() if pat in n_) for k, pat in parts.items()}
         wall = sum(ms[which]) / len(ms[which]) * 1000

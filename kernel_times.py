@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of the port's redesigned kernels, B4 and B6, on one NVIDIA GPU.
+"""Device times of the port's redesigned kernels (B2, B3, B4, B6) on one NVIDIA GPU.
 
     python3 kernel_times.py
 
@@ -8,6 +8,14 @@ the kernels, then prints, per shape and option, the kernel's own device time
 per call (``torch.profiler``, the mean of 20 calls) beside the least time
 the card could take for the same work (``chip_smoke.py``'s bounds):
 
+- B2 (scale_noise) one element under, at and over each size where its
+  launch changes (one block at 1×4×64×64, one cluster up to 4×4×128×128,
+  one cooperative grid beyond) and at 64, 4,096, 1×4×128×128 and
+  1×4×2304×2048 elements, in float32, bfloat16 and float16, with the device
+  kernels a call launches;
+- B3 (Philox gaussian) at 1×4×64×64, 2²⁰ and 1×4×2304×2048 elements,
+  normals and uniforms, in float32, bfloat16 and float16, beside
+  ``torch.randn`` and ``torch.rand`` on the same shape and type;
 - B4 (upscale pyramid) at 1×4×64×64 and 4×4×512×512, in the bilinear,
   bicubic and nearest modes with the base pair drawn in-kernel, and in
   bilinear on a given base;
@@ -30,10 +38,12 @@ def main():
 
     if not torch.cuda.is_available():
         CS.fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    import sonar_tpu_torch.kernels.fused as F
     import sonar_tpu_torch.kernels.fused_pyramid as P
     import sonar_tpu_torch.kernels.voronoi as V
     import sonar_tpu_torch.noise.generators as G
     from sonar_tpu_torch.kernels import _build
+    from sonar_tpu_torch.kernels import hwrng as H
 
     dev = torch.device("cuda", 0)
     card = CS.card_line()
@@ -43,6 +53,31 @@ def main():
     def alone(fn, pattern, iters=20):
         _, by = CS.device_us(torch, fn, iters)
         return sum(v for k, v in by.items() if pattern in k)
+
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    for dt in dtypes:
+        size = torch.empty(0, dtype=dt).element_size()
+        caps = (F.SCALE_NOISE_BLOCK_ELEMS, F.SCALE_NOISE_CLUSTER_ELEMS)
+        counts = sorted({64, 4096, 65536, 18874368, *(c + d for c in caps for d in (-1, 0, 1))})
+        for n in counts:
+            x = (torch.randn(n, device=dev) * 1.3 + 0.2).to(dt)
+            us, _ = CS.device_us(torch, lambda: F.fused_scale_noise(x), 20)
+            bd = CS.b2_bound(n, size)
+            print(f"B2 {n} elements {dt}: tier {F.scale_noise_tier(n, size)}, "
+                  f"{CS.device_us.launched:.0f} device kernel a call, {us:.2f} us (bound "
+                  f"{bd['us']:.2f} us by {bd['by']}) [{card}]")
+        del x
+
+    for n in (16384, 1 << 20, 18874368):
+        for dt in dtypes:
+            for what, ours, theirs in (("normal", H.philox_randn, torch.randn),
+                                       ("uniform", H.philox_rand, torch.rand)):
+                us = alone(lambda: ours(5, (n,), device=dev, dtype=dt), "philox_fill")
+                lib_us, _ = CS.device_us(torch, lambda: theirs((n,), device=dev, dtype=dt), 20)
+                bd = CS.b3_bound(n, dt.itemsize) if what == "normal" else CS.bound(
+                    dt.itemsize * n, CS.PHILOX_INSTR * n)
+                print(f"B3 {n} elements {dt} {what}: {us:.2f} us (bound {bd['us']:.2f} us "
+                      f"by {bd['by']}), torch.{theirs.__name__} {lib_us:.2f} us [{card}]")
 
     for shape in ((1, 4, 64, 64), (4, 4, 512, 512)):
         lad = G._size_ladder_pyramid(shape[2], shape[3], 10, 0)

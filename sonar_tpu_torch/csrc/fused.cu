@@ -19,32 +19,20 @@
 // float32 (B2's cross-block sums in double) and stored once, rounded to
 // nearest even, in the input's type.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "elem.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
+using sonar::from_f32;
+using sonar::to_f32;
 
 // 16 bytes of elements: one vector load or store (4 floats, 8 halves).
 template <typename T>
@@ -189,22 +177,52 @@ __global__ void momentum_step_kernel(const T* __restrict__ x,
 // (centre only if |mean| > thr, divide by the original std only if
 // |1 - std| > thr and std != 0) and multiplies by the factor.
 //
-// Bound: device memory. It must read the latent twice for the two-pass
-// statistics and read and write it once more for the affine: at least 8
-// bytes per element, 16 as written. The TPU kernel held the whole latent in
-// one VMEM block; a Hopper block cannot, and blocks run in no order, so the
-// work is three launches over a fixed grid:
-//   1. per-block partial sums of x;
-//   2. every block reduces the partial sums to the mean in a fixed order,
-//      then writes its partial sum of (x - mean)^2 (two-pass, as
-//      fused.py:192-193, never E[x^2] - E[x]^2);
-//   3. every block reduces both partial arrays to mean and std in the same
-//      fixed order and applies the affine.
+// Bound: device memory, 8 bytes an element (one read, one write), where the
+// latent is large: 94 us for 18.9 M floats, against 45 us, because two
+// thirds of a slice do not fit on chip and are read three times. Below a
+// few hundred KB it is a launch and a chain of three dependent passes on
+// the few SMs the latent can be spread over without paying more for the
+// exchange than for the work; no single launch reaches the bytes' bound
+// there. The TPU kernel held the whole latent in one VMEM block. A Hopper
+// block has 227 KB of shared memory, a cluster of blocks can read each
+// other's, and a cooperative grid can meet at a barrier, so the whole
+// function is one launch at every size.
+//
+// One kernel does all three passes (the sum; the squared deviations from
+// the mean, two-pass as fused.py:192-193, never E[x^2] - E[x]^2; the
+// affine). The tensor is cut into units of 16 bytes (4 floats, 8 halves);
+// block b of the launch owns the contiguous units [b * per, (b + 1) * per)
+// and copies them into its dynamic shared memory as it sums them, so the
+// later passes read the on-chip copy and device memory is read once and
+// written once. What differs between the tiers is how the blocks' partial
+// sums meet:
+//   kBlock    one block, nothing to exchange (the wrapper sends it up to
+//             16,384 elements: the sampler's 1 x 4 x 64 x 64 latent);
+//   kCluster  one thread-block cluster of kClusterBlocks blocks (up to
+//             262,144 elements): a block writes its partial into its own
+//             shared memory, cluster.sync(), and every block adds all
+//             partials in rank order, reading the others' through
+//             distributed shared memory;
+//   kGrid     a cooperative launch over kGridBlocks blocks, a constant so
+//             that no bit depends on the card: partials through a scratch
+//             array and grid.sync(); a block keeps the first kUnitsOnChip
+//             units of its slice on chip and reads the rest of it again,
+//             backward in the second pass and forward in the third, so
+//             that each pass starts on what the L2 cache still holds.
+// The wrapper's limits are measured (kernel_times.py; H100 80GB HBM3,
+// 700 W): one block takes 2.9 us for 64 elements (a launch and the chain of
+// load, two statistics, store) and 0.6 us more for every 4,096 elements,
+// which is one SM's loads, stores and issue slots: 5.3 us at 16,384. A
+// cluster of 16 starts at 5.6 us and reaches 8.7 us at 262,144 elements,
+// where the grid's two barriers cost as much (8.4 us) and grow slower.
 // No atomics: the dead-band is a threshold test, so a sum whose order
-// changed from run to run could flip a branch between runs. The grid size
-// depends only on N, each thread's elements are fixed, and the reductions
-// are fixed trees, so the output is bitwise reproducible. Accumulation is
-// f32 within a block and f64 across blocks; indices are 64-bit.
+// changed from run to run could flip a branch between runs. The launch
+// geometry is a function of n and the element size alone, each thread's
+// units, the block tree and the order over blocks are fixed, so the output
+// repeats bit for bit. A unit is summed in the same tree whether it came as
+// one 16-byte load or, where a pointer is not 16-byte aligned, as scalar
+// loads: alignment does not change a bit either. Accumulation is f32
+// within a block and f64 across blocks; indices are 64-bit.
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -213,121 +231,172 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Fixed-order block sum; the result is valid in thread 0.
+constexpr int kOneThreads = 1024;
+constexpr int kOneWarps = kOneThreads / 32;
+constexpr int kClusterBlocks = 16;  // above 8: cudaFuncAttributeNonPortableClusterSizeAllowed
+constexpr int kGridBlocks = 132;
+constexpr int kUnitsOnChip = 192 * 1024 / 16;  // a block's on-chip copy: 192 KiB
+
+enum Exchange { kBlock = 0, kCluster = 1, kGrid = 2 };
+
+// A unit is read from device memory to be kept on chip, or to be read again
+// from the L2 cache by a later pass (tier 3, beyond the on-chip copy); the
+// first kind and the output stream through the cache (evict-first) so that
+// they do not push the second kind out of it.
 template <typename T>
-__device__ __forceinline__ T block_sum(T v, T* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  v = threadIdx.x < kWarps ? smem[threadIdx.x] : T(0);
-  if (warp == 0) v = warp_sum(v);
-  __syncthreads();  // smem may be reused by the caller
+__device__ __forceinline__ Vec<T> load_unit(const T* __restrict__ x, int64_t u, int vec,
+                                            bool stream) {
+  Vec<T> v;
+  if (vec) {
+    const uint4* p = reinterpret_cast<const uint4*>(x) + u;
+    *reinterpret_cast<uint4*>(&v) = stream ? __ldcs(p) : *p;
+    return v;
+  }
+#pragma unroll
+  for (int j = 0; j < Vec<T>::kN; ++j) v.v[j] = x[u * Vec<T>::kN + j];
   return v;
 }
 
-// Sum of the nparts block partials, in double, identical in every block.
-__device__ double reduce_partials(const float* __restrict__ parts, int nparts,
-                                  double* smem, double* result) {
-  double acc = 0.0;
-  for (int i = threadIdx.x; i < nparts; i += blockDim.x) acc += (double)parts[i];
-  acc = block_sum(acc, smem);
-  if (threadIdx.x == 0) *result = acc;
+template <typename T>
+__device__ __forceinline__ void store_unit(T* __restrict__ out, int64_t u, const Vec<T>& v,
+                                           int vec) {
+  if (vec) {
+    __stcs(reinterpret_cast<uint4*>(out) + u, *reinterpret_cast<const uint4*>(&v));
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < Vec<T>::kN; ++j) out[u * Vec<T>::kN + j] = v.v[j];
+}
+
+struct OneShared {
+  float warp_f[kOneWarps];
+  double partial[2];  // this block's sum of x, of (x - mean)^2: read by the cluster
+  float stat[2];      // the mean, the std: the same in every block
+};
+
+// The launch's mean (phase 0: `acc` is a thread's sum of x) or ddof=1 std
+// (phase 1: its sum of squared deviations), the same float in every thread
+// of every block. The blocks' float partials are added in rank order in
+// double; one thread does the double division and root.
+template <int kExchange>
+__device__ __forceinline__ float launch_stat(float acc, OneShared& sh, int phase,
+                                             float* __restrict__ part, int64_t n) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  acc = warp_sum(acc);
+  if (lane == 0) sh.warp_f[warp] = acc;
   __syncthreads();
-  return *result;
-}
-
-template <typename T>
-__global__ void scale_noise_sum_kernel(const T* __restrict__ x,
-                                       float* __restrict__ part_sum,
-                                       int64_t n, int vec) {
-  constexpr int V = Vec<T>::kN;
-  __shared__ float smem[kWarps];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  float acc = 0.f;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t nv = n / V;
-    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(x);
-    for (int64_t i = tid; i < nv; i += stride)
-      acc += vec_tree_sum(xv[i], [](float v) { return v; });
-    done = nv * V;
+  if (warp == 0) {
+    acc = warp_sum(sh.warp_f[lane]);
+    if (lane == 0 && kExchange == kCluster) sh.partial[phase] = (double)acc;
+    if (lane == 0 && kExchange == kGrid) part[phase * kGridBlocks + blockIdx.x] = acc;
   }
-  for (int64_t i = done + tid; i < n; i += stride) acc += to_f32(x[i]);
-  acc = block_sum(acc, smem);
-  if (threadIdx.x == 0) part_sum[blockIdx.x] = acc;
+  if (kExchange == kCluster) cg::this_cluster().sync();
+  if (kExchange == kGrid) {
+    __threadfence();
+    cg::this_grid().sync();
+  }
+  if (warp == 0) {
+    double total = (double)acc;  // kBlock: lane 0 holds the block's sum
+    if (kExchange == kCluster) {
+      total = lane < kClusterBlocks
+                  ? *cg::this_cluster().map_shared_rank(&sh.partial[phase], lane)
+                  : 0.0;
+      total = warp_sum(total);
+    }
+    if (kExchange == kGrid) {
+      total = 0.0;
+      for (int i = lane; i < kGridBlocks; i += 32)
+        total += (double)__ldcg(part + phase * kGridBlocks + i);
+      total = warp_sum(total);
+    }
+    if (lane == 0)
+      sh.stat[phase] = phase == 0 ? (float)(total / (double)n)
+                                  : (float)sqrt(total / (double)(n - 1));
+  }
+  __syncthreads();
+  return sh.stat[phase];
 }
 
-template <typename T>
-__global__ void scale_noise_sqdev_kernel(const T* __restrict__ x,
-                                         const float* __restrict__ part_sum,
-                                         float* __restrict__ part_sq,
-                                         int64_t n, int vec) {
+template <typename T, int kExchange>
+__global__ void __launch_bounds__(kOneThreads)
+    scale_noise_one_kernel(const T* __restrict__ x, T* __restrict__ out,
+                           float* __restrict__ part, int64_t n, float threshold,
+                           float factor, int vec) {
   constexpr int V = Vec<T>::kN;
-  __shared__ float smem[kWarps];
-  __shared__ double dsmem[kWarps];
-  __shared__ double total;
-  const float mean =
-      (float)(reduce_partials(part_sum, gridDim.x, dsmem, &total) / (double)n);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const auto sq = [mean](float v) {
-    const float a = v - mean;
-    return a * a;
+  extern __shared__ __align__(16) unsigned char on_chip_raw[];
+  Vec<T>* on_chip = reinterpret_cast<Vec<T>*>(on_chip_raw);
+  __shared__ OneShared sh;
+  const int64_t units = n / V;
+  const int64_t per = (units + gridDim.x - 1) / gridDim.x;
+  const int64_t lo = min((int64_t)blockIdx.x * per, units);
+  const int64_t mine = min(lo + per, units) - lo;
+  // This block's units, counted from lo: [0, kept) go on chip (all of them
+  // in tiers 1 and 2, where the host has checked that they fit); a thread's
+  // units beyond go on at kept + threadIdx.x + i * kOneThreads, i < more.
+  // The passes walk those forward, backward, forward: each starts on what
+  // the pass before read last, which the L2 cache still holds.
+  static_assert(kUnitsOnChip % kOneThreads == 0, "a thread keeps its stride past the copy");
+  const int kept = (int)min(mine, (int64_t)kUnitsOnChip);
+  const int64_t beyond = (int64_t)kept + threadIdx.x;
+  const int64_t more =
+      kExchange == kGrid && beyond < mine ? (mine - beyond + kOneThreads - 1) / kOneThreads : 0;
+  x += lo * V;
+  out += lo * V;
+  // the n % V elements after the last unit: one each for the first threads
+  // of the last block
+  const int64_t tail = (units - lo) * V + threadIdx.x;
+  const bool has_tail = blockIdx.x == gridDim.x - 1 && lo * V + tail < n;
+  const float tail_x = has_tail ? to_f32(x[tail]) : 0.f;
+  const auto same = [](float a) { return a; };
+
+  float acc = 0.f;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kept; i += kOneThreads) {
+    const Vec<T> v = load_unit(x, i, vec, true);
+    on_chip[i] = v;
+    acc += vec_tree_sum(v, same);
+  }
+#pragma unroll 4
+  for (int64_t i = 0; i < more; ++i)
+    acc += vec_tree_sum(load_unit(x, beyond + i * kOneThreads, vec, false), same);
+  acc += tail_x;
+  const float mean = launch_stat<kExchange>(acc, sh, 0, part, n);
+
+  const auto sq = [mean](float a) {
+    const float d = a - mean;
+    return d * d;
   };
-  float acc = 0.f;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t nv = n / V;
-    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(x);
-    for (int64_t i = tid; i < nv; i += stride) acc += vec_tree_sum(xv[i], sq);
-    done = nv * V;
-  }
-  for (int64_t i = done + tid; i < n; i += stride) acc += sq(to_f32(x[i]));
-  acc = block_sum(acc, smem);
-  if (threadIdx.x == 0) part_sq[blockIdx.x] = acc;
-}
+  acc = 0.f;
+  for (int i = threadIdx.x; i < kept; i += kOneThreads) acc += vec_tree_sum(on_chip[i], sq);
+#pragma unroll 4
+  for (int64_t i = more - 1; i >= 0; --i)
+    acc += vec_tree_sum(load_unit(x, beyond + i * kOneThreads, vec, false), sq);
+  if (has_tail) acc += sq(tail_x);
+  const float sd = launch_stat<kExchange>(acc, sh, 1, part, n);
 
-template <typename T>
-__global__ void scale_noise_apply_kernel(const T* __restrict__ x,
-                                         const float* __restrict__ part_sum,
-                                         const float* __restrict__ part_sq,
-                                         T* __restrict__ out, int64_t n,
-                                         float threshold, float factor,
-                                         int vec) {
-  constexpr int V = Vec<T>::kN;
-  __shared__ double dsmem[kWarps];
-  __shared__ double total;
-  const float mean =
-      (float)(reduce_partials(part_sum, gridDim.x, dsmem, &total) / (double)n);
-  const float sd = (float)sqrt(
-      reduce_partials(part_sq, gridDim.x, dsmem, &total) / (double)(n - 1));
   const bool centre = fabsf(mean) > threshold;
   const bool rescale = fabsf(1.f - sd) > threshold && sd != 0.f;
-  const float shift = centre ? mean : 0.f;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   // x - 0 and y / 1 are exact, so the branch-free forms below equal the
   // reference's selects bit for bit.
+  const float shift = centre ? mean : 0.f;
   const float div = rescale ? sd : 1.f;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t nv = n / V;
-    const Vec<T>* xv = reinterpret_cast<const Vec<T>*>(x);
-    Vec<T>* ov = reinterpret_cast<Vec<T>*>(out);
-    for (int64_t i = tid; i < nv; i += stride) {
-      const Vec<T> v = xv[i];
-      Vec<T> o;
+  const auto affine = [=](float a) { return ((a - shift) / div) * factor; };
+  const auto affine_unit = [&](const Vec<T>& v) {
+    Vec<T> o;
 #pragma unroll
-      for (int j = 0; j < V; ++j)
-        o.v[j] = from_f32<T>(((to_f32(v.v[j]) - shift) / div) * factor);
-      ov[i] = o;
-    }
-    done = nv * V;
+    for (int j = 0; j < V; ++j) o.v[j] = from_f32<T>(affine(to_f32(v.v[j])));
+    return o;
+  };
+  for (int i = threadIdx.x; i < kept; i += kOneThreads)
+    store_unit(out, i, affine_unit(on_chip[i]), vec);
+#pragma unroll 4
+  for (int64_t i = 0; i < more; ++i) {
+    const int64_t u = beyond + i * kOneThreads;
+    store_unit(out, u, affine_unit(load_unit(x, u, vec, true)), vec);
   }
-  for (int64_t i = done + tid; i < n; i += stride)
-    out[i] = from_f32<T>(((to_f32(x[i]) - shift) / div) * factor);
+  if (has_tail) out[tail] = from_f32<T>(affine(tail_x));
+  // a block's shared memory must outlive the other blocks' reads of it
+  if (kExchange == kCluster) cg::this_cluster().sync();
 }
 
 int momentum_grid(int64_t work) {
@@ -347,23 +416,74 @@ int momentum_step(const void* x, const void* den, const void* hd,
   return (int)cudaGetLastError();
 }
 
+// The one-launch tiers. The on-chip copy must hold a block's whole slice in
+// kBlock and kCluster (the caller picks the tier from n and the element size
+// so that it does); kGrid must fit the card all at once, which is checked
+// on its first launch.
+template <typename T, int kExchange>
+int scale_noise_one(const void* x, void* out, float* part, int64_t n, float threshold,
+                    float factor, int vec, cudaStream_t s) {
+  auto kernel = scale_noise_one_kernel<T, kExchange>;
+  const unsigned blocks =
+      kExchange == kBlock ? 1 : kExchange == kCluster ? kClusterBlocks : kGridBlocks;
+  const int64_t per = (n / Vec<T>::kN + blocks - 1) / blocks;
+  if (kExchange != kGrid && per > kUnitsOnChip) return (int)cudaErrorInvalidValue;
+  if (kExchange == kGrid && part == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(per < kUnitsOnChip ? per : kUnitsOnChip) * 16;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kUnitsOnChip * 16);
+  if (err != cudaSuccess) return (int)err;
+  if (kExchange == kCluster &&
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                  1)) != cudaSuccess)
+    return (int)err;
+  const T* xp = (const T*)x;
+  T* op = (T*)out;
+  if (kExchange == kGrid) {
+    static int fits = -1;  // grid.sync() needs every block resident at once
+    if (fits < 0) {
+      int device = 0, sms = 0, per_sm = 0;
+      if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
+        return (int)err;
+      if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kernel, kOneThreads, (size_t)kUnitsOnChip * 16)) != cudaSuccess)
+        return (int)err;
+      fits = per_sm * sms >= kGridBlocks;
+    }
+    if (!fits) return (int)cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {&xp, &op, &part, &n, &threshold, &factor, &vec};
+    return (int)cudaLaunchCooperativeKernel((void*)kernel, dim3(blocks), dim3(kOneThreads),
+                                            args, smem, s);
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(kOneThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = s;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = blocks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  config.attrs = &cluster;
+  config.numAttrs = kExchange == kCluster ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&config, kernel, xp, op, part, n, threshold, factor, vec);
+}
+
 template <typename T>
-int scale_noise(const void* x_, void* out_, float* part, int64_t n,
-                int nblocks, float threshold, float factor, int vec,
-                cudaStream_t s) {
-  const T* x = (const T*)x_;
-  float* part_sum = part;
-  float* part_sq = part + nblocks;
-  scale_noise_sum_kernel<T><<<nblocks, kThreads, 0, s>>>(x, part_sum, n, vec);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  scale_noise_sqdev_kernel<T><<<nblocks, kThreads, 0, s>>>(x, part_sum,
-                                                           part_sq, n, vec);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  scale_noise_apply_kernel<T><<<nblocks, kThreads, 0, s>>>(
-      x, part_sum, part_sq, (T*)out_, n, threshold, factor, vec);
-  return (int)cudaGetLastError();
+int scale_noise_tier(int tier, const void* x, void* out, float* part, int64_t n,
+                     float threshold, float factor, int vec, cudaStream_t s) {
+  switch (tier) {
+    case 1:
+      return scale_noise_one<T, kBlock>(x, out, part, n, threshold, factor, vec, s);
+    case 2:
+      return scale_noise_one<T, kCluster>(x, out, part, n, threshold, factor, vec, s);
+    case 3:
+      return scale_noise_one<T, kGrid>(x, out, part, n, threshold, factor, vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -391,23 +511,21 @@ int sonar_momentum_step(const void* x, const void* den, const void* hd,
   return (int)cudaErrorInvalidValue;
 }
 
-// part: scratch of 2 * nblocks floats; nblocks must be in [1, 1024] and is
-// chosen by the caller from n alone, so the reduction order is a function
-// of the shape. dtype as for sonar_momentum_step (x and out share it).
-int sonar_scale_noise(const void* x, void* out, float* part, int64_t n,
-                      int nblocks, float threshold, float factor, int vec,
-                      int dtype, void* stream) {
+// tier: 1 one block, 2 one cluster (part unused: null), 3 one cooperative
+// grid (part: scratch of 2 * 132 floats). The caller picks the tier from n
+// and the element size alone, so the reduction order is a function of the
+// shape. dtype as for sonar_momentum_step (x and out share it).
+int sonar_scale_noise(const void* x, void* out, float* part, int64_t n, int tier,
+                      float threshold, float factor, int vec, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case 0:
-      return scale_noise<float>(x, out, part, n, nblocks, threshold, factor,
-                                vec, s);
+      return scale_noise_tier<float>(tier, x, out, part, n, threshold, factor, vec, s);
     case 1:
-      return scale_noise<__nv_bfloat16>(x, out, part, n, nblocks, threshold,
-                                        factor, vec, s);
+      return scale_noise_tier<__nv_bfloat16>(tier, x, out, part, n, threshold, factor,
+                                             vec, s);
     case 2:
-      return scale_noise<__half>(x, out, part, n, nblocks, threshold, factor,
-                                 vec, s);
+      return scale_noise_tier<__half>(tier, x, out, part, n, threshold, factor, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }

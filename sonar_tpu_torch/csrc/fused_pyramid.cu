@@ -30,10 +30,11 @@ constexpr int kMaxLevels = 16;  // fused_pyramid.py MAX_LEVELS
 // the dense products the TPU ran on its MXU. The small levels (42,543
 // floats a plane at 512 x 512) stay in L1/L2; what is left is the one
 // output write, 4 bytes a pixel (plus a read of the base where it is
-// given), and arithmetic: with the base pair drawn in-kernel the two
-// Philox calls and Box-Mullers a group outweigh the write (by a count of
-// their operations about twice its time; logf, cosf and sinf expand to
-// many more than one each).
+// given), and arithmetic: the two Philox calls and Box-Mullers a group of
+// the base pair drawn in-kernel (philox.cuh's, written for their
+// arguments) and the gathers, which outweigh them: at 4 x 4 x 512 x 512 on
+// an H100 80GB HBM3 at 700 W bilinear takes 43.8 us on a given base and
+// 48.6 us with the base drawn, nearest (one tap) with the base drawn 31.8.
 //
 // Design: the kernel takes each matrix as its padded sparse rows (tap
 // tables idx, val of shape (out, T), columns ascending, padding weight 0;

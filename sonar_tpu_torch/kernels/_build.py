@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("philox.cuh", "fused.cu", "hwrng.cu", "fused_pyramid.cu", "voronoi.cu")
+SOURCES = ("elem.cuh", "philox.cuh", "fused.cu", "hwrng.cu", "fused_pyramid.cu", "voronoi.cu")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -111,8 +111,10 @@ def load_library() -> ctypes.CDLL:
     lib.sonar_scale_noise.argtypes = [p, p, p, i64, i32, f32, f32, i32, i32, p]
     lib.sonar_scale_noise.restype = i32
     u32 = ctypes.c_uint32
-    lib.sonar_philox_fill.argtypes = [p, i64, u32, u32, u32, i32, p]
+    lib.sonar_philox_fill.argtypes = [p, i64, u32, u32, u32, i32, i32, p]
     lib.sonar_philox_fill.restype = i32
+    lib.sonar_box_muller_probe.argtypes = [p, p, p, u32, i64, p]
+    lib.sonar_box_muller_probe.restype = i32
     lib.sonar_pyramid_up.argtypes = [p, p, i32, i32, i32, i32, i32, p, p, p, i32, u32,
                                      u32, f32, p]
     lib.sonar_pyramid_up.restype = i32

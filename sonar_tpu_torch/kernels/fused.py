@@ -6,7 +6,9 @@
    ``csrc/fused.cu``; replaces ``_momentum_kernel`` of the JAX package).
 2. :func:`fused_scale_noise` — scale_noise's global mode: mean and ddof=1
    std, the 2.5/√N dead-band, the affine and the factor (kernel B2; replaces
-   ``_make_scale_noise_kernel``).
+   ``_make_scale_noise_kernel``), in one launch that keeps the latent on
+   chip between its passes; :func:`scale_noise_tier` picks the launch from
+   the element count and size alone.
 
 Each wrapper sends a CUDA tensor to its kernel, or raises if the kernel
 cannot take it, and a CPU tensor to the plain PyTorch version beside it.
@@ -24,10 +26,13 @@ import math
 
 import torch
 
-# B2's partial sums: a fixed grid that depends on N alone (so the reduction
-# order, and hence every output bit, is a function of the shape).
-_SCALE_NOISE_ELEMS_PER_BLOCK = 4096
-_SCALE_NOISE_MAX_BLOCKS = 1024
+# B2's tiers, in elements: what one block takes, and what a cluster of 16
+# blocks does. On an H100 the passes cost by the element on the few SMs of
+# tiers 1 and 2, whatever its type, and from 262,145 elements on the
+# cooperative grid's barriers cost less than the cluster's 16 SMs lose.
+SCALE_NOISE_BLOCK_ELEMS = 16 * 1024
+SCALE_NOISE_CLUSTER_ELEMS = 16 * SCALE_NOISE_BLOCK_ELEMS
+_SCALE_NOISE_GRID_BLOCKS = 132  # tier 3's cooperative grid (kGridBlocks)
 
 
 # The element types the kernels take, by the code their C entry points read.
@@ -157,11 +162,31 @@ def fused_scale_noise_reference(noise, factor=1.0, *, threshold_std_devs: float 
     return noise if factor == 1 else noise * factor
 
 
+def scale_noise_tier(n: int, itemsize: int) -> int:
+    """Which of kernel B2's launches takes a latent of ``n`` elements of
+    ``itemsize`` bytes (4, or 2 for bfloat16 and float16): 1, one block that
+    keeps the whole latent in its shared memory; 2, one cluster of 16
+    blocks, each keeping its slice, their partial sums exchanged through
+    distributed shared memory; 3, one cooperative grid of 132 blocks that
+    keep what fits. It reads nothing else, so the reduction order, and with
+    it every output bit, is a function of the shape and the element type.
+    The limits are the same count for both sizes (see above)."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"scale_noise_tier: the kernel takes 2- and 4-byte elements, "
+                         f"not {itemsize}")
+    if n <= SCALE_NOISE_BLOCK_ELEMS:
+        return 1
+    return 2 if n <= SCALE_NOISE_CLUSTER_ELEMS else 3
+
+
 def fused_scale_noise(noise, factor=1.0, *, threshold_std_devs: float = 2.5):
-    """scale_noise's global mode as one kernel (three fixed-grid passes).
+    """scale_noise's global mode as one kernel launch.
 
     ``factor`` is a number. The threshold comes from N on the host; the
-    mean, the std and the branch flags stay on the card."""
+    mean, the std and the branch flags stay on the card. The kernel reads
+    the latent once, keeps it (tiers 1 and 2) or part of it (tier 3) on chip
+    for the squared deviations and the affine, and writes it once; it needs
+    thread-block clusters (sm_90). :func:`scale_noise_tier` picks the launch."""
     if noise.device.type == "cpu":
         return fused_scale_noise_reference(noise, factor,
                                            threshold_std_devs=threshold_std_devs)
@@ -172,15 +197,16 @@ def fused_scale_noise(noise, factor=1.0, *, threshold_std_devs: float = 2.5):
     from ._build import check, load_library
 
     lib = load_library()
-    nblocks = min(_SCALE_NOISE_MAX_BLOCKS,
-                  -(-n // _SCALE_NOISE_ELEMS_PER_BLOCK))
+    tier = scale_noise_tier(n, noise.element_size())
     out = torch.empty_like(noise)
-    part = torch.empty(2 * nblocks, dtype=torch.float32, device=noise.device)
+    # only tier 3's blocks meet through device memory
+    part = (torch.empty(2 * _SCALE_NOISE_GRID_BLOCKS, dtype=torch.float32,
+                        device=noise.device) if tier == 3 else None)
     with torch.cuda.device(noise.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sonar_scale_noise(
-            noise.data_ptr(), out.data_ptr(), part.data_ptr(), n, nblocks,
-            threshold_std_devs / math.sqrt(n), float(factor),
+            noise.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+            n, tier, threshold_std_devs / math.sqrt(n), float(factor),
             _aligned16(noise, out), _DTYPE_CODES[noise.dtype], stream)
     check(lib, err, "fused_scale_noise")
     fused_scale_noise.launches += 1

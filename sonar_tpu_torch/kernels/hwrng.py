@@ -21,14 +21,33 @@ Stream definition (both versions follow it):
   ``(x_k >> 8) · 2⁻²⁴ ∈ [0, 1)``;
 - normals (:func:`philox_randn`): Box-Muller on the 24-bit uniforms of
   ``sonar_tpu/kernels/hwrng.py:57-67``, ``u1 = ((a >> 8) + 1) · 2⁻²⁴ ∈ (0, 1]``
-  and ``u2 = (b >> 8) · 2⁻²⁴ ∈ [0, 1)``, ``r = sqrt(-2 log u1)``,
-  ``θ = 2π·u2`` (2π rounded to float32). Element ``4g`` gets ``r·cos θ`` and
-  ``4g+1`` gets ``r·sin θ`` of the pair ``(x0, x1)``; ``4g+2`` and ``4g+3``
-  get the cosine and sine of the pair ``(x2, x3)``.
+  and ``u2 = k · 2⁻²⁴ ∈ [0, 1)`` with ``k = b >> 8``: ``r = sqrt(-2 log u1)``
+  and the angle ``θ = 2π·k·2⁻²⁴``, taken exactly. The angle is reduced on
+  the integer, with no rounding: ``q = (k + 2²¹) >> 22`` is the nearest
+  quarter turn, ``j = k − q·2²² ∈ [−2²¹, 2²¹)``, ``φ = j · (π·2⁻²³)`` (π
+  rounded to float32) ``∈ [−π/4, π/4)``, and ``(cos θ, sin θ)`` is
+  ``(cos φ, sin φ)`` turned by ``q`` quarter turns (a swap and two signs).
+  Element ``4g`` gets ``r·cos θ`` and ``4g+1`` gets ``r·sin θ`` of the pair
+  ``(x0, x1)``; ``4g+2`` and ``4g+3`` get the cosine and sine of the pair
+  ``(x2, x3)``.
 
-The uniforms agree bit for bit between the versions. The normals agree to a
-few ulps: the card's ``logf``/``cosf``/``sinf`` (libdevice) and the host's
-round differently in the last bits.
+The uniforms agree bit for bit between the versions. The normals agree to
+2e-6 absolute (measured: see ``chip_smoke.py`` phase 6, which also runs all
+2²⁴ arguments of the kernel's radius and of its sine and cosine against
+float64): the kernel evaluates ``φ``'s sine and cosine and the logarithm by
+polynomials written for these arguments and takes the root by ``rsqrt`` with
+a Newton step, the plain version calls torch's functions on the same ``φ``
+and ``u1``.
+
+Before the fold was part of the definition the angle was the float32
+product ``2π·u2``, which is off the exact angle by up to 4.2e-7 rad: a
+seed's normals differ from those drawn under that definition in their last
+bits, by at most 4.2e-7·r + 5e-7 ≤ 3e-6 absolute (r ≤ 5.77). Uniforms and
+Philox words are unchanged, and a seed still gives one noise on the CPU and
+on the card.
+
+A draw in bfloat16 or float16 is the float32 value rounded once to nearest
+even, by the kernel at its store and by the plain version's ``.to(dtype)``.
 
 ``stream`` separates fields drawn under one seed (kernels B4 and B5 use it
 for the base pair and for each (level, plane) field).
@@ -47,7 +66,7 @@ import torch
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
-_TWO_PI = 2.0 * math.pi  # rounded to float32 where it meets a float32 tensor
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def philox_key(seed: int) -> tuple[int, int]:
@@ -82,12 +101,20 @@ def philox_words(seed: int, n: int, *, device, stream: int = 0):
 
 
 def box_muller_pair(a, b):
-    """(r·cos θ, r·sin θ) from two words of Philox bits (hwrng.py:57-67)."""
+    """(r·cos θ, r·sin θ) from two words of Philox bits, θ = 2π·(b >> 8)·2⁻²⁴
+    reduced exactly on the integer (the module docstring has the fold)."""
     u1 = ((a >> 8) + 1).to(torch.float32) * 2.0**-24
-    u2 = (b >> 8).to(torch.float32) * 2.0**-24
     r = torch.sqrt(-2.0 * torch.log(u1))
-    theta = _TWO_PI * u2
-    return r * torch.cos(theta), r * torch.sin(theta)
+    kr = (b >> 8) + (1 << 21)
+    q = kr >> 22
+    j = (kr & ((1 << 22) - 1)) - (1 << 21)
+    phi = j.to(torch.float32) * torch.tensor(math.pi, dtype=torch.float32) * 2.0**-23
+    c, s = torch.cos(phi), torch.sin(phi)
+    swap = (q & 1) != 0
+    cos_t, sin_t = torch.where(swap, s, c), torch.where(swap, c, s)
+    cos_t = torch.where(((q + 1) & 2) != 0, -cos_t, cos_t)
+    sin_t = torch.where((q & 2) != 0, -sin_t, sin_t)
+    return r * cos_t, r * sin_t
 
 
 def _interleave(cols, n: int, shape, dtype):
@@ -117,7 +144,10 @@ def philox_rand_reference(seed: int, shape, *, device, dtype=torch.float32,
 def _launch(wrapper, seed, shape, device, dtype, stream, normal: bool):
     from ._build import check, load_library
 
-    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    # the kernel stores float32, bfloat16 and float16; any other type is
+    # converted from its float32 draw
+    stored = dtype if dtype in _DTYPE_CODES else torch.float32
+    out = torch.empty(tuple(shape), dtype=stored, device=device)
     if out.numel():
         lib = load_library()
         k0, k1 = philox_key(seed)
@@ -125,10 +155,10 @@ def _launch(wrapper, seed, shape, device, dtype, stream, normal: bool):
             cuda_stream = torch.cuda.current_stream().cuda_stream
             err = lib.sonar_philox_fill(out.data_ptr(), out.numel(), k0, k1,
                                         int(stream) & _MASK32, int(normal),
-                                        cuda_stream)
+                                        _DTYPE_CODES[stored], cuda_stream)
         check(lib, err, wrapper.__name__)
         wrapper.launches += 1
-    return out if dtype == torch.float32 else out.to(dtype)
+    return out if stored == dtype else out.to(dtype)
 
 
 def _device(device) -> torch.device:

@@ -8,9 +8,13 @@ them without it:
 
 Tolerances: B1 1e-6 relative to max(1, |plain|) (elementwise, same order of
 operations, no FMA contraction); B2 1e-5 (its mean and std sum in another
-order than torch's reductions); B3 uniforms bit for bit and normals 2e-6
-absolute (the card's libdevice logf/cosf/sinf against the host's, a few
-ulps of values up to ~5.7); B4 and B5 1e-5 relative to max(1, |plain|)
+order than torch's reductions) at every size, in each of its three
+launches (one block, one cluster, one cooperative grid) and bit for bit
+across runs and alignments; B3 uniforms bit for bit and normals 2e-6
+absolute (the kernel's polynomials for the logarithm, sine and cosine and
+its rsqrt against torch's functions on the same arguments, a few ulps of
+values up to ~5.8), a bfloat16 or float16 draw equal to the float32 draw
+rounded once; B4 and B5 1e-5 relative to max(1, |plain|)
 (B4 gathers the nonzero taps of the matrices its plain version multiplies
 by, so its sums run in another order; B5 inherits B3's ulps), with matmul
 TF32 off for the plain versions.
@@ -102,6 +106,36 @@ def test_scale_noise_kernel_matches_plain(cuda, shape, case):
     assert F.fused_scale_noise.launches == n + 1
     assert _rel_err(out, F.fused_scale_noise_reference(x, factor)) <= 1e-5
     assert torch.equal(out, F.fused_scale_noise(x, factor))
+
+
+def _scale_noise_sizes():
+    """Element counts around each size where B2's launch changes, plus tails
+    (counts that are not a multiple of the 16-byte unit)."""
+    caps = (F.SCALE_NOISE_BLOCK_ELEMS, F.SCALE_NOISE_CLUSTER_ELEMS)
+    return [1003, *(c + d for c in caps for d in (-1, 0, 1)), 3 * caps[1] + 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_scale_noise_kernel_tiers_alignment_and_tails(cuda, dtype, aligned):
+    tol = 1e-5 if dtype == torch.float32 else LOW_PRECISION[dtype][0]
+    tiers = set()
+    for n in _scale_noise_sizes():
+        tiers.add(F.scale_noise_tier(n, torch.empty(0, dtype=dtype).element_size()))
+        flat = (_randn((n + 1,), cuda, n % 97) * 2.0 + 0.25).to(dtype)
+        x = flat[:n].clone() if aligned else flat[1:]  # the view starts off a 16-byte line
+        assert (x.data_ptr() % 16 == 0) == aligned
+        out = F.fused_scale_noise(x, 1.7)
+        want = F.fused_scale_noise_reference(x.float(), 1.7).to(dtype)
+        err = (out.double() - want.double()).abs() / want.double().abs().clamp(min=1)
+        assert out.dtype == dtype and float(err.max()) <= tol, n
+        assert torch.equal(out, F.fused_scale_noise(x, 1.7)), n
+        # the unit's tree does not depend on how it was loaded
+        assert torch.equal(out, F.fused_scale_noise(x.clone(), 1.7)), n
+        zeros = torch.zeros_like(x)
+        assert torch.equal(F.fused_scale_noise(zeros), zeros), n
+    assert tiers == {1, 2, 3}
 
 
 @pytest.mark.cuda
@@ -197,6 +231,74 @@ def test_philox_kernel_matches_plain(cuda, shape, seed, stream):
     assert torch.equal(z, H.philox_randn(seed, shape, device=cuda, stream=stream))
     zc = H.philox_randn(seed, shape, device="cpu", stream=stream)
     assert float((z.cpu() - zc).abs().max()) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n", [1, 2, 3, 16385, 270338, 270343, 1 << 20])
+def test_philox_kernel_dtypes_and_ragged_counts(cuda, dtype, n):
+    """Counts with n % 4 in {1, 2, 3} and 0, on both of B3's kernels (one
+    group a thread below 67,584 groups, two above): a 2-byte draw is the
+    float32 draw rounded once, which is what the plain version's .to gives."""
+    z32 = H.philox_randn(3, (n,), device=cuda, stream=2)
+    zr = H.philox_randn_reference(3, (n,), device=cuda, stream=2)
+    assert float((z32 - zr).abs().max()) <= 2e-6
+    z = H.philox_randn(3, (n,), device=cuda, stream=2, dtype=dtype)
+    assert z.dtype == dtype and z.shape == (n,) and torch.equal(z, z32.to(dtype))
+    u = H.philox_rand(3, (n,), device=cuda, stream=2, dtype=dtype)
+    assert torch.equal(u, H.philox_rand_reference(3, (n,), device=cuda, stream=2, dtype=dtype))
+    # nothing is written past the end of a ragged draw
+    canvas = H.philox_randn(3, (n + 8,), device=cuda, stream=2, dtype=dtype)
+    assert torch.equal(canvas[:n - n % 4], z[:n - n % 4])
+
+
+@pytest.mark.cuda
+def test_box_muller_factors_over_every_argument(cuda):
+    """All 2^24 radii and all 2^24 sines and cosines against float64: the
+    worst normal they imply stays inside B3's 2e-6."""
+    import math
+
+    from sonar_tpu_torch.kernels import _build
+
+    lib, n = _build.load_library(), 1 << 24
+    probe = torch.empty((3, n), device=cuda)
+    _build.check(lib, lib.sonar_box_muller_probe(
+        probe[0].data_ptr(), probe[1].data_ptr(), probe[2].data_ptr(), 0, n,
+        torch.cuda.current_stream().cuda_stream), "box_muller_probe")
+    arg = torch.arange(n, device=cuda, dtype=torch.float64)
+    radius = torch.sqrt(-2.0 * torch.log((arg + 1.0) * 2.0**-24))
+    theta = arg * (2.0 * math.pi * 2.0**-24)
+    dr = (probe[0].double() - radius).abs()
+    dc = max(float((probe[1].double() - torch.cos(theta)).abs().max()),
+             float((probe[2].double() - torch.sin(theta)).abs().max()))
+    assert dc <= 1.2e-7 and float(dr.max()) <= 5e-7
+    assert float((dr + probe[0].double() * dc).max()) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(64, 64), (67, 61)])
+def test_pyramid_kernels_draw_the_philox_stream(cuda, hw):
+    """B4's base pair and B5's fields are philox_randn's normals: with the
+    levels below the base discounted to 0, B4 returns stream 0 plus the
+    level-0 discount times stream 1 of the base seed, as B3 draws them; B5
+    is held to its plain version, which draws its fields with B3's plain
+    version."""
+    from sonar_tpu_torch.core.rng import derive_seed
+
+    h, w = hw
+    shape = (1, 4, h, w)
+    up = P.fused_pyramid(11, shape, [hw, (1, 1)], 0.0, "nearest", device=cuda)
+    bseed = derive_seed(11, "base")
+    pair = (H.philox_randn(bseed, (4, h, w), device=cuda, stream=0)
+            + H.philox_randn(bseed, (4, h, w), device=cuda, stream=1) * P._LEVEL0_DISCOUNT)
+    assert float((up[0] - pair).abs().max()) <= 1e-6
+    sizes = [(2 * h, 2 * w), (4 * h, 4 * w)]
+    assert P.fused_downscale_supported(sizes, h, w, "nearest-exact")
+    down = P.fused_downscale_pyramid(13, shape, sizes, [1.0, 0.5], "nearest-exact",
+                                     device=cuda)
+    ref = P.fused_downscale_pyramid_reference(13, shape, sizes, [1.0, 0.5], "nearest-exact",
+                                              device=cuda)
+    assert float((down - ref).abs().max()) <= 2e-6 * 1.5
 
 
 def _pyramid_case(hw):

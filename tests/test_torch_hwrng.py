@@ -2,9 +2,11 @@
 
 On the CPU the wrappers run their plain PyTorch version, held here against
 the Random123 known-answer vectors and an independent pure-Python Philox
-(bitwise), a numpy transcription of the JAX package's Box-Muller
-(sonar_tpu/kernels/hwrng.py:57-67; 1e-6 absolute, float32 log/cos/sin
-against numpy's), and JAX's own normals by a KS test. The CUDA kernel is
+(bitwise), a float64 numpy Box-Muller on the same 24-bit uniforms as the JAX
+package's (sonar_tpu/kernels/hwrng.py:57-67; 1e-6 absolute on random words,
+2e-6 at the angle fold's boundaries, where the radius is the largest there
+is: float32 log/sqrt/cos/sin against float64), and JAX's own normals by a
+KS test. The CUDA kernel is
 held against the plain version on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
@@ -15,6 +17,8 @@ import jax
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from scipy import stats
 
 from sonar_tpu_torch.core.rng import derive_seed, seed_from
@@ -41,12 +45,12 @@ def _philox_py(c, k):
 
 
 def _box_muller_np(b1, b2):
-    """numpy transcription of hwrng.py:57-67 (float32 throughout)."""
-    u1 = ((b1 >> 8).astype(np.int32).astype(np.float32) + np.float32(1.0)) * np.float32(
-        1.0 / (1 << 24))
-    u2 = (b2 >> 8).astype(np.int32).astype(np.float32) * np.float32(1.0 / (1 << 24))
-    r = np.sqrt(np.float32(-2.0) * np.log(u1))
-    theta = np.float32(2.0 * math.pi) * u2
+    """Box-Muller on the uniforms of hwrng.py:57-67, in float64: the stream's
+    definition takes the angle 2π·u2 exactly."""
+    u1 = ((b1 >> 8).astype(np.float64) + 1.0) * 2.0**-24
+    u2 = (b2 >> 8).astype(np.float64) * 2.0**-24
+    r = np.sqrt(-2.0 * np.log(u1))
+    theta = 2.0 * math.pi * u2
     return r * np.cos(theta), r * np.sin(theta)
 
 
@@ -94,6 +98,50 @@ def test_box_muller_matches_numpy_transcription():
     want = _box_muller_np(bits[0].astype(np.uint32), bits[1].astype(np.uint32))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-6)
+
+
+# the 24-bit angle k at, one under and one over every eighth of a turn: where
+# the fold changes its quarter turn (odd eighths) and where the reduced angle
+# is 0 (even eighths), and the ends of the range
+FOLD_EDGES = sorted({min(max(e * 2**21 + d, 0), 2**24 - 1)
+                     for e in range(9) for d in (-1, 0, 1)})
+
+
+@pytest.mark.parametrize("k", FOLD_EDGES)
+def test_box_muller_fold_boundaries_match_float64(k):
+    """Every radius class against each boundary angle: u1 = 2^-24 (the
+    largest radius, 5.77), 1/2, 1 - 2^-24 (the smallest nonzero) and 1."""
+    a = np.array([0, 2**31, M32 - 256, M32], dtype=np.uint64)
+    b = np.full_like(a, k << 8)
+    got = hwrng.box_muller_pair(_t(a.astype(np.int64)), _t(b.astype(np.int64)))
+    want = _box_muller_np(a, b)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=2e-6)
+    # the fold is exact: a quarter turn on swaps and negates, bit for bit
+    q = hwrng.box_muller_pair(_t(a.astype(np.int64)),
+                              _t(((b >> 8) + 2**22) % 2**24 << 8).to(torch.int64))
+    assert torch.equal(q[0], -got[1]) and torch.equal(q[1], got[0])
+
+
+@settings(max_examples=200, deadline=None)
+@given(a=st.integers(0, M32), b=st.integers(0, M32))
+def test_box_muller_matches_float64_on_any_words(a, b):
+    got = hwrng.box_muller_pair(_t([a]), _t([b]))
+    want = _box_muller_np(np.array([a], np.uint64), np.array([b], np.uint64))
+    for g, w in zip(got, want):
+        assert abs(float(g) - float(w[0])) <= 2e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_low_precision_draw_is_the_float32_draw_rounded_once(dtype):
+    shape = (1, 3, 7, 5)
+    z = hwrng.philox_randn(21, shape, device="cpu")
+    zl = hwrng.philox_randn(21, shape, device="cpu", dtype=dtype)
+    assert zl.dtype == dtype and torch.equal(zl, z.to(dtype))
+    u = hwrng.philox_rand(21, shape, device="cpu", stream=2)
+    ul = hwrng.philox_rand(21, shape, device="cpu", stream=2, dtype=dtype)
+    assert ul.dtype == dtype and torch.equal(ul, u.to(dtype))
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 8, 8), (1, 3, 7, 5), (13,)])

@@ -122,6 +122,54 @@ def test_scale_noise_plain_matches_pallas_interpret(case, interpret_pallas):
     _close(out.numpy(), ref)
 
 
+# one size for each of the CUDA kernel's launches (float32): one block, one
+# cluster, one cooperative grid. 1e-6 x max(1, |ref|): the JAX kernel sums in
+# another order than torch's mean and std, which moves them in the last bits.
+TIER_SHAPES = {1: (1, 4, 64, 64), 2: (1, 4, 128, 128), 3: (1, 4, 384, 256)}
+
+
+@pytest.mark.parametrize("tier", sorted(TIER_SHAPES))
+def test_scale_noise_plain_matches_pallas_interpret_at_each_tier(tier, interpret_pallas):
+    shape = TIER_SHAPES[tier]
+    assert TF.scale_noise_tier(int(np.prod(shape)), 4) == tier
+    x = (np.random.default_rng(tier).standard_normal(shape) * 2.0 + 0.25).astype(np.float32)
+    ref = JF.fused_scale_noise(jnp.asarray(x), 1.7, force_pallas=True)
+    out = TF.fused_scale_noise_reference(torch.from_numpy(x), 1.7)
+    _close(out.numpy(), ref)
+
+
+BLOCK, CLUSTER = TF.SCALE_NOISE_BLOCK_ELEMS, TF.SCALE_NOISE_CLUSTER_ELEMS
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("cap,below,above", [(BLOCK, 1, 2), (CLUSTER, 2, 3)])
+def test_scale_noise_tier_changes_at_its_limits(itemsize, cap, below, above):
+    n = cap  # in elements, whatever their size
+    assert TF.scale_noise_tier(n - 1, itemsize) == below
+    assert TF.scale_noise_tier(n, itemsize) == below
+    assert TF.scale_noise_tier(n + 1, itemsize) == above
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_scale_noise_tier_is_a_function_of_count_and_size_alone(itemsize):
+    """The tier fixes the reduction order, so it may read nothing else: no
+    device, no tensor, no global that a caller could change."""
+    import inspect
+
+    assert list(inspect.signature(TF.scale_noise_tier).parameters) == ["n", "itemsize"]
+    code = TF.scale_noise_tier.__code__
+    assert set(code.co_names) <= {"SCALE_NOISE_BLOCK_ELEMS", "SCALE_NOISE_CLUSTER_ELEMS", "ValueError"}
+    assert TF.scale_noise_tier(1, itemsize) == 1
+    assert TF.scale_noise_tier(2**40, itemsize) == 3
+    # the sampler's latents: SD-sized in one block, SDXL-sized in one cluster
+    assert TF.scale_noise_tier(4 * 64 * 64, itemsize) == 1
+    assert TF.scale_noise_tier(4 * 128 * 128, itemsize) == 2
+    with pytest.raises(ValueError):
+        TF.scale_noise_tier(16, 8)
+    tiers = [TF.scale_noise_tier(n, itemsize) for n in range(1, 2**21, 4099)]
+    assert tiers == sorted(tiers)
+
+
 def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     x, den, hd, noise = (torch.from_numpy(a) for a in _tensors((1, 4, 8, 8)))
     n1, n2 = TF.fused_momentum_step.launches, TF.fused_scale_noise.launches
