@@ -14,7 +14,9 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    dead-band branch, on a tensor of more than 2**24 elements too and on
    both sides of the sizes where its launch changes (one block, one cluster,
    one cooperative grid), checks that two runs agree bit for bit and that a
-   call is one device kernel;
+   call is one device kernel; then B1 and B2 on tensors that are not
+   contiguous (one counted copy, the contiguous tensor's bits) and on
+   float64 (the kernels compute in float32: a TypeError, no launch);
 4. runs the main path — ``sample_sonar_euler_ancestral`` with the default
    SonarConfig and gaussian noise, 20 Karras steps (14.6 → 0.03, then 0) on
    a 1×4×64×64 latent, through the flagship ``UNetConfig()`` with random
@@ -36,8 +38,11 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    (bicubic's clamped edges on 2- and 3-wide levels, widths that are not
    multiples of 4, a level as tall as the output, sixteen levels);
 8. holds kernel B5 (downscale ladders) against its plain version on the
-   highres_pyramid and pyramid_old ladders, with and without a base, fields
-   drawn in-kernel and given;
+   highres_pyramid and pyramid_old ladders, in every mode, with and without
+   a base, fields drawn in-kernel and given, each of its two kernels forced
+   and as the wrapper picks, at shapes on both sides of the size where it
+   changes from one to the other: the two bit-equal to each other, and to
+   the plain version on given fields;
 9. runs the pyramid path — the sampler of phase 4 with
    ``SonarConfig(noise_type="pyramid")`` — and checks its launches (B3 once
    per small level and step, B4 once per step), then highres_pyramid and
@@ -48,7 +53,8 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
 10. times the pyramid path, pyramid noise throughput, and B3, B4 and B5
    against their plain versions and the composed paths (B4's device time
    at 1×4×64×64 and 4×4×512×512 beside the composed path's; B3's at
-   1×4×2304×2048 beside ``torch.randn``'s);
+   1×4×2304×2048 beside ``torch.randn``'s; B5's two kernels at 1×4×64×64,
+   1×4×128×128 and 4×4×512×512 on both ladders beside their bounds);
 11. holds kernel B6 (the k smallest toroidal distances of Voronoi noise)
    against its plain version: four distances, k in {1, 2, 4, 8}, N = 37,
    256 and 4,096 points (across its shared-memory chunks), the path's
@@ -67,7 +73,22 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
 14. times the Voronoi path against the gaussian headline (with the launches
    and device time of one run of each), B6 against its plain version at
    the path's shape and at bench.py's Voronoi shape for k in {1, 2, 4, 8},
-   f1 through B6 against the per-axis path, and Voronoi noise throughput.
+   f1 through B6 against the per-axis path, and Voronoi noise throughput;
+15. runs the config-3a path: ``sample_sonar_dpmpp_sde`` with momentum 0.95
+   and scheduled time-brownian power noise (inside sigma 0.3 to 14.7,
+   gaussian outside) through the same UNet, the headline's schedule (19
+   two-stage steps of two model calls each and the ``sigma_next == 0`` tail
+   of one), seed 7; checks its launches (B2 once a draw, B3 for every
+   Brownian level and the gaussian fallback, B1 none: the two-stage step is
+   not the fused momentum step), reproducibility, the trajectory against
+   the sampler fed the plain versions' draws, TF32 off, one seed's
+   ``brownian`` and scheduled power noise on the CPU and the card; then the
+   sampler's default ``brownian`` noise at 5 steps (the tail included);
+16. times the config-3a path against the gaussian headline in turns
+   (steps/s and model calls/s: median, min and max over the runs), one run
+   of it under the profiler (device time, busy share, B2's, B3's and the
+   FFTs' shares), and one evaluation of the Brownian path W and one power
+   noise draw (B3 launches, host and device time).
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
@@ -100,6 +121,8 @@ B3_SHAPES = [(1, 4, 64, 64), (1, 4, 67, 61), (1, 4, 2304, 2048)]
 B3_SEEDS = [(0, 0), (7, 0), (2**40 + 3, 5)]  # (seed, stream)
 PYR_HW = [(64, 64), (512, 512), (67, 61), (263, 260)]
 DOWN_HW = [(64, 64), (128, 128), (67, 61)]
+DOWN_BIG = (4, 4, 128, 128)  # a B5 path on the far side of DOWN_SPREAD_ELEMS
+DOWN_BIG_STEPS = 3
 B1_TOL = 1e-6  # relative to max(1, |plain|): elementwise, same order of operations
 B2_TOL = 1e-5  # relative to max(1, |plain|): mean/std summed in another order
 B3_TOL = 2e-6  # absolute on normals up to ~5.7: the kernel's vs torch's log/cos/sin ulps
@@ -129,6 +152,7 @@ VORONOI_BENCH = (1, 4, 128, 128)  # bench.py:852, 256 points
 
 def fail(msg: str):
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -172,19 +196,29 @@ def device_us(torch, fn, iters: int):
     """Mean device time per call in µs, summed and by kernel name: the GPU
     kernels ``fn`` launches, from torch.profiler (None if it saw none).
 
-    The profiler misses the first launches after it starts (eight of them
-    late in this script, more after many profiles), so untimed calls run
-    inside it first, four times as many at each new attempt, and only the
-    kernels that start after them count; their number must be a multiple of
-    ``iters``. ``device_us.launched`` is that number per call."""
+    The profiler misses some of the launches that follow its start: eight
+    early in this script, thirteen and more after many profiles, and now
+    and then every one of a profile (one such profile failed one run of
+    this script in three while it gave up on an empty profile). So untimed
+    calls run inside it first, ten of them and for 5 ms at least, and only
+    the kernels that start after them count; their number must be a
+    multiple of ``iters``. A profile that comes out empty or ragged is
+    printed and taken again with four times the untimed calls and time
+    (sixteen times from the third); every second one read so far was whole.
+    Five such profiles in a row give up.
+    ``device_us.launched`` is the number of kernels per call."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    seen = []
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(min(iters, 10) * 4**attempt):
+            more = 4**min(attempt, 2)
+            calls, until = 0, time.perf_counter() + 0.005 * more
+            while calls < min(iters, 10) * more or time.perf_counter() < until:
                 fn()
+                calls += 1
             torch.cuda.synchronize()
             time.sleep(0.004)  # the device idles: the timed kernels start well after
             with record_function("device_us_timed"):
@@ -193,17 +227,18 @@ def device_us(torch, fn, iters: int):
                 torch.cuda.synchronize()
         events = prof.events()
         marks = [e.time_range.start for e in events if e.name == "device_us_timed"]
-        if not marks:
-            return None, {}
-        t0 = min(marks) - 2000.0  # µs: inside the idle gap
+        t0 = min(marks) - 2000.0 if marks else math.inf  # µs: inside the idle gap
         kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.name != "device_us_timed" and e.time_range.start >= t0]
-        if not kernels:
-            return None, {}
-        if len(kernels) % iters == 0:
+        seen.append(len(kernels))
+        if kernels and len(kernels) % iters == 0:
             break
+        print(f"device_us: profile {attempt + 1} saw {len(kernels)} device kernels for "
+              f"{iters} calls ({len(marks)} marks); taken again", flush=True)
     else:
-        fail(f"device_us: the profiler saw {len(kernels)} kernels for {iters} calls")
+        if any(seen):
+            fail(f"device_us: the profiler saw {seen} kernels for {iters} calls")
+        return None, {}
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
@@ -313,16 +348,19 @@ def main():
     import sonar_tpu_torch.kernels.fused as F
     import sonar_tpu_torch.kernels.fused_pyramid as P
     import sonar_tpu_torch.kernels.voronoi as V
+    import sonar_tpu_torch.noise.brownian as BR
     import sonar_tpu_torch.noise.generators as G
+    import sonar_tpu_torch.noise.power as PW
     import sonar_tpu_torch.noise.voronoi as VN
     from sonar_tpu_torch.core.rng import derive_seed, seed_from
     from sonar_tpu_torch.kernels import _build
     from sonar_tpu_torch.kernels import hwrng as H
     from sonar_tpu_torch.models import UNetConfig, init_unet_params, make_denoiser
-    from sonar_tpu_torch.noise import (NoiseChain, NoiseCtx, VoronoiGenerator,
-                                       get_noise_item, make_noise_sampler)
-    from sonar_tpu_torch.samplers import sample_sonar_euler_ancestral
+    from sonar_tpu_torch.noise import (NoiseChain, NoiseCtx, PowerNoiseItem, ScheduledNoise,
+                                       VoronoiGenerator, get_noise_item, make_noise_sampler)
+    from sonar_tpu_torch.samplers import sample_sonar_dpmpp_sde, sample_sonar_euler_ancestral
     from sonar_tpu_torch.samplers.momentum import SonarConfig
+    from sonar_tpu_torch.samplers.sonar import _dpmpp_sde_schedule
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -353,6 +391,8 @@ def main():
         stack.enter_context(patched(N, fused_scale_noise=F.fused_scale_noise_reference))
         stack.enter_context(patched(VN, philox_rand=H.philox_rand_reference,
                                     voronoi_ksmallest=V.voronoi_ksmallest_reference))
+        stack.enter_context(patched(BR, philox_randn=H.philox_randn_reference))
+        stack.enter_context(patched(PW, philox_randn=H.philox_randn_reference))
         return stack
 
     def composed_path():
@@ -485,6 +525,50 @@ def main():
     print(f"[3] B2 fused_scale_noise vs plain: max abs err {b2_err:.3e} "
           f"(tolerance {B2_TOL:g} x max(1,|plain|)); unaligned view bit-equal to its copy")
     del flat
+    # the views the CPU path takes, the card takes: after one counted copy
+    # (the contiguous tensor's bits)
+    vbase = randn((2, 4, 64, 66)) * 2.0 + 0.3
+    views = {"transpose": vbase.transpose(2, 3), "slice": vbase[:, 1:3, ::2],
+             "channels_last": vbase.contiguous(memory_format=torch.channels_last),
+             "irfft2 + swapaxes": torch.fft.irfft2(torch.fft.rfft2(vbase, norm="ortho"),
+                                                   s=vbase.shape[-2:],
+                                                   norm="ortho").swapaxes(0, 1)}
+    vscal = F.pack_momentum_scalars(sigma=3.0, dt=-1.0, momentum=0.9, hd_ratio=0.75,
+                                    hd_scale=1.0, md_scale=1.0, has=1.0, noise_scale=0.3,
+                                    device=dev)
+    for what, v in views.items():
+        need(not v.is_contiguous(), f"[3] {what}: the view is contiguous")
+        n0, c0 = F.fused_scale_noise.launches, F.fused_scale_noise.copies
+        o = F.fused_scale_noise(v, 1.3)
+        need((F.fused_scale_noise.launches, F.fused_scale_noise.copies) == (n0 + 1, c0 + 1),
+             f"B2 {what}: expected one launch and one copy")
+        need(torch.equal(o, F.fused_scale_noise(v.contiguous(), 1.3)),
+             f"B2 {what}: differs from its contiguous copy")
+        _, rel = rel_err(o, F.fused_scale_noise_reference(v, 1.3))
+        need(rel <= B2_TOL, f"B2 {what}: rel err {rel:.3e}")
+        n0, c0 = F.fused_momentum_step.launches, F.fused_momentum_step.copies
+        vc = v.contiguous()
+        o1 = F.fused_momentum_step(v, vc, v, vc, vscal)
+        need((F.fused_momentum_step.launches, F.fused_momentum_step.copies)
+             == (n0 + 1, c0 + 2), f"B1 {what}: expected one launch and two copies")
+        need(all(torch.equal(a, b) for a, b in zip(o1, F.fused_momentum_step(vc, vc, vc, vc,
+                                                                             vscal))),
+             f"B1 {what}: differs from its contiguous copy")
+    # the kernels compute in float32: float64 on the card raises, no launch
+    v64 = vbase.double()
+    n0 = (F.fused_scale_noise.launches, F.fused_momentum_step.launches)
+    refused = 0
+    for call in (lambda: F.fused_scale_noise(v64, 0.5),
+                 lambda: F.fused_momentum_step(v64, v64, v64, v64, vscal)):
+        try:
+            call()
+        except TypeError:
+            refused += 1
+    need(refused == 2 and (F.fused_scale_noise.launches, F.fused_momentum_step.launches) == n0,
+         "B1/B2 float64 on the card: expected TypeError and no launch")
+    print(f"[3] B1/B2 on {list(views)}: one counted copy a view, then the kernel, bit-equal "
+          f"to the contiguous copy; float64 on the card raises TypeError")
+    del vbase, views, v64
 
     # -- phase 4: the main path ------------------------------------------------
     cfg = UNetConfig()
@@ -725,9 +809,18 @@ def main():
           f"{PYR_TOL:g} x max(1,|plain|), matmul TF32 off)")
 
     # -- phase 8: B5 against its plain version --------------------------------
-    b5_err, skipped = 0.0, []
-    for hw in DOWN_HW:
-        shape = (1, 4, *hw)
+    # both kernels forced and the wrapper's pick, at the generators' shapes
+    # and on both sides of the size where the pick changes
+    cap = P.DOWN_SPREAD_ELEMS
+    down_shapes = [(1, 4, *hw) for hw in DOWN_HW] + [
+        (1, 4, 128, 192), (1, 4, 128, 193), (1, 1, 1, cap - 1), (1, 1, 1, cap + 1),
+        (1, 1, 2, cap // 2 + 2), (2, 3, 33, 130), (1, 3, 5, 7), (1, 2, 3, 1)]
+    need({P.downscale_variant(math.prod(sh)) for sh in down_shapes} == {1, 2}
+         and P.downscale_variant(cap) == 1 and P.downscale_variant(cap + 1) == 2,
+         "B5: the shapes do not cross its size limit")
+    b5_err, b5_cases, skipped = 0.0, 0, []
+    for shape in down_shapes:
+        hw, bc = shape[2:], shape[0] * shape[1]
         hi = G._size_ladder_highres(*hw, 4, 0)
         ladders = {
             "highres_pyramid": (hi, [0.7**i for i in range(len(hi))]),
@@ -736,33 +829,44 @@ def main():
         }
         base = randn(shape)
         for lname, (sizes, coefs) in ladders.items():
-            gs = [randn((4, 4, *hw)) for _ in sizes]
+            gs = [randn((bc, 4, *hw)) for _ in sizes]
             for mode in P.DOWN_MODES:
                 if not P.fused_downscale_supported(sizes, *hw, mode):
                     skipped.append((hw, lname, mode))
                     continue
-                cases = [
-                    (f"gen, base {b is not None}",
-                     P.fused_downscale_pyramid(13, shape, sizes, coefs, mode, base=b,
-                                               device=dev),
-                     P.fused_downscale_pyramid_reference(13, shape, sizes, coefs, mode,
-                                                         base=b, device=dev))
-                    for b in (None, base)]
-                cases.append(("given fields",
-                              P.fused_downscale_accumulate(gs, hw, sizes, coefs, mode,
-                                                           base=base[0]),
-                              P.fused_downscale_accumulate_reference(gs, hw, sizes, coefs,
-                                                                     mode, base=base[0])))
-                for what, out, ref in cases:
+                for b in (None, base):
+                    ref = P.fused_downscale_pyramid_reference(13, shape, sizes, coefs, mode,
+                                                              base=b, device=dev)
+                    b3 = None if b is None else b.reshape(bc, *hw)
+                    outs, gouts = [], []
+                    for v in (1, 2, None):
+                        with P._forced_down_variant(v):
+                            outs.append(P.fused_downscale_pyramid(13, shape, sizes, coefs,
+                                                                  mode, base=b, device=dev))
+                            gouts.append(P.fused_downscale_accumulate(gs, hw, sizes, coefs,
+                                                                      mode, base=b3))
+                    gref = P.fused_downscale_accumulate_reference(gs, hw, sizes, coefs, mode,
+                                                                  base=b3)
                     torch.cuda.synchronize()
-                    need(bool(torch.isfinite(out).all()), f"B5 {hw} {mode}: non-finite")
-                    err, rel = rel_err(out, ref)
+                    what = f"B5 {shape} {lname} {mode} base {b is not None}"
+                    need(bool(torch.isfinite(outs[0]).all()), f"{what}: non-finite")
+                    need(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2]),
+                         f"{what}: the two kernels draw different bits")
+                    err, rel = rel_err(outs[0], ref)
                     b5_err = max(b5_err, err)
-                    need(rel <= PYR_TOL, f"B5 {hw} {lname} {mode} {what}: rel err {rel:.3e}")
-        print(f"[8] B5 {hw}: highres ladder {hi} and the pyramid_old ladder agree")
-    print(f"[8] B5 not run where the gate is closed (composed path): {skipped}")
-    print(f"[8] B5 fused_downscale_pyramid vs plain: max abs err {b5_err:.3e} "
-          f"(tolerance {PYR_TOL:g} x max(1,|plain|))")
+                    need(rel <= PYR_TOL, f"{what} drawn: rel err {rel:.3e}")
+                    need(all(torch.equal(o, gref) for o in gouts),
+                         f"{what} given fields: not bit-equal to the plain version")
+                    b5_cases += 1
+        print(f"[8] B5 {shape} ({math.prod(shape)} elements, the wrapper picks kernel "
+              f"{P.downscale_variant(math.prod(shape))}): highres ladder {hi} and the "
+              f"pyramid_old ladder agree")
+    print(f"[8] B5 not run where the gate is closed (composed path): "
+          f"{sorted(set((ln, m) for _, ln, m in skipped))} at {len(skipped)} shapes")
+    print(f"[8] B5 fused_downscale_pyramid vs plain, {b5_cases} cases, both kernels forced "
+          f"and the wrapper's pick (limit {cap} elements): the kernels bit-equal to each "
+          f"other; given fields bit-equal to the plain version; drawn fields max abs err "
+          f"{b5_err:.3e} (tolerance {PYR_TOL:g} x max(1,|plain|))")
 
     # -- phase 9: the pyramid path --------------------------------------------
     pyr_cfg = SonarConfig(noise_type="pyramid")
@@ -793,6 +897,36 @@ def main():
               f"launches {c}")
         need(c["B5"] == SHORT_STEPS and c["B1"] == SHORT_STEPS and c["B4"] == 0,
              f"{nt}: expected {SHORT_STEPS} launches of B5 and B1, got {c}")
+    # the same two noises on a batch of four 128 x 128 latents: 262,144
+    # elements, beyond DOWN_SPREAD_ELEMS, so this path runs B5's other kernel
+    # (one thread a group) and B2's cluster tier
+    need(P.downscale_variant(math.prod(DOWN_BIG)) == 2
+         and P.downscale_variant(math.prod(SHAPE)) == 1,
+         "B5: the two downscale paths do not sit on both sides of its size limit")
+    xbig = (torch.randn(DOWN_BIG, generator=torch.Generator().manual_seed(2))
+            * float(sigmas[0])).to(dev)
+    big_sigmas = bench_sigmas(torch, DOWN_BIG_STEPS)
+    for nt in ("highres_pyramid", "pyramid_old"):
+        reset_counts()
+        o = sample_sonar_euler_ancestral(denoiser, xbig, big_sigmas, seed=7,
+                                         sonar_config=SonarConfig(noise_type=nt))
+        c = down_launches[f"{nt} {DOWN_BIG}"] = read_counts()
+        need(o.shape == DOWN_BIG and bool(torch.isfinite(o).all()),
+             f"{nt} path at {DOWN_BIG} malformed or not finite")
+        print(f"[9] {nt} path at {DOWN_BIG} (B5 kernel 2): {DOWN_BIG_STEPS} steps, output "
+              f"std {float(o.std()):.4f}; launches {c}")
+        need(c["B5"] == DOWN_BIG_STEPS and c["B1"] == DOWN_BIG_STEPS
+             and c["B2"] == DOWN_BIG_STEPS and c["B4"] == 0,
+             f"{nt} at {DOWN_BIG}: expected {DOWN_BIG_STEPS} launches of B5, B1 and B2, "
+             f"got {c}")
+        kw = dict(seed=1234, sigma_min=0.03, sigma_max=14.6, normalized=True)
+        cfn, cst = make_noise_sampler(get_noise_item(nt), DOWN_BIG, device="cpu", **kw)
+        gfn, gst = make_noise_sampler(get_noise_item(nt), DOWN_BIG, device=dev, **kw)
+        _, rel = rel_err(gfn(gst, 1.0, 0.9)[0], cfn(cst, 1.0, 0.9)[0])
+        print(f"[9] {nt} at {DOWN_BIG}: seed 1234, CPU (plain) vs card (kernel 2): max rel "
+              f"diff {rel:.3e} (tolerance {XDEV_TOL:g})")
+        need(rel <= XDEV_TOL, f"{nt} at {DOWN_BIG}: CPU and card streams differ ({rel:.3e})")
+    del xbig, o
 
     for nt in ("gaussian", "pyramid", "highres_pyramid", "pyramid_old"):
         kw = dict(seed=1234, sigma_min=0.03, sigma_max=14.6, normalized=True)
@@ -910,27 +1044,39 @@ def main():
               f"{bound['by']}: {bound['bytes'] / 1e6:.3f} MB, {bound['instr'] / 1e6:.2f} M "
               f"operations), {len(lad) - 1} B3 launches {[round(v, 2) for v in got['B3']]} "
               f"us; composed path {[round(v, 2) for v in got['composed']]} us [{card}]")
-    dshape = (1, 4, 128, 128)
-    dbase = randn(dshape)
-    hl = G._size_ladder_highres(128, 128, 4, 0)
-    old = [(128 * 2 ** (i + 1),) * 2 for i in range(5)]
-    b5_cases = {
-        "pyramid_old": (old, [(0.5**i) * 0.8**i for i in range(5)], "nearest-exact", None),
-        "highres_pyramid": (hl, [0.7**i for i in range(len(hl))], "bilinear", dbase),
-    }
-    for nt, (sz, cf, mode, b) in b5_cases.items():
-        kf = lambda: P.fused_downscale_pyramid(5, dshape, sz, cf, mode, base=b,  # noqa: E731
-                                               device=dev)
-        k = cuda_ms(torch, kf, 50)
-        p = cuda_ms(torch, lambda: P.fused_downscale_pyramid_reference(
-            5, dshape, sz, cf, mode, base=b, device=dev), 50)
-        c = cuda_ms(torch, composed(generate(nt, dshape)), 5)
-        kd = device_us(torch, kf, 20)[0]
-        bd5 = b5_bound(P, dshape, sz, cf, mode, base=b is not None)
-        print(f"[10] B5 {nt} at {dshape}, ladder {sz}: kernel {k * 1000:.1f} us by events, "
-              f"device time {fmt_us(kd)} (bound {bd5['us']:.2f} us by {bd5['by']}), plain "
-              f"{p * 1000:.1f} us, composed path (oversized levels built) "
-              f"{c * 1000:.1f} us per draw [{card}]")
+    # B5: both kernels in turns at three shapes on both ladders, beside the
+    # bound; events, the plain version and the composed path at bench.py's shape
+    for dshape in (SHAPE, (1, 4, 128, 128), (4, 4, 512, 512)):
+        dbase = randn(dshape)
+        hl = G._size_ladder_highres(*dshape[2:], 4, 0)
+        old = [(dshape[2] * 2 ** (i + 1), dshape[3] * 2 ** (i + 1)) for i in range(5)]
+        b5_cases = {
+            "pyramid_old": (old, [(0.5**i) * 0.8**i for i in range(5)], "nearest-exact", None),
+            "highres_pyramid": (hl, [0.7**i for i in range(len(hl))], "bilinear", dbase),
+        }
+        for nt, (sz, cf, mode, b) in b5_cases.items():
+            def kf(sz=sz, cf=cf, mode=mode, b=b, dshape=dshape):
+                return P.fused_downscale_pyramid(5, dshape, sz, cf, mode, base=b, device=dev)
+            got = {1: [], 2: []}
+            for v in (1, 2, 2, 1):
+                with P._forced_down_variant(v):
+                    got[v].append(device_us(torch, kf, 20)[0])
+            need(all(got[1]) and all(got[2]), "B5: device time not measured")
+            pick = P.downscale_variant(math.prod(dshape))
+            bd5 = b5_bound(P, dshape, sz, cf, mode, base=b is not None)
+            line = (f"[10] B5 {nt} at {dshape}, ladder {sz}: device time spread kernel "
+                    f"{[round(x, 2) for x in got[1]]} us, one thread a group "
+                    f"{[round(x, 2) for x in got[2]]} us; the wrapper picks kernel {pick} "
+                    f"(bound {bd5['us']:.2f} us by {bd5['by']})")
+            if dshape == (1, 4, 128, 128):
+                k = cuda_ms(torch, kf, 50)
+                p = cuda_ms(torch, lambda: P.fused_downscale_pyramid_reference(
+                    5, dshape, sz, cf, mode, base=b, device=dev), 50)
+                c = cuda_ms(torch, composed(generate(nt, dshape)), 5)
+                line += (f"; by events kernel {k * 1000:.1f} us, plain {p * 1000:.1f} us, "
+                         f"composed path (oversized levels built) {c * 1000:.1f} us per draw")
+            print(f"{line} [{card}]")
+        del dbase
     lshape = B3_SHAPES[-1]
     b3_fns = {"kernel": lambda: H.philox_randn(5, lshape, device=dev),
               "torch.randn": lambda: torch.randn(lshape, device=dev),
@@ -1305,6 +1451,206 @@ def main():
     print(f"[14] voronoi_mix noise at {VORONOI_BENCH}: {[round(v, 2) for v in mp]} Mpix/s "
           f"[{card}]")
 
+    # -- phase 15: the config-3a path ---------------------------------------------
+    def noise_3a():
+        """bench.py:468-471: scheduled time-brownian power noise, gaussian outside."""
+        return ScheduledNoise(
+            noise=PowerNoiseItem(alpha=0.5, min_freq=0.05, time_brownian=True),
+            start_sigma=14.7, end_sigma=0.3, fallback_noise=get_noise_item("gaussian"))
+
+    sde_cfg = SonarConfig(momentum=0.95)
+
+    def sde(**kw):
+        kw.setdefault("noise_item", noise_3a())
+        return sample_sonar_dpmpp_sde(denoiser, x0, sigmas, sonar_config=sde_cfg, seed=7, **kw)
+
+    n_sde = len(sl) - 1  # 20 steps: 19 two-stage ones and the tail
+    sde_sched = _dpmpp_sde_schedule(sl, 1.0, 1.0, 0.5)
+    f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))  # noqa: E731
+    # steps whose draws fall in the window (it is read at s_t, the step's start)
+    n_in = sum(f32(0.3) <= st_ <= f32(14.7) for st_ in sde_sched["s_t"])
+    need(0 < n_in < n_sde and all(f32(0.3) <= st_ for st_ in sde_sched["s_t"][:n_in]),
+         "config 3a: the window does not split the schedule")
+    calls = []
+
+    def counted(xi, s_in, **kw):
+        calls.append(s_in.dtype)
+        return denoiser(xi, s_in, **kw)
+
+    reset_counts()
+    sout = sample_sonar_dpmpp_sde(counted, x0, sigmas, sonar_config=sde_cfg, seed=7,
+                                  noise_item=noise_3a())
+    sde_launches = read_counts()
+    need(sout.is_cuda and sout.shape == SHAPE and sout.dtype == torch.float32
+         and bool(torch.isfinite(sout).all()), "config-3a output malformed or not finite")
+    sstd = float(sout.std())
+    # with history the two-stage step blends 5 % of it into each stage's
+    # direction, which on a near-identity denoiser (random weights) shrinks
+    # the latent a little at every stage: well under sigma_0 by the end
+    need(0.01 < sstd < 100.0, f"config-3a output std {sstd} implausible")
+    need(len(calls) == 2 * (n_sde - 1) + 1 and set(calls) == {torch.float32},
+         f"config 3a: {len(calls)} model calls with sigma types {set(calls)}")
+    # a step in the window: the first draw finds W(s_t) cached (17 B3 launches
+    # for W(s_s)), the second does not (34: W(s_t), W(sigma_next)); the first
+    # step has no cache yet; outside the window two gaussian draws; B2 once a
+    # draw, at the ScheduledNoise; the tail draws twice as every step
+    want = {"B1": 0, "B2": 2 * n_sde, "B3": 51 * n_in + 17 + 2 * (n_sde - n_in), "B4": 0,
+            "B5": 0, "B6": 0}
+    print(f"[15] config-3a path: sample_sonar_dpmpp_sde, momentum 0.95, scheduled "
+          f"time-brownian power noise, UNetConfig() {SHAPE}, {n_sde - 1} steps and the tail, "
+          f"seed 7, {len(calls)} model calls, {n_in} steps in the noise window: output std "
+          f"{sstd:.4f}, mean {float(sout.mean()):.4f}; launches {sde_launches}")
+    need(sde_launches == want, f"config-3a path: expected launches {want}")
+    need(torch.equal(sout, sde()), "config-3a path not reproducible")
+    need(not torch.equal(sout, out), "config-3a path equals the gaussian headline")
+
+    reset_counts()
+    bout = sample_sonar_dpmpp_sde(denoiser, x0, short, seed=7)
+    brown_launches = read_counts()
+    # every step on the Brownian path: 51 B3 launches a step, 17 more on the
+    # first, 17 fewer on the tail (its midpoint lies below sigma_min and is
+    # clipped to u = 0, which is u(s_t) there: the second draw hits the cache)
+    want = {"B1": 0, "B2": 2 * SHORT_STEPS, "B3": 51 * SHORT_STEPS, "B4": 0, "B5": 0, "B6": 0}
+    need(bool(torch.isfinite(bout).all()) and bout.shape == SHAPE, "brownian path not finite")
+    print(f"[15] default noise (brownian): sample_sonar_dpmpp_sde, {SHORT_STEPS - 1} steps "
+          f"and the tail: output std {float(bout.std()):.4f}; launches {brown_launches}")
+    need(brown_launches == want, f"brownian path: expected launches {want}")
+    need(torch.equal(bout, sample_sonar_dpmpp_sde(denoiser, x0, short, seed=7)),
+         "brownian path not reproducible")
+
+    # a bfloat16 latent: the step runs in float32 (the midpoint call sees a
+    # float32 latent), the carry is rounded once a step, the noise is drawn
+    # and filtered in float32 (cuFFT takes no bfloat16) and cast
+    seen = []
+
+    def typed(xi, s_in, **kw):
+        seen.append((xi.dtype, s_in.dtype))
+        return denoiser(xi, s_in, **kw)
+
+    reset_counts()
+    hout = sample_sonar_dpmpp_sde(typed, x0.bfloat16(), short, sonar_config=sde_cfg, seed=7,
+                                  noise_item=noise_3a())
+    half_launches = read_counts()
+    fout = sample_sonar_dpmpp_sde(denoiser, x0.bfloat16().float(), short,
+                                  sonar_config=sde_cfg, seed=7, noise_item=noise_3a())
+    need(hout.dtype == torch.bfloat16 and hout.is_cuda and bool(torch.isfinite(hout).all()),
+         "config-3a path, bfloat16 latent: malformed or not finite")
+    need(seen == [(torch.bfloat16, torch.float32), (torch.float32, torch.float32)]
+         * (SHORT_STEPS - 1) + [(torch.bfloat16, torch.float32)],
+         f"config-3a path, bfloat16 latent: model calls saw {seen}")
+    need(half_launches["B1"] == 0 and half_launches["B2"] == 2 * SHORT_STEPS
+         and half_launches["B3"] > 0, f"config-3a path, bfloat16 latent: {half_launches}")
+    err, rel = rel_err(hout.float(), fout)
+    print(f"[15] config-3a path, bfloat16 latent, {SHORT_STEPS - 1} steps and the tail: "
+          f"output std {float(hout.float().std()):.4f}; launches {half_launches}; against the "
+          f"float32 run from the same rounded start: max abs diff {err:.3e}, max rel diff "
+          f"{rel:.3e} (tolerance {BF16_TRAJ_TOL:g}: {SHORT_STEPS} roundings of the carry)")
+    need(rel <= BF16_TRAJ_TOL, f"config-3a path: bfloat16 and float32 runs differ {rel:.3e}")
+
+    sde_pairs = [(14.6, 9.0), (9.0, 4.0), (4.0, 3.9), (2.0, 0.31), (0.2, 0.1)]
+    for nt, make in (("brownian", lambda: get_noise_item("brownian")),
+                     ("scheduled power noise", noise_3a)):
+        kw = dict(seed=1234, sigma_min=0.03, sigma_max=14.6, normalized=True)
+        cfn, cst = make_noise_sampler(make(), SHAPE, device="cpu", **kw)
+        gfn, gst = make_noise_sampler(make(), SHAPE, device=dev, **kw)
+        worst = 0.0
+        for s_, sn_ in sde_pairs:
+            a, cst = cfn(cst, s_, sn_)
+            b, gst = gfn(gst, s_, sn_)
+            need(a.device.type == "cpu" and b.is_cuda, f"{nt}: draws on the wrong device")
+            worst = max(worst, rel_err(b, a)[1])
+        print(f"[15] {nt}: seed 1234, {len(sde_pairs)} draws (cache hits and misses, inside "
+              f"and outside the window), CPU (plain) vs card (kernels): max rel diff "
+              f"{worst:.3e} (tolerance {XDEV_TOL:g})")
+        need(worst <= XDEV_TOL, f"{nt}: CPU and card streams differ ({worst:.3e})")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with plain_versions():
+        nfn, nst = make_noise_sampler(
+            noise_3a(), SHAPE, dtype=torch.float32, device=dev,
+            sigma_min=float(sigmas[sigmas > 0].min()), sigma_max=float(sigmas.max()),
+            seed=derive_seed(seed_from(7), "noise"), normalized=True, ref_latent=x0)
+        sdraws = []
+        for i in range(n_sde):
+            for target in (sde_sched["s_s"][i], sl[i + 1]):
+                d, nst = nfn(nst, sde_sched["s_t"][i], target)
+                sdraws.append(d)
+    kern = sde()
+    plain = sde(noise_item=None, noise_sampler=lambda i, s, sn: sdraws[i])
+    torch.cuda.synchronize()
+    err, rel = rel_err(kern, plain)
+    print(f"[15] config-3a path (kernels) vs the sampler fed the plain versions' draws, TF32 "
+          f"off: max abs diff {err:.3e}, max rel diff {rel:.3e} (tolerance {TRAJ_TOL:g})")
+    need(rel <= TRAJ_TOL, f"config-3a trajectories differ: {rel:.3e}")
+    torch.backends.cudnn.allow_tf32 = True
+
+    # -- phase 16: timing ---------------------------------------------------------
+    print(f"[16] timing on {card} (cudnn TF32 on, matmul TF32 off)")
+    runs = {"gaussian": lambda: headline(), "config3a": lambda: sde()}
+    ms = {"gaussian": [], "config3a": []}
+    for which in ("gaussian", "config3a", "config3a", "gaussian") * 2:
+        ms[which] += [cuda_ms(torch, runs[which], 1) for _ in range(2)]
+
+    def spread(vals, scale):
+        v = sorted(scale / (t / 1000.0) for t in vals)
+        return (v[len(v) // 2] + v[(len(v) - 1) // 2]) / 2, v[0], v[-1]
+
+    for which, n_steps in (("config3a", n_sde), ("gaussian", STEPS)):
+        med, lo, hi = spread(ms[which], n_steps)
+        line = (f"[16] {which}: steps/s median {med:.2f} (min {lo:.2f}, max {hi:.2f}; "
+                f"{len(ms[which])} runs of {n_steps} steps, interleaved)")
+        if which == "config3a":
+            cmed, clo, chi = spread(ms[which], len(calls))
+            line += f"; model calls/s median {cmed:.2f} (min {clo:.2f}, max {chi:.2f})"
+        print(f"{line} [{card}]")
+    tot, by = device_us(torch, runs["config3a"], 1)
+    need(tot is not None, "config-3a run: device time not measured")
+    parts = {"B3": "philox_fill", "B2": "scale_noise_", "B1": "momentum_step_kernel",
+             "FFT": "fft"}
+    got = {k: sum(v for n_, v in by.items() if pat in n_.lower()) for k, pat in parts.items()}
+    wall = sorted(ms["config3a"])[len(ms["config3a"]) // 2] * 1000
+    print(f"[16] config-3a run, {device_us.launched:.0f} device kernels, device time: "
+          f"{tot:.1f} us of {wall:.1f} us wall (median run; busy {100 * tot / wall:.1f} %); "
+          f"{', '.join(f'{k} {v:.1f} us' for k, v in got.items())}, the rest (UNet, torch ops) "
+          f"{tot - sum(got.values()):.1f} us [{card}]")
+    need(got["B1"] == 0.0 and got["B3"] > 0 and got["B2"] > 0 and got["FFT"] > 0,
+         "config-3a run: B2, B3 and the FFTs must show in the profile, B1 must not")
+
+    # one evaluation of W, one Brownian increment on a cache hit, one power draw
+    w_fn = lambda: BR.brownian_w(11, 0.37, SHAPE, device=dev)  # noqa: E731
+    n0 = H.philox_randn.launches
+    w_fn()
+    w_launches = H.philox_randn.launches - n0
+    w_host = cuda_ms(torch, w_fn, 50)
+    w_tot, w_by = device_us(torch, w_fn, 20)
+    w_b3 = sum(v for n_, v in w_by.items() if "philox_fill" in n_)
+    print(f"[16] one evaluation of W at {SHAPE}, 16 levels: {w_launches} B3 launches, "
+          f"{device_us.launched:.0f} device kernels, {w_host * 1000:.1f} us/call by events "
+          f"(host cost included), device time {fmt_us(w_tot)} (B3 {w_b3:.2f} us) [{card}]")
+    pfn, pst = make_noise_sampler(PowerNoiseItem(alpha=0.5, min_freq=0.05), SHAPE, device=dev,
+                                  seed=3)
+    p_fn = lambda: pfn(pst, None, None)  # noqa: E731
+    p_host = cuda_ms(torch, p_fn, 50)
+    p_tot, p_by = device_us(torch, p_fn, 20)
+    p_fft = sum(v for n_, v in p_by.items() if "fft" in n_.lower())
+    p_b3 = sum(v for n_, v in p_by.items() if "philox_fill" in n_)
+    p_b2 = sum(v for n_, v in p_by.items() if "scale_noise_" in n_)
+    print(f"[16] one rfft-domain power noise draw at {SHAPE} (normalized): "
+          f"{device_us.launched:.0f} device kernels, {p_host * 1000:.1f} us/call by events, "
+          f"device time {fmt_us(p_tot)} (FFT {p_fft:.2f} us, two B3 {p_b3:.2f} us, B2 "
+          f"{p_b2:.2f} us) [{card}]")
+    tfn, tst = make_noise_sampler(noise_3a(), SHAPE, device=dev, seed=3, sigma_min=0.03,
+                                  sigma_max=14.6)
+    _, tst = tfn(tst, 9.0, 4.0)
+    t_fn = lambda: tfn(tst, 4.0, 2.0)  # noqa: E731  (a cache hit: one W, two FFTs, B2)
+    t_host = cuda_ms(torch, t_fn, 50)
+    t_tot, t_by = device_us(torch, t_fn, 20)
+    t_fft = sum(v for n_, v in t_by.items() if "fft" in n_.lower())
+    print(f"[16] one scheduled time-brownian power draw on a cache hit at {SHAPE}: "
+          f"{device_us.launched:.0f} device kernels, {t_host * 1000:.1f} us/call by events, "
+          f"device time {fmt_us(t_tot)} (rfft2 + irfft2 {t_fft:.2f} us) [{card}]")
+
     src = "sonar_tpu_torch/csrc/"
     n_el = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
     rows = [
@@ -1335,7 +1681,8 @@ def main():
          "plain_ms": dev_timing[k][1] / 1000, "bound_ms": bd["us"] / 1000,
          "bound_by": bd["by"],
          "library_ms": library_us[k] / 1000 if k in library_us else None,
-         "call_ms": timing[k][0], "plain_call_ms": timing[k][1]}
+         "call_ms": timing[k][0], "plain_call_ms": timing[k][1],
+         "launches_dpmpp_sde": sde_launches[k]}
         for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of the port's redesigned kernels (B2, B3, B4, B6) on one NVIDIA GPU.
+"""Device times of the port's redesigned kernels (B2, B3, B4, B5, B6) on one NVIDIA GPU.
 
     python3 kernel_times.py
 
@@ -19,6 +19,11 @@ the card could take for the same work (``chip_smoke.py``'s bounds):
 - B4 (upscale pyramid) at 1×4×64×64 and 4×4×512×512, in the bilinear,
   bicubic and nearest modes with the base pair drawn in-kernel, and in
   bilinear on a given base;
+- B5 (downscale ladders), both of its kernels forced, on the pyramid_old
+  ladder (five single-field levels, no base) and the highres ladder
+  (bilinear, thirteen fields, on a base) at 1×4×64×64, 1×4×128×128 and
+  4×4×512×512, and around the size where the wrapper changes from the
+  spread kernel to one thread a group;
 - B6 (k smallest toroidal distances) at 1×4×64×64 and 1×4×128×128 with 256
   points and at 4×4×512×512 with 32, k in {1, 2, 4, 8}, euclidean and
   minkowski.
@@ -94,6 +99,29 @@ def main():
         bd = CS.b4_bound(shape, lad, "bilinear", gen=False)
         print(f"B4 {shape} bilinear, given base: {us:.2f} us (bound {bd['us']:.2f} us by "
               f"{bd['by']}) [{card}]")
+
+    limit = P.DOWN_SPREAD_ELEMS
+    for shape in ((1, 4, 64, 64), (1, 4, 128, 128), (1, 4, 128, 160), (1, 4, 128, 192),
+                  (1, 4, 128, 193), (2, 4, 128, 128), (3, 4, 128, 128), (4, 4, 128, 128),
+                  (4, 4, 512, 512)):
+        n = shape[0] * shape[1] * shape[2] * shape[3]
+        hi = G._size_ladder_highres(shape[2], shape[3], 4, 0)
+        old = [(shape[2] * 2 ** (i + 1), shape[3] * 2 ** (i + 1)) for i in range(5)]
+        base = torch.randn(shape, device=dev)
+        for name, sizes, coefs, mode, b in (
+                ("pyramid_old", old, [(0.5**i) * 0.8**i for i in range(5)], "nearest-exact",
+                 None),
+                ("highres", hi, [0.7**i for i in range(len(hi))], "bilinear", base)):
+            us = {}
+            for v in (1, 2):
+                with P._forced_down_variant(v):
+                    us[v] = alone(lambda: P.fused_downscale_pyramid(
+                        5, shape, sizes, coefs, mode, base=b, device=dev), "pyramid_down")
+            bd = CS.b5_bound(P, shape, sizes, coefs, mode, base=b is not None)
+            print(f"B5 {shape} ({n} elements, limit {limit}) {name}: spread kernel "
+                  f"{us[1]:.2f} us, one thread a group {us[2]:.2f} us, the wrapper picks "
+                  f"kernel {P.downscale_variant(n)} (bound {bd['us']:.2f} us by {bd['by']}) "
+                  f"[{card}]")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     for shape, n in (((1, 4, 64, 64), 256), ((1, 4, 128, 128), 256), ((4, 4, 512, 512), 32)):

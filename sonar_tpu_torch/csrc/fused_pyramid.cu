@@ -243,19 +243,44 @@ __global__ void __launch_bounds__(kUpThreads)
 //     acc += (wr0*(wc0*g00 + wc1*g01) + wr1*(wc0*g10 + wc1*g11)) * coef,
 //   with the weights from the index in float32, x = (o + 0.5)*ratio - 0.5,
 //   f = x - floor(x) (fused_pyramid.py:250-261), ratio = float(in/out).
-// The fields are fresh Philox normals on stream 4*level + plane, or read
-// from given (bc, 4, h, w) tensors. The oversized level is never built.
+// The fields are fresh Philox normals on stream 4*level + plane, counter =
+// the group of four consecutive flat elements, or read from given
+// (bc, 4, h, w) tensors. The oversized level is never built. acc starts at
+// the base (or 0) and takes the levels in ladder order; compiled with
+// -fmad=false and in the plain version's order of operations, so with given
+// fields both kernels match the plain version bit for bit, and a seed's
+// draw does not depend on which of the two ran.
 //
-// Bound: device memory. Per pixel it reads an optional base and writes the
-// output (4-8 bytes); the Philox and Box-Muller work (one call per four
-// pixels per field) stays under the write time. One thread owns one Philox
-// group of four consecutive flat elements, so every Philox call's four
-// normals are used, and stores them as one float4 (masked tail). Compiled
-// with -fmad=false and in the plain version's order of operations, so with
-// given fields it matches the plain version bit for bit.
+// Bound: operations. A pixel costs up to 4 bytes read and 4 written, and a
+// Philox call and two Box-Mullers for every four pixels and field: five
+// fields a pixel (pyramid_old) to thirteen (a four-level bilinear ladder).
+//
+// Two kernels, picked by the wrapper from the element count alone
+// (fused_pyramid.py downscale_variant):
+//
+// - pyramid_down_spread_kernel, small outputs. With one thread a group,
+//   1 x 4 x 64 x 64 is 4,096 threads that each walk the whole ladder, up to
+//   thirteen Philox calls back to back on an eighth of the card. Here a
+//   block owns 32 groups and has a warp for every field: lane j of warp f
+//   draws field f of group j, one Philox call a thread, into shared memory.
+//   After one barrier a thread an element adds its levels in ladder order
+//   (weights once a thread) and stores 4 bytes, coalesced.
+// - pyramid_down_kernel, large outputs, where one thread a group already
+//   fills the card: a grid-stride loop, the ladder's loops unrolled (a
+//   level is one field or four), 32-bit index arithmetic below 2^31
+//   elements, lanes 1-3 located from lane 0 by increments, the row weights
+//   once for four elements of one row, one float4 store.
+//
+// Whether fields are drawn, whether there is a base and whether any level
+// is bilinear are template parameters: a pyramid_old draw carries no index
+// arithmetic and no weights at all.
 
 constexpr int kDownThreads = 256;
 constexpr int64_t kMaxDownBlocks = 132 * 16;
+constexpr int kMaxFields = 4 * kMaxLevels;
+constexpr int kSpreadGroups = 32;                 // groups a block: a warp's lanes
+constexpr int kSpreadElems = 4 * kSpreadGroups;   // elements a block
+constexpr int kSpreadMaxWarps = 16;
 
 struct DownLevel {
   const float* g;  // (bc, 4, h, w) given fields, or null when generating
@@ -265,7 +290,9 @@ struct DownLevel {
 
 struct DownLevels {
   int n;
+  int fields;  // sum of planes
   DownLevel lv[kMaxLevels];
+  unsigned char stream[kMaxFields];  // 4 * level + plane of each field, in ladder order
 };
 
 __device__ __forceinline__ float2 down_weights(int o, float ratio) {
@@ -274,58 +301,164 @@ __device__ __forceinline__ float2 down_weights(int o, float ratio) {
   return make_float2(1.f - f, f);
 }
 
+// One bilinear level of one pixel from its four fields.
+__device__ __forceinline__ float down_bilinear(float2 wr, float2 wc, float g00,
+                                               float g01, float g10, float g11) {
+  return wr.x * (wc.x * g00 + wc.y * g01) + wr.y * (wc.x * g10 + wc.y * g11);
+}
+
+template <bool GEN, bool BASE, bool BILINEAR>
+__global__ void __launch_bounds__(32 * kSpreadMaxWarps)
+    pyramid_down_spread_kernel(const float* __restrict__ base, float* __restrict__ out,
+                               unsigned n, unsigned hw, unsigned w, const DownLevels L,
+                               uint32_t k0, uint32_t k1) {
+  extern __shared__ float4 down_fields4[];  // [field][group of the block]
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const unsigned g = blockIdx.x * kSpreadGroups + lane;
+  const unsigned e0 = g << 2;
+  if (e0 < n) {
+    if (GEN) {
+      const sonar::PhiloxKeys keys = sonar::philox_keys(k0, k1);
+      for (unsigned f = warp; f < (unsigned)L.fields; f += warps)
+        down_fields4[f * kSpreadGroups + lane] =
+            sonar::normal4(sonar::philox_group((uint64_t)g, (uint32_t)L.stream[f], keys));
+    } else {
+      // plane and offset in it of elements e0..e0+3 (those past the end repeat e0)
+      unsigned bc[4], rem[4];
+      bc[0] = e0 / hw;
+      rem[0] = e0 - bc[0] * hw;
+#pragma unroll
+      for (int k = 1; k < 4; ++k) {
+        if (e0 + k < n) {
+          bc[k] = bc[k - 1];
+          rem[k] = rem[k - 1] + 1u;
+          if (rem[k] == hw) rem[k] = 0u, bc[k] += 1u;
+        } else {
+          bc[k] = bc[0];
+          rem[k] = rem[0];
+        }
+      }
+      for (unsigned f = warp; f < (unsigned)L.fields; f += warps) {
+        const unsigned s = L.stream[f];
+        const float* __restrict__ gp = L.lv[s >> 2].g;
+        float v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          v[k] = gp[((uint64_t)bc[k] * 4u + (s & 3u)) * hw + rem[k]];
+        down_fields4[f * kSpreadGroups + lane] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+  __syncthreads();
+  const float* fields = reinterpret_cast<const float*>(down_fields4);
+  for (unsigned t = threadIdx.x; t < (unsigned)kSpreadElems; t += blockDim.x) {
+    const unsigned e = blockIdx.x * kSpreadElems + t;
+    if (e >= n) break;
+    float acc = BASE ? base[e] : 0.f;
+    int row = 0, col = 0;
+    if (BILINEAR) {
+      const unsigned rem = e % hw;
+      row = (int)(rem / w);
+      col = (int)(rem - (unsigned)row * w);
+    }
+    const float* fp = fields + t;
+    for (int li = 0; li < L.n; ++li) {
+      const DownLevel& lv = L.lv[li];
+      if (!BILINEAR || lv.planes == 1) {
+        acc = acc + fp[0] * lv.coef;
+        fp += kSpreadElems;
+      } else {
+        const float lvl = down_bilinear(
+            down_weights(row, lv.ratio_h), down_weights(col, lv.ratio_w), fp[0],
+            fp[kSpreadElems], fp[2 * kSpreadElems], fp[3 * kSpreadElems]);
+        acc = acc + lvl * lv.coef;
+        fp += 4 * kSpreadElems;
+      }
+    }
+    out[e] = acc;
+  }
+}
+
+// Plane p of level li for the four elements of group g: drawn, or gathered
+// from the level's given fields at (plane bc[k], offset rem[k]).
+template <bool GEN>
+__device__ __forceinline__ void down_field4(const DownLevel& lv, int li, int p, int64_t g,
+                                            const sonar::PhiloxKeys& keys,
+                                            const int64_t* bc, const int* rem,
+                                            int64_t hw, float* v) {
+  if (GEN) {
+    const float4 q = sonar::normal4(
+        sonar::philox_group((uint64_t)g, (uint32_t)(4 * li + p), keys));
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __ldg(lv.g + (bc[k] * 4 + p) * hw + rem[k]);
+  }
+}
+
+template <bool GEN, bool BASE, bool BILINEAR>
 __global__ void __launch_bounds__(kDownThreads)
     pyramid_down_kernel(const float* __restrict__ base, float* __restrict__ out,
-                        int64_t n, int h, int w, const DownLevels L, int gen,
-                        uint32_t k0, uint32_t k1) {
+                        int64_t n, int h, int w, const DownLevels L, uint32_t k0,
+                        uint32_t k1, int base_aligned) {
   const int64_t groups = (n + 3) >> 2;
   const int64_t hw = (int64_t)h * w;
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  const bool narrow = n <= 0x7fffffffLL;
+  const sonar::PhiloxKeys keys = sonar::philox_keys(k0, k1);
   for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; g < groups;
        g += step) {
     const int64_t e0 = g << 2;
     const int cnt = (int)min((int64_t)4, n - e0);
-    float acc[4];
-    int row[4], col[4];
-    int64_t bcs[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int64_t e = e0 + (k < cnt ? k : 0);
-      bcs[k] = e / hw;
-      const int64_t rem = e - bcs[k] * hw;
-      row[k] = (int)(rem / w);
-      col[k] = (int)(rem - (int64_t)row[k] * w);
-      acc[k] = base != nullptr ? base[e] : 0.f;
-    }
-    for (int li = 0; li < L.n; ++li) {
-      const DownLevel lv = L.lv[li];
-      float f[4][4];  // [plane][lane]
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        if (p >= lv.planes) break;
-        if (gen) {
-          const float4 v = sonar::normal4(
-              sonar::philox_group((uint64_t)g, (uint32_t)(4 * li + p), k0, k1));
-          f[p][0] = v.x;
-          f[p][1] = v.y;
-          f[p][2] = v.z;
-          f[p][3] = v.w;
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            f[p][k] = lv.g[((bcs[k] * 4 + p) * h + row[k]) * w + col[k]];
-        }
-      }
-      if (lv.planes == 1) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[k] = acc[k] + f[0][k] * lv.coef;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (BASE) {
+      if (cnt == 4 && base_aligned) {
+        const float4 b = __ldg(reinterpret_cast<const float4*>(base) + g);
+        acc[0] = b.x, acc[1] = b.y, acc[2] = b.z, acc[3] = b.w;
       } else {
 #pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] = base[e0 + (k < cnt ? k : 0)];
+      }
+    }
+    // plane, row and column of the four elements (those past the end repeat e0)
+    int64_t bc[4] = {0, 0, 0, 0};
+    int row[4] = {0, 0, 0, 0}, col[4] = {0, 0, 0, 0}, rem[4] = {0, 0, 0, 0};
+    if (!GEN || BILINEAR) {
+      up_locate(e0, hw, w, narrow, bc[0], row[0], col[0]);
+#pragma unroll
+      for (int k = 1; k < 4; ++k) {
+        if (k < cnt) {
+          bc[k] = bc[k - 1], row[k] = row[k - 1], col[k] = col[k - 1] + 1;
+          if (col[k] == w) {
+            col[k] = 0;
+            if (++row[k] == h) row[k] = 0, bc[k] += 1;
+          }
+        } else {
+          bc[k] = bc[0], row[k] = row[0], col[k] = col[0];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) rem[k] = row[k] * w + col[k];
+    }
+    const bool one_row = col[0] + 3 < w;  // else a lane wraps, even back to this row
+    for (int li = 0; li < L.n; ++li) {
+      const DownLevel& lv = L.lv[li];
+      if (!BILINEAR || lv.planes == 1) {
+        float v[4];
+        down_field4<GEN>(lv, li, 0, g, keys, bc, rem, hw, v);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] = acc[k] + v[k] * lv.coef;
+      } else {
+        float f[4][4];  // [plane][lane]
+#pragma unroll
+        for (int p = 0; p < 4; ++p) down_field4<GEN>(lv, li, p, g, keys, bc, rem, hw, f[p]);
+        float2 wr = down_weights(row[0], lv.ratio_h);
+#pragma unroll
         for (int k = 0; k < 4; ++k) {
-          const float2 wr = down_weights(row[k], lv.ratio_h);
-          const float2 wc = down_weights(col[k], lv.ratio_w);
-          const float lvl = wr.x * (wc.x * f[0][k] + wc.y * f[1][k]) +
-                            wr.y * (wc.x * f[2][k] + wc.y * f[3][k]);
+          if (k > 0 && !one_row) wr = down_weights(row[k], lv.ratio_h);
+          const float lvl = down_bilinear(wr, down_weights(col[k], lv.ratio_w), f[0][k],
+                                          f[1][k], f[2][k], f[3][k]);
           acc[k] = acc[k] + lvl * lv.coef;
         }
       }
@@ -335,6 +468,28 @@ __global__ void __launch_bounds__(kDownThreads)
     } else {
       for (int k = 0; k < cnt; ++k) out[e0 + k] = acc[k];
     }
+  }
+}
+
+template <bool GEN, bool BASE, bool BILINEAR>
+void down_launch(const float* base, float* out, int64_t n, int h, int w,
+                 const DownLevels& L, uint32_t k0, uint32_t k1, int variant,
+                 cudaStream_t stream) {
+  const int64_t groups = (n + 3) >> 2;
+  if (variant == 1) {
+    int warps = L.fields < 4 ? 4 : L.fields;
+    if (warps > kSpreadMaxWarps) warps = kSpreadMaxWarps;
+    const size_t smem = (size_t)(L.fields < 1 ? 1 : L.fields) * kSpreadGroups * sizeof(float4);
+    const int64_t blocks = (groups + kSpreadGroups - 1) / kSpreadGroups;
+    pyramid_down_spread_kernel<GEN, BASE, BILINEAR>
+        <<<(unsigned)blocks, 32 * warps, smem, stream>>>(
+            base, out, (unsigned)n, (unsigned)((int64_t)h * w), (unsigned)w, L, k0, k1);
+  } else {
+    int64_t blocks = (groups + kDownThreads - 1) / kDownThreads;
+    if (blocks > kMaxDownBlocks) blocks = kMaxDownBlocks;
+    const int base_aligned = (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+    pyramid_down_kernel<GEN, BASE, BILINEAR><<<(int)blocks, kDownThreads, 0, stream>>>(
+        base, out, n, h, w, L, k0, k1, base_aligned);
   }
 }
 
@@ -382,27 +537,42 @@ int sonar_pyramid_up(const float* base, float* out, int bc, int h, int w,
 
 // ptrs: 1 per level (given fields, 0 when gen != 0); planes: 1 or 4 per
 // level; params: 3 per level (coef, ratio_h, ratio_w). base may be null.
+// variant: 1 the spread kernel (below 2^31 elements), 2 one thread a group.
 int sonar_pyramid_down(const float* base, float* out, int bc, int h, int w,
                        int n_levels, const int64_t* ptrs, const int* planes,
                        const float* params, int gen, uint32_t k0, uint32_t k1,
-                       void* stream) {
-  if (n_levels < 0 || n_levels > kMaxLevels || bc <= 0 || h <= 0 || w <= 0)
+                       int variant, void* stream) {
+  if (n_levels < 0 || n_levels > kMaxLevels || bc <= 0 || h <= 0 || w <= 0 ||
+      (variant != 1 && variant != 2))
     return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)bc * h * w;
+  if (variant == 1 && n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   DownLevels L;
   L.n = n_levels;
+  L.fields = 0;
+  bool bilinear = false;
   for (int i = 0; i < n_levels; ++i) {
+    if (planes[i] != 1 && planes[i] != 4) return (int)cudaErrorInvalidValue;
     L.lv[i].g = reinterpret_cast<const float*>(ptrs[i]);
     L.lv[i].planes = planes[i];
     L.lv[i].coef = params[3 * i];
     L.lv[i].ratio_h = params[3 * i + 1];
     L.lv[i].ratio_w = params[3 * i + 2];
+    bilinear = bilinear || planes[i] == 4;
+    for (int p = 0; p < planes[i]; ++p) L.stream[L.fields++] = (unsigned char)(4 * i + p);
   }
-  const int64_t n = (int64_t)bc * h * w;
-  const int64_t groups = (n + 3) >> 2;
-  int64_t blocks = (groups + kDownThreads - 1) / kDownThreads;
-  if (blocks > kMaxDownBlocks) blocks = kMaxDownBlocks;
-  pyramid_down_kernel<<<(int)blocks, kDownThreads, 0, (cudaStream_t)stream>>>(
-      base, out, n, h, w, L, gen, k0, k1);
+  for (int f = L.fields; f < kMaxFields; ++f) L.stream[f] = 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch ((gen != 0) * 4 + (base != nullptr) * 2 + (int)bilinear) {
+    case 0: down_launch<false, false, false>(base, out, n, h, w, L, k0, k1, variant, st); break;
+    case 1: down_launch<false, false, true>(base, out, n, h, w, L, k0, k1, variant, st); break;
+    case 2: down_launch<false, true, false>(base, out, n, h, w, L, k0, k1, variant, st); break;
+    case 3: down_launch<false, true, true>(base, out, n, h, w, L, k0, k1, variant, st); break;
+    case 4: down_launch<true, false, false>(base, out, n, h, w, L, k0, k1, variant, st); break;
+    case 5: down_launch<true, false, true>(base, out, n, h, w, L, k0, k1, variant, st); break;
+    case 6: down_launch<true, true, false>(base, out, n, h, w, L, k0, k1, variant, st); break;
+    default: down_launch<true, true, true>(base, out, n, h, w, L, k0, k1, variant, st); break;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,14 @@ TPU kernels' float32 scalars promote their arithmetic.
 There is no fallback from one to the other. Each wrapper counts its kernel
 launches in a plain integer attribute, ``launches``, so a run can show that
 it went through the kernel; the plain version does not count.
+
+The views the CPU path takes, the card takes too. A CUDA tensor that is not
+contiguous (a transpose, a slice, ``channels_last``, the output of
+``irfft2``) is copied once into a contiguous one and then goes through the
+kernel; the wrapper counts these copies in ``copies``. The kernels compute
+in float32 and have no float64 instantiation: a float64 CUDA tensor, like
+any other element type they do not take, raises ``TypeError``. Nothing on
+the card is ever handed to the plain version.
 """
 
 from __future__ import annotations
@@ -37,6 +45,14 @@ _SCALE_NOISE_GRID_BLOCKS = 132  # tier 3's cooperative grid (kGridBlocks)
 
 # The element types the kernels take, by the code their C entry points read.
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _contiguous(wrapper, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it: itself, or one counted contiguous copy."""
+    if t.is_contiguous():
+        return t
+    wrapper.copies += 1
+    return t.contiguous()
 
 
 def _check_cuda(name: str, t: torch.Tensor, like: torch.Tensor | None = None,
@@ -110,6 +126,8 @@ def fused_momentum_step(x, denoised, hd, noise, scal):
     ``(x', hd')`` in the dtype of ``x``."""
     if x.device.type == "cpu":
         return fused_momentum_step_reference(x, denoised, hd, noise, scal)
+    x, denoised, hd, noise = (_contiguous(fused_momentum_step, t) if t.is_cuda else t
+                              for t in (x, denoised, hd, noise))
     for name, t in (("x", x), ("denoised", denoised), ("hd", hd), ("noise", noise)):
         _check_cuda(name, t, like=x)
     _check_cuda("scal", scal, dtypes=(torch.float32,))
@@ -134,6 +152,7 @@ def fused_momentum_step(x, denoised, hd, noise, scal):
 
 
 fused_momentum_step.launches = 0
+fused_momentum_step.copies = 0
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +209,8 @@ def fused_scale_noise(noise, factor=1.0, *, threshold_std_devs: float = 2.5):
     if noise.device.type == "cpu":
         return fused_scale_noise_reference(noise, factor,
                                            threshold_std_devs=threshold_std_devs)
+    if noise.is_cuda:
+        noise = _contiguous(fused_scale_noise, noise)
     _check_cuda("noise", noise)
     n = noise.numel()
     if n == 0:
@@ -214,3 +235,4 @@ def fused_scale_noise(noise, factor=1.0, *, threshold_std_devs: float = 2.5):
 
 
 fused_scale_noise.launches = 0
+fused_scale_noise.copies = 0

@@ -19,7 +19,11 @@ axis the taps of different output pixels are disjoint, so each oversized
 iid-gaussian level is, per output pixel, fresh fields: one for an identity,
 ``nearest`` or ``nearest-exact`` level, one times ``1/√block`` for ``area``
 at an integer scale, four with the 2-tap bilinear weights for
-``bilinear``. The oversized level is never built.
+``bilinear``. The oversized level is never built. B5 is two kernels that
+compute the same bits: one that spreads a group's fields over the warps of a
+block, for outputs too small to fill the card with a thread a group, and one
+thread a group beyond; :func:`downscale_variant` picks by the element count
+alone.
 
 Streams (all Philox, :mod:`.hwrng`): ``fused_pyramid`` draws its base pair
 in-kernel from ``derive_seed(seed, "base")`` on streams 0 and 1, and each
@@ -43,6 +47,7 @@ anything the kernel cannot take.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -59,6 +64,13 @@ MAX_TAPS = 4  # nonzeros in a row of an upscaling matrix (csrc/fused_pyramid.cu 
 UP_MODES = ("bilinear", "bicubic", "nearest", "nearest-exact", "area")
 DOWN_MODES = ("bilinear", "nearest", "nearest-exact", "area")
 _LEVEL0_DISCOUNT = 1.0  # level 0 (the identity) folded into the base pair
+# B5: up to this many output elements the spread kernel (a warp a field, 32
+# groups a block) takes the draw, beyond it one thread a group. Set where
+# the two kernels' device times cross on an H100 80GB HBM3 at 700 W
+# (kernel_times.py): at 65,536 elements the spread kernel takes 2.12 and
+# 3.67 us (pyramid_old, highres) against 2.68 and 5.18, at 98,304 2.61 and
+# 5.57 against 2.74 and 5.29, at 131,072 3.04 and 6.11 against 2.79 and 5.33.
+DOWN_SPREAD_ELEMS = 96 * 1024
 
 
 def _f32(x: float) -> float:
@@ -302,8 +314,34 @@ def fused_downscale_pyramid_reference(seed: int, shape, sizes, coefs,
                                 device).reshape(b, c, h, w)
 
 
+def downscale_variant(n: int) -> int:
+    """Which of kernel B5's two kernels takes an output of ``n`` elements: 1,
+    the spread kernel (a block owns 32 Philox groups and has a warp for
+    every field of the ladder, so a thread makes one Philox call), 2, one
+    thread a group walking the ladder. Both add the levels in ladder order,
+    so the choice moves no bit."""
+    return 1 if n <= DOWN_SPREAD_ELEMS else 2
+
+
+_forced_variant = None
+
+
+@contextlib.contextmanager
+def _forced_down_variant(variant):
+    """Inside the block B5's launches use kernel ``variant`` (1 or 2; None:
+    the wrapper's pick) whatever the size. For tests and timings only: the
+    result is the same bits."""
+    global _forced_variant
+    before, _forced_variant = _forced_variant, variant
+    try:
+        yield
+    finally:
+        _forced_variant = before
+
+
 def _launch_down(out, base, g_fields, sizes, coefs, mode, key):
     bc, h, w = out.shape
+    variant = _forced_variant or downscale_variant(out.numel())
     levels = _down_levels(sizes, coefs, h, w, mode)
     n = len(levels)
     ptrs = (ctypes.c_int64 * max(1, n))()
@@ -317,7 +355,8 @@ def _launch_down(out, base, g_fields, sizes, coefs, mode, key):
     with torch.cuda.device(out.device):
         _call_kernel("sonar_pyramid_down",
                      None if base is None else base.data_ptr(), out.data_ptr(),
-                     bc, h, w, n, ptrs, planes, params, int(key is not None), k0, k1)
+                     bc, h, w, n, ptrs, planes, params, int(key is not None), k0, k1,
+                     int(variant))
 
 
 def _check_base(base, bc, h, w):
@@ -331,7 +370,8 @@ def fused_downscale_pyramid(seed: int, shape, sizes, coefs, mode: str = "bilinea
                             base=None, *, device=None) -> torch.Tensor:
     """One highres_pyramid / pyramid_old draw of ``shape`` (B, C, H, W) by
     kernel B5, fields drawn in-kernel; ``base`` (any shape of B·C·H·W
-    elements, e.g. highres_pyramid's inner draw) is added in."""
+    elements, e.g. highres_pyramid's inner draw) is added in.
+    :func:`downscale_variant` picks which of B5's two kernels runs."""
     b, c, h, w = shape
     if not fused_downscale_supported(sizes, h, w, mode):
         raise ValueError(f"fused_downscale_pyramid: ladder {sizes} in mode {mode!r} "

@@ -1,7 +1,7 @@
 """Noise generators (port of ``sonar_tpu.noise.generators``; reference
 py/noise_generation.py). Ported so far: the base class, gaussian, uniform,
-the pyramid family (``highres_pyramid``, ``pyramid_old``, ``pyramid``) and
-``mixed``; the rest of the zoo follows in later slices.
+brownian, the pyramid family (``highres_pyramid``, ``pyramid_old``,
+``pyramid``) and ``mixed``; the rest of the zoo follows in later slices.
 
 Every draw goes through the Philox stream of :mod:`..kernels.hwrng` (kernel
 B3 on the card, its plain version on the CPU), seeded from the per-draw
@@ -34,6 +34,7 @@ from ..kernels.hwrng import philox_rand, philox_randn
 from ..ops.resample import scale_samples
 from ..utils.misc import default_device
 from .base import NoiseCtx, NoiseItem, fix_output_frames
+from .brownian import endpoint_increment, endpoint_state
 
 
 def _device(ctx: NoiseCtx) -> torch.device:
@@ -138,6 +139,28 @@ class UniformGenerator(Generator):
     def generate(self, ctx, state, seed, sigma, sigma_next):
         n = self.rand(ctx, seed, shape=ctx.shape)
         return (n - self.sub_fac) * self.mul_fac + self.mean_fac, state
+
+
+class BrownianGenerator(Generator):
+    """Brownian-tree-style sigma-correlated noise (py/noise_generation.py:263-286).
+
+    The only sigma-consuming base generator. The state carries the seed of
+    the bridge chosen at init, so every (sigma, sigma_next) query addresses
+    the same underlying Brownian path, and the last endpoint."""
+
+    name = "brownian"
+    DEFAULT_NORMALIZED = False
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {"levels": 16}
+
+    def init_state(self, ctx, seed):
+        return endpoint_state(ctx, seed)
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        del seed  # path identity comes from the init-time seed
+        return endpoint_increment(ctx, state, sigma, sigma_next, levels=self.levels)
 
 
 def _size_ladder_highres(h: int, w: int, iterations: int, schedule_seed: int):

@@ -4,10 +4,10 @@ py/noise.py:2244-2489).
 The JAX registry imports the whole zoo when it is imported. The port
 registers lazily instead: a name maps to a loader that imports its generator
 module only when that name is first asked for, so the main path loads only
-the gaussian generator. Registered so far: ``gaussian``, ``uniform`` and
-the thirteen pyramid-family names and the two Voronoi presets, with the
-JAX registry's exact parameters (presets.py:73-75, 128-174, 188-221); later
-slices add the rest of the zoo to ``_LOADERS``.
+the gaussian generator. Registered so far: ``gaussian``, ``uniform``,
+``brownian``, the thirteen pyramid-family names and the two Voronoi presets,
+with the JAX registry's exact parameters (presets.py:66, 73-75, 128-174,
+188-221); later slices add the rest of the zoo to ``_LOADERS``.
 """
 
 from __future__ import annotations
@@ -36,6 +36,12 @@ def _load_uniform():
     from .generators import UniformGenerator
 
     return _simple(UniformGenerator)
+
+
+def _load_brownian():
+    from .generators import BrownianGenerator
+
+    return _simple(BrownianGenerator)
 
 
 def _mixed(mix_name, members, output_fun=None):
@@ -93,6 +99,7 @@ def _load_voronoi_mix():
 _LOADERS: dict[str, Callable[[], Callable[..., Generator]]] = {
     "gaussian": _load_gaussian,
     "uniform": _load_uniform,
+    "brownian": _load_brownian,
     "pyramid_old": _load_pyramid("PyramidOldGenerator"),
     "pyramid": _load_pyramid("PyramidGenerator"),
     "highres_pyramid": _load_pyramid("HighresPyramidGenerator"),

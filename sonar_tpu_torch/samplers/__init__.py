@@ -1,6 +1,5 @@
-"""Sonar momentum samplers. This slice ports ``sonar_euler`` and
-``sonar_euler_ancestral``; ``sonar_dpmpp_sde`` and the k-diffusion registry
-come in later slices."""
+"""Sonar momentum samplers: ``sonar_euler``, ``sonar_euler_ancestral`` and
+``sonar_dpmpp_sde``; the k-diffusion registry comes in a later slice."""
 
 from .ancestral import get_ancestral_step, get_ancestral_step_rf, to_d  # noqa: F401
 from .momentum import (  # noqa: F401
@@ -10,4 +9,8 @@ from .momentum import (  # noqa: F401
     MomentumMode,
     SonarConfig,
 )
-from .sonar import sample_sonar_euler, sample_sonar_euler_ancestral  # noqa: F401
+from .sonar import (  # noqa: F401
+    sample_sonar_dpmpp_sde,
+    sample_sonar_euler,
+    sample_sonar_euler_ancestral,
+)

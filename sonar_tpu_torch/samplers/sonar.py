@@ -13,8 +13,11 @@ Noise injection: pass ``noise_item`` (a NoiseItem spec) or ``noise_sampler``
 as a plain callable ``fn(step, sigma, sigma_next) -> noise`` (e.g. a
 recorded stream for trajectory-equivalence tests).
 
-``sample_sonar_dpmpp_sde`` is not ported yet (its default noise is
-brownian).
+Type promotion: the per-step scalars are host floats, which follow the
+latent's type, so a bfloat16 latent is stepped in bfloat16 (the JAX
+package's float32 sigma arrays promote its step arithmetic to float32 and
+cast the carry back); the model is conditioned on a float32 sigma batch on
+both sides.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from .momentum import (
     MomentumMode,
     SonarConfig,
     check_step,
+    get_momentum_d,
+    get_momentum_denoised,
     init_momentum_state,
     momentum_step,
 )
@@ -65,7 +70,10 @@ def _setup(model, x, sigmas, *, cfg: SonarConfig, default_noise_type: str,
     sigma_max = float(s.max())
 
     def model_fn(xi, sigma, **kw):
-        s_in = torch.full((xi.shape[0],), sigma, dtype=xi.dtype, device=xi.device)
+        # float32 whatever the latent's type: JAX multiplies a float32 sigma
+        # by ones of xi.dtype, which promotes, and the UNet is conditioned on
+        # the unrounded sigma (bf16 would move 14.6 to 14.625)
+        s_in = torch.full((xi.shape[0],), sigma, dtype=torch.float32, device=xi.device)
         return model(xi, s_in, **extra_args, **kw)
 
     # Noise precedence: custom_noise > explicit sampler > typed default
@@ -117,14 +125,23 @@ def _restabilize(new, old):
     return new
 
 
+def _check_method(method: str) -> None:
+    """The JAX samplers run ``method="scan"`` as one ``lax.scan`` and
+    ``"python"`` as a host loop; here both name the host loop, and anything
+    else is refused with the JAX package's message."""
+    if method not in ("scan", "python"):
+        raise ValueError("method must be 'scan' or 'python'")
+
+
 def _run_loop(step_fn, x, n_steps: int, mom_state, noise_state, *, callback=None,
-              resume_from=None, start_step: int = 0, stop_step: int | None = None,
-              return_state: bool = False):
+              method: str = "scan", resume_from=None, start_step: int = 0,
+              stop_step: int | None = None, return_state: bool = False):
     """Run steps [start_step, stop_step). Checkpoint/resume: the whole
     sampler state is the carry ``(x, momentum_state, noise_state)`` — run
     with ``stop_step=k, return_state=True`` to checkpoint, then
     ``resume_from=carry, start_step=k`` to continue; the result is bitwise
     identical to an uninterrupted run."""
+    _check_method(method)
     stop = n_steps if stop_step is None else min(stop_step, n_steps)
     carry = resume_from if resume_from is not None else (x, mom_state, noise_state)
     for i in range(start_step, stop):
@@ -146,6 +163,7 @@ def sample_sonar_euler(
     seed: int | None = None,
     extra_args: dict | None = None,
     callback=None,
+    method: str = "scan",
     resume_from=None,
     start_step: int = 0,
     stop_step: int | None = None,
@@ -170,7 +188,7 @@ def sample_sonar_euler(
                                     "denoised": denoised}
 
     return _run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x), (),
-                     callback=callback, resume_from=resume_from,
+                     callback=callback, method=method, resume_from=resume_from,
                      start_step=start_step, stop_step=stop_step,
                      return_state=return_state)
 
@@ -249,6 +267,7 @@ def sample_sonar_euler_ancestral(
     seed: int | None = None,
     extra_args: dict | None = None,
     callback=None,
+    method: str = "scan",
     use_fused: bool | None = None,
     ancestral_mode: str = "vp",
     resume_from=None,
@@ -310,6 +329,124 @@ def sample_sonar_euler_ancestral(
         return (out, mom, nstate), {"x": out, **info}
 
     return _run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x),
-                     st.noise_state, callback=callback, resume_from=resume_from,
-                     start_step=start_step, stop_step=stop_step,
-                     return_state=return_state)
+                     st.noise_state, callback=callback, method=method,
+                     resume_from=resume_from, start_step=start_step,
+                     stop_step=stop_step, return_state=return_state)
+
+
+def _dpmpp_sde_schedule(sigmas: list[float], eta: float, s_noise: float, r: float):
+    """The per-step scalars of the two-stage step as host numbers, computed
+    in float32 over the whole schedule at once (py/sonar.py:640-735):
+    ``s_t``/``s_s`` the sigmas of the step's start and of its midpoint
+    ``t + r·h``; for each stage the multiplier of ``x``
+    (``sigma_fn(t_down)/s_t``), the ``expm1(t - t_down)`` factor of the
+    denoised and the injected noise scale ``s_noise·sigma_up``. The 1e-10
+    floors keep the logarithms finite where a sigma_down is 0 (``eta = 1``,
+    and the ``sigma_next == 0`` tail, whose stage values are not used)."""
+    s = torch.tensor(sigmas, dtype=torch.float32)
+    sigma, sigma_next = s[:-1], s[1:]
+    t = -torch.log(sigma)
+    h = -torch.log(sigma_next.clamp(min=1e-10)) - t
+    s_t, s_s = torch.exp(-t), torch.exp(-(t + h * r))
+
+    def stage(target):
+        sd, su = get_ancestral_step(s_t, target, eta)
+        t_down = -torch.log(torch.broadcast_to(sd, s_t.shape).clamp(min=1e-10))
+        return {"x_scale": (torch.exp(-t_down) / s_t).tolist(),
+                "expm1": torch.expm1(t - t_down).tolist(),
+                "noise_scale": torch.broadcast_to(s_noise * su, s_t.shape).tolist()}
+
+    return {"s_t": s_t.tolist(), "s_s": s_s.tolist(), "mid": stage(s_s),
+            "end": stage(sigma_next)}
+
+
+def sample_sonar_dpmpp_sde(
+    model: Callable,
+    x: torch.Tensor,
+    sigmas,
+    *,
+    sonar_config: SonarConfig | None = None,
+    sonar_params: dict | None = None,
+    eta: float = 1.0,
+    s_noise: float = 1.0,
+    r: float = 0.5,
+    noise_item: NoiseItem | None = None,
+    noise_sampler: Callable | None = None,
+    seed: int | None = None,
+    extra_args: dict | None = None,
+    callback=None,
+    method: str = "scan",
+    resume_from=None,
+    start_step: int = 0,
+    stop_step: int | None = None,
+    return_state: bool = False,
+) -> torch.Tensor:
+    """Two-stage DPM++ SDE with momentum injected twice per step
+    (py/sonar.py:626-820). Default noise: brownian (py/sonar.py:627).
+
+    Two model calls and two noise draws a step; the draws are indexed
+    ``2i`` and ``2i + 1`` and take the sigma pairs ``(s_t, s_s)`` and
+    ``(s_t, sigma_next)``. The ``sigma_next == 0`` tail runs the plain
+    momentum step alone (one model call). The JAX package's scan computes
+    both branches there and so makes the two draws as well, unused: the tail
+    makes them too, so the noise state a run returns (the draw counter, a
+    Brownian endpoint cache) is the one the JAX package's run returns."""
+    cfg = (sonar_config or SonarConfig()).updated(sonar_params)
+    st = _setup(model, x, sigmas, cfg=cfg, default_noise_type="brownian",
+                noise_item=noise_item, noise_sampler=noise_sampler, seed=seed,
+                extra_args=extra_args, need_noise=True)
+    sig = st.sigmas
+    sched = _dpmpp_sde_schedule(sig, eta, s_noise, r)
+    fac = 1 / (2 * r)
+    m = cfg.momentum
+    # The JAX step multiplies by float32 sigmas, which promotes a bfloat16 or
+    # float16 latent: the whole step runs in float32, the second model call
+    # sees a float32 latent and the carry is rounded once a step. Here the
+    # scalars are host numbers, which follow the tensor's type, so the step
+    # widens what it reads; float32 is left as it is.
+    wide = torch.promote_types(x.dtype, torch.float32)
+
+    def step_fn(carry, i):
+        xc, mom, nstate = carry
+        sigma, sigma_next = sig[i], sig[i + 1]
+        s_t, s_s = sched["s_t"][i], sched["s_s"][i]
+        mid, end = sched["mid"], sched["end"]
+        denoised = st.model_fn(xc, sigma)
+        info = {"sigma": sigma, "sigma_hat": sigma, "denoised": denoised}
+        xc, denoised = xc.to(wide), denoised.to(wide)
+        if sigma_next == 0:
+            # py/sonar.py:658-659; get_ancestral_step(sigma, 0) is (0, 0)
+            out, mom = momentum_step(cfg, mom, xc, denoised, sigma, sigma_next, step=i,
+                                     rand_init=st.rand_init)
+            _, nstate = st.noise_fn(nstate, 2 * i, s_t, s_s)
+            _, nstate = st.noise_fn(nstate, 2 * i + 1, s_t, sigma_next)
+            return (out, mom, nstate), {"x": out, **info}
+
+        # the reference halves the distance of the momentum to 1 once there
+        # is history; get_momentum_d reads it only for its momentum == 1 gate
+        adjusted = 1.0 if m == 1 else (m + (1 - m) / 2 if mom["has"] else m)
+        kw = dict(step=i, rand_init=st.rand_init)
+        momentum_denoised, mom = get_momentum_denoised(cfg, mom, xc, denoised, sigma, **kw)
+        momentum_d, mom = get_momentum_d(
+            cfg, mom, xc, momentum_denoised, sigma, momentum=adjusted,
+            d=momentum_denoised * mid["expm1"][i], **kw)
+        x_2 = xc * mid["x_scale"][i] - momentum_d
+        noise1, nstate = st.noise_fn(nstate, 2 * i, s_t, s_s)
+        x_2 = x_2 + noise1.to(wide) * mid["noise_scale"][i]
+        denoised_2 = st.model_fn(x_2, s_s).to(wide)
+        momentum_denoised_2, mom = get_momentum_denoised(cfg, mom, xc, denoised_2, s_s, **kw)
+
+        denoised_d = momentum_denoised * (1 - fac) + momentum_denoised_2 * fac
+        momentum_d, mom = get_momentum_d(
+            cfg, mom, xc, momentum_denoised_2, s_s, momentum=adjusted,
+            d=denoised_d * end["expm1"][i], **kw)
+        out = xc * end["x_scale"][i] - momentum_d
+        out = guidance_step(cfg, i, out, denoised_d, sigma, sigma_next, st.ref_latent)
+        noise2, nstate = st.noise_fn(nstate, 2 * i + 1, s_t, sigma_next)
+        out = out + noise2.to(wide) * end["noise_scale"][i]
+        return (out, mom, nstate), {"x": out, **info}
+
+    return _run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x),
+                     st.noise_state, callback=callback, method=method,
+                     resume_from=resume_from, start_step=start_step,
+                     stop_step=stop_step, return_state=return_state)

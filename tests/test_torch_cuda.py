@@ -201,13 +201,13 @@ def test_bf16_latent_runs_the_sampler_on_the_card(cuda):
 def test_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(TypeError):
         F.fused_scale_noise(torch.zeros((1, 4, 8, 8), device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError):  # no integer kernel either
+        F.fused_scale_noise(torch.zeros((1, 4, 8, 8), device=cuda, dtype=torch.int32))
     with pytest.raises(TypeError):  # mixed dtypes
         z = torch.zeros((1, 4, 8, 8), device=cuda)
         F.fused_momentum_step(z, z, z, z.half(), F.pack_momentum_scalars(
             sigma=1.0, dt=-0.5, momentum=0.9, hd_ratio=0.75, hd_scale=1.0, md_scale=1.0,
             has=0.0, noise_scale=0.0, device=cuda))
-    with pytest.raises(ValueError):
-        F.fused_scale_noise(torch.zeros((1, 4, 8, 8), device=cuda).transpose(2, 3))
     x = torch.zeros((1, 4, 8, 8), device=cuda)
     scal = F.pack_momentum_scalars(sigma=1.0, dt=-0.5, momentum=0.9, hd_ratio=0.75,
                                    hd_scale=1.0, md_scale=1.0, has=0.0, noise_scale=0.0)
@@ -215,6 +215,85 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         F.fused_momentum_step(x, x, x, x, scal)
     with pytest.raises(ValueError):  # mismatched shapes
         F.fused_momentum_step(x, x, x, x[..., :4].contiguous(), scal.to(cuda))
+
+
+def _views(base):
+    """Tensors the CPU path takes that are not contiguous."""
+    return {
+        "transpose": base.transpose(2, 3), "slice": base[:, 1:3, ::2],
+        "channels_last": base.contiguous(memory_format=torch.channels_last),
+        "irfft2": torch.fft.irfft2(torch.fft.rfft2(base.float()),
+                                   s=base.shape[-2:]).swapaxes(0, 1).to(base.dtype),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["transpose", "slice", "channels_last", "irfft2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_views_go_through_the_kernels_after_one_counted_copy(cuda, view, dtype):
+    """B1 and B2 on tensors that are not contiguous: one copy each (counted),
+    then the kernel, with the bits it gives the contiguous copy."""
+    base = (_randn((2, 4, 12, 10), cuda, 3) * 2.0 + 0.3).to(dtype)
+    x = _views(base)[view]
+    assert not x.is_contiguous()
+    n, c = F.fused_scale_noise.launches, F.fused_scale_noise.copies
+    out = F.fused_scale_noise(x, 1.3)
+    assert (F.fused_scale_noise.launches, F.fused_scale_noise.copies) == (n + 1, c + 1)
+    assert out.shape == x.shape and out.dtype == dtype
+    assert torch.equal(out, F.fused_scale_noise(x.contiguous(), 1.3))
+    assert F.fused_scale_noise.copies == c + 1  # a contiguous tensor is not copied
+    ref = F.fused_scale_noise_reference(x.float(), 1.3).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else LOW_PRECISION[dtype][0]
+    assert _rel_err(out, ref) <= tol
+    scal = F.pack_momentum_scalars(sigma=3.0, dt=-1.0, momentum=0.9, hd_ratio=0.75,
+                                   hd_scale=1.0, md_scale=1.0, has=1.0, noise_scale=0.3,
+                                   device=cuda)
+    n, c = F.fused_momentum_step.launches, F.fused_momentum_step.copies
+    den = torch.zeros_like(x.contiguous())
+    got = F.fused_momentum_step(x, den, x, den, scal)  # x and hd are views: two copies
+    assert (F.fused_momentum_step.launches, F.fused_momentum_step.copies) == (n + 1, c + 2)
+    want = F.fused_momentum_step(x.contiguous(), den, x.contiguous(), den, scal)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_float64_on_the_card_raises_and_launches_nothing(cuda):
+    """The kernels compute in float32 and have no float64 instantiation: a
+    float64 CUDA tensor raises, whether contiguous or a view; the wrappers
+    never hand a tensor on the card to the plain version."""
+    x = _randn((1, 4, 9, 8), cuda, 4).double() * 3.0 + 1.0
+    scal = F.pack_momentum_scalars(sigma=3.0, dt=-1.0, momentum=0.9, hd_ratio=0.75,
+                                   hd_scale=1.0, md_scale=1.0, has=1.0, noise_scale=0.3,
+                                   device=cuda)
+    counts = (F.fused_scale_noise.launches, F.fused_momentum_step.launches)
+    for t in (x, x.transpose(2, 3)):
+        with pytest.raises(TypeError, match="float64"):
+            F.fused_scale_noise(t, 0.5)
+        with pytest.raises(TypeError, match="float64"):
+            F.fused_momentum_step(t, t * 0.5, t * 0.1, t * 2.0, scal)
+    assert (F.fused_scale_noise.launches, F.fused_momentum_step.launches) == counts
+
+
+@pytest.mark.cuda
+def test_power_noise_on_the_card_goes_through_b2_and_b3(cuda):
+    """The config-3a noise on the card: irfft2's output and the channel
+    mix's swapaxes reach scale_noise; one seed gives the CPU's noise."""
+    from sonar_tpu_torch.noise import (PowerNoiseItem, ScheduledNoise, get_noise_item,
+                                       make_noise_sampler)
+
+    item = ScheduledNoise(
+        noise=PowerNoiseItem(alpha=0.5, min_freq=0.05, time_brownian=True, common_mode=0.4),
+        start_sigma=14.7, end_sigma=0.3, fallback_noise=get_noise_item("gaussian"))
+    kw = dict(seed=5, sigma_min=0.03, sigma_max=14.6)
+    cfn, cst = make_noise_sampler(item, (1, 4, 64, 64), device="cpu", **kw)
+    gfn, gst = make_noise_sampler(item, (1, 4, 64, 64), device=cuda, **kw)
+    n2, n3 = F.fused_scale_noise.launches, H.philox_randn.launches
+    for s, sn in ((14.6, 9.0), (9.0, 4.0), (0.2, 0.1)):
+        a, cst = cfn(cst, s, sn)
+        b, gst = gfn(gst, s, sn)
+        assert b.is_cuda and _rel_err(b.cpu(), a) <= 1e-5
+    assert F.fused_scale_noise.launches == n2 + 3
+    assert H.philox_randn.launches == n3 + 34 + 17 + 1  # a miss, a hit, the gaussian
 
 
 @pytest.mark.cuda
@@ -378,6 +457,75 @@ def test_downscale_kernel_matches_plain(cuda, mode, case):
     got = P.fused_downscale_accumulate(gs, (h, w), sizes, coefs, mode)
     want = P.fused_downscale_accumulate_reference(gs, (h, w), sizes, coefs, mode)
     assert _rel_err(got, want) <= 1e-5
+
+
+def _forced(variant, fn, *args, **kw):
+    """``fn(*args, **kw)`` with B5's kernel ``variant`` forced (None: the pick)."""
+    with P._forced_down_variant(variant):
+        return fn(*args, **kw)
+
+
+# B5's two kernels around the size where the wrapper changes from one to the
+# other (±1 Philox group, ±1 element), shapes whose last group is ragged and
+# whose groups straddle rows and planes, and one block more or less of the
+# spread kernel (32 groups)
+def _down_limit_shapes():
+    cap = P.DOWN_SPREAD_ELEMS
+    return [(1, 1, 1, cap - 4), (1, 1, 1, cap - 1), (1, 1, 1, cap), (1, 1, 1, cap + 1),
+            (1, 1, 1, cap + 4), (1, 1, 2, cap // 2), (1, 3, 5, 7), (2, 3, 33, 130),
+            (1, 1, 1, 1), (1, 1, 1, 127), (1, 1, 1, 128), (1, 1, 1, 129), (1, 4, 67, 61),
+            (1, 2, 3, 1), (1, 5, 2, 2)]  # a group's rows wrap round a plane to its first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bilinear", "nearest-exact", "area"])
+@pytest.mark.parametrize("case", range(15))
+def test_downscale_kernels_agree_bit_for_bit(cuda, mode, case):
+    """Both of B5's kernels, forced on every shape: bit-equal to each other
+    on drawn fields (the draw does not depend on which ran) and within 1e-5
+    of the plain version; bit-equal to the plain version on given fields,
+    with and without a base; and the wrapper picks by the element count."""
+    shape = _down_limit_shapes()[case]
+    b, c, h, w = shape
+    sizes = [(h, w), (2 * h, 3 * w), (4 * h, 4 * w), (15 * h, 15 * w)]
+    coefs = [0.7**i for i in range(len(sizes))]
+    assert P.fused_downscale_supported(sizes, h, w, mode)
+    assert P.downscale_variant(b * c * h * w) == (1 if b * c * h * w <= P.DOWN_SPREAD_ELEMS
+                                                  else 2)
+    for base in (None, _randn(shape, cuda, 5)):
+        ref = P.fused_downscale_pyramid_reference(9, shape, sizes, coefs, mode, base=base,
+                                                  device=cuda)
+        outs = [_forced(v, P.fused_downscale_pyramid, 9, shape, sizes, coefs, mode,
+                        base=base, device=cuda) for v in (1, 2, None)]
+        assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+        assert _rel_err(outs[0], ref) <= 1e-5
+        gs = [_randn((b * c, 4, h, w), cuda, 10 + i) for i in range(len(sizes))]
+        b3 = None if base is None else base.reshape(b * c, h, w)
+        want = P.fused_downscale_accumulate_reference(gs, (h, w), sizes, coefs, mode, base=b3)
+        for v in (1, 2, None):
+            got = _forced(v, P.fused_downscale_accumulate, gs, (h, w), sizes, coefs, mode,
+                          base=b3)
+            assert torch.equal(got, want), (v, float((got - want).abs().max()))
+
+
+@pytest.mark.cuda
+def test_downscale_kernel_takes_sixteen_levels_and_an_unaligned_base(cuda):
+    """MAX_LEVELS bilinear levels are 64 fields (the spread kernel's warps
+    take four each); a base view that is not 16-byte aligned loads by
+    elements in the kernel that reads it as float4."""
+    h, w = 9, 12
+    sizes = [((2 + i) * h, (2 + i) * w) for i in range(P.MAX_LEVELS)]
+    coefs = [0.9**i for i in range(len(sizes))]
+    flat = _randn((1 + 2 * h * w,), cuda, 2)
+    base = flat[1:].view(1, 2, h, w)
+    assert base.data_ptr() % 16 != 0
+    ref = P.fused_downscale_pyramid_reference(3, (1, 2, h, w), sizes, coefs, "bilinear",
+                                              base=base, device=cuda)
+    outs = [_forced(v, P.fused_downscale_pyramid, 3, (1, 2, h, w), sizes, coefs, "bilinear",
+                    base=base, device=cuda) for v in (1, 2)]
+    for out in outs:
+        assert _rel_err(out, ref) <= 1e-5
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ The CUDA kernels themselves are held against their plain versions on the
 card by tests/test_torch_cuda.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -176,3 +177,53 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     TF.fused_momentum_step(x, den, hd, noise, TF.pack_momentum_scalars(**_scal_kw(1, 1, 1)))
     TF.fused_scale_noise(x * 3)
     assert (TF.fused_momentum_step.launches, TF.fused_scale_noise.launches) == (n1, n2)
+
+
+@pytest.mark.parametrize("view", ["transpose", "slice", "channels_last", "irfft2"])
+def test_tensors_that_are_not_contiguous_match_jax_and_are_copied_once(view):
+    """What the CPU path takes, the card takes too: the wrappers copy a
+    tensor that is not contiguous once (counted in ``copies``) before the
+    kernel reads it. Here, on the CPU, the plain version takes the view as
+    it is, agrees with the JAX function, and the helper that the card's path
+    uses counts one copy and leaves a contiguous tensor alone."""
+    base = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 4, 12, 10))
+                            .astype(np.float32)) * 2.0 + 0.3
+    x = {"transpose": lambda: base.transpose(2, 3), "slice": lambda: base[:, 1:3, ::2],
+         "channels_last": lambda: base.contiguous(memory_format=torch.channels_last),
+         "irfft2": lambda: torch.fft.irfft2(torch.fft.rfft2(base), s=(12, 10)).swapaxes(0, 1),
+         }[view]()
+    assert not x.is_contiguous()
+    out = TF.fused_scale_noise(x, 1.3)
+    _close(out, j_scale_noise(jnp.asarray(x.numpy()), 1.3), atol=1e-5)
+    before = TF.fused_scale_noise.copies
+    c = TF._contiguous(TF.fused_scale_noise, x)
+    assert c.is_contiguous() and torch.equal(c, x)
+    assert TF.fused_scale_noise.copies == before + 1
+    assert TF._contiguous(TF.fused_scale_noise, c) is c
+    assert TF.fused_scale_noise.copies == before + 1
+
+
+def test_float64_on_the_cpu_matches_jax_under_x64():
+    """A float64 CPU tensor takes the CPU path like any other: the plain
+    version, in float64, held here against the JAX functions with x64
+    enabled (1e-12; float32 would leave 1e-7). On the card float64 raises:
+    the kernels compute in float32."""
+    rng = np.random.default_rng(5)
+    xs = [rng.standard_normal((1, 4, 9, 7)) * s + b
+          for s, b in ((3.0, 1.0), (1.5, 0.5), (0.3, 0.1), (2.0, 0.0))]
+    kw = dict(sigma=3.0, dt=-1.0, momentum=0.9, hd_ratio=0.75, hd_scale=1.0, md_scale=1.0,
+              has=1.0, noise_scale=0.3)
+    out = TF.fused_scale_noise(torch.from_numpy(xs[0]), 0.5)
+    o64 = TF.fused_momentum_step(*(torch.from_numpy(a) for a in xs),
+                                 TF.pack_momentum_scalars(**kw).double())
+    assert out.dtype == o64[0].dtype == o64[1].dtype == torch.float64
+    with jax.enable_x64(True):
+        jxs = [jnp.asarray(a, jnp.float64) for a in xs]
+        ref = j_scale_noise(jxs[0], 0.5)
+        jscal = JF.pack_momentum_scalars(**kw).astype(jnp.float64)
+        r64 = JF.fused_momentum_step_reference(*jxs, jscal)
+        assert ref.dtype == r64[0].dtype == jnp.float64
+        ref, r64 = np.asarray(ref), [np.asarray(r) for r in r64]
+    _close(out, ref, atol=1e-12)
+    _close(o64[0], r64[0], atol=1e-12)
+    _close(o64[1], r64[1], atol=1e-12)
