@@ -88,7 +88,28 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    (steps/s and model calls/s: median, min and max over the runs), one run
    of it under the profiler (device time, busy share, B2's, B3's and the
    FFTs' shares), and one evaluation of the Brownian path W and one power
-   noise draw (B3 launches, host and device time).
+   noise draw (B3 launches, host and device time);
+17. holds wavelet CFG (BASELINE config 3's rule: db4, level 3,
+   periodization, scheduled half-cosine diff scales) on the card against the
+   same call on the CPU at 1×4×128×128, TF32 off, at sigmas inside its
+   window, on its edge and outside a window (the basic-CFG fallback); runs
+   one guided call of a ``SonarPipeline`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no read back from the card);
+   and times one wavelet-CFG call (device kernels and µs, host µs);
+18. runs config 3 through ``SonarPipeline`` on the flagship UNet
+   (``sonar_dpmpp_sde``, momentum 0.95, the scheduled power noise of [15],
+   wavelet CFG, the uncond denoiser fed ``x·c_in·0.97`` as bench.py does),
+   20 steps: B2 and B3 launch as in [15] and wavelet CFG adds no launch of
+   B1–B6; the card against the CPU on one injected noise stream at 4 steps,
+   TF32 off; a bf16 latent against the float32 run;
+19. runs config 3 at its own size: the SDXL-class UNet of bench.py:552-558
+   (320 channels, mult (1, 2, 4, 4), 2 res blocks, attention at levels 2
+   and 3, 8 heads; random weights from seed 0, float32) on a 1×4×128×128
+   latent, 30 Karras steps 14.6 → 0.03 and a final 0, against plain
+   ``sonar_euler`` (momentum 1.0) with basic CFG at scale 7: ms per model
+   call (steps × stages, as bench.py reckons it) over interleaved runs,
+   the overhead of config 3 per model call, the device-busy share of one
+   profiled run, the peak device memory and the launches of B2 and B3.
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
@@ -102,6 +123,7 @@ network, and imports nothing of JAX.
 """
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -148,6 +170,10 @@ B6_TOL = 1e-6  # minkowski only, relative to max(1, |plain|); the rest bit for b
 LOW_TOL = {"bfloat16": (2.0**-7, 2.0**-4), "float16": (2.0**-10, 2.0**-7)}
 BF16_TRAJ_TOL = 0.1  # relative to max |trajectory|: 20 steps of bf16 carries
 VORONOI_BENCH = (1, 4, 128, 128)  # bench.py:852, 256 points
+SDXL_SHAPE = (1, 4, 128, 128)  # bench.py:397-398
+SDXL_STEPS = 30
+CONFIG3_STEPS = 4  # the card-vs-CPU config-3 pipeline comparison
+WCFG_TOL = 1e-5  # relative to max(1, |cpu|): float32 products and sums in another order
 
 
 def fail(msg: str):
@@ -361,7 +387,10 @@ def main():
     from sonar_tpu_torch.samplers import sample_sonar_dpmpp_sde, sample_sonar_euler_ancestral
     from sonar_tpu_torch.samplers.momentum import SonarConfig
     from sonar_tpu_torch.samplers.sonar import _dpmpp_sde_schedule
+    from sonar_tpu_torch.api import SonarPipeline
+    from sonar_tpu_torch.cfg import DiscreteSampling, WaveletCFG, WCFGRules, basic_cfg
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = card_line()
@@ -1651,6 +1680,251 @@ def main():
           f"{device_us.launched:.0f} device kernels, {t_host * 1000:.1f} us/call by events, "
           f"device time {fmt_us(t_tot)} (rfft2 + irfft2 {t_fft:.2f} us) [{card}]")
 
+    # -- phase 17: wavelet CFG on the card ----------------------------------------
+    print(f"[17] {time.perf_counter() - t_run:.0f} s into the run")
+    def config3_rules(**window):
+        """bench.py:472-477: db4, level 3, periodization, float32, the diff
+        scales scheduled from 8 / [7, (6, 6, 7), fill] to 6 by half-cosine."""
+        return WCFGRules.build(
+            wave="db4", level=3, padding_mode="periodization", high_precision_mode=False,
+            diff=dict(yl_scale=8.0, yh_scales=[7.0, [6.0, 6.0, 7.0], "fill"],
+                      scales_end=dict(yl_scale=6.0, yh_scales=6.0),
+                      schedule="half_cosine", schedule_mode="sampling"), **window)
+
+    def eps_pair(unet):
+        """bench.py:413-422: the cond denoiser and the uncond one, which feeds
+        the UNet x·c_in·0.97; the sigma batch is float32."""
+        def make(scale):
+            @torch.no_grad()
+            def den(xi, sb, **_kw):
+                s4 = sb.reshape(-1, 1, 1, 1)
+                xin = xi * (1.0 / torch.sqrt(1.0 + s4**2))
+                return xi - s4 * unet(xin * scale if scale != 1.0 else xin, sb)
+            return den
+        return make(1.0), make(0.97)
+
+    ms3 = DiscreteSampling()
+    sdxl_sig = bench_sigmas(torch, SDXL_STEPS)
+    sdxl_np = sdxl_sig.numpy()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wgen = torch.Generator().manual_seed(17)
+    wx, wc, wu = (torch.randn(SDXL_SHAPE, generator=wgen) * k for k in (14.6, 1.0, 1.1))
+
+    def wargs(where, s):
+        t = {k: v.to(where) for k, v in (("input", wx), ("cond_denoised", wc),
+                                          ("uncond_denoised", wu))}
+        return dict(t, sigma=torch.full((1,), s, dtype=torch.float32, device=where),
+                    sigma_host=s, cond=t["input"] - t["cond_denoised"],
+                    uncond=t["input"] - t["uncond_denoised"], cond_scale=7.0,
+                    model_sampling=ms3, sample_sigmas=sdxl_np)
+
+    windowed = config3_rules(start_sigma=10.0, end_sigma=1.0)
+    cases = [("config 3, first sigma", config3_rules(), 14.6, True),
+             ("config 3, last sigma", config3_rules(), 0.03, True),
+             ("config 3, window edge (end_sigma 0)", config3_rules(), 0.0, True),
+             ("window [1, 10], inside", windowed, 5.0, True),
+             ("window [1, 10], edge", windowed, 10.0, True),
+             ("window [1, 10], outside: the basic-CFG fallback", windowed, 14.6, False)]
+    wcfg_err = 0.0
+    for label, rules, s_, wavelet_path in cases:
+        wcfg = WaveletCFG(rules=rules)
+        a, b = wcfg(wargs(dev, s_)), wcfg(wargs("cpu", s_))
+        need(a.is_cuda and a.shape == SDXL_SHAPE and bool(torch.isfinite(a).all()),
+             f"WCFG {label}: malformed on the card")
+        err, rel = rel_err(a, b)
+        wcfg_err = max(wcfg_err, rel)
+        plain = bool(torch.equal(a, basic_cfg(wargs(dev, s_))))
+        print(f"[17] WCFG {label}, sigma {s_:g}: card vs CPU max abs diff {err:.3e}, max rel "
+              f"diff {rel:.3e} (tolerance {WCFG_TOL:g}, TF32 off); equals basic CFG: {plain}")
+        need(rel <= WCFG_TOL, f"WCFG {label}: card and CPU differ ({rel:.3e})")
+        need(plain != wavelet_path, f"WCFG {label}: took the wrong branch")
+
+    # one guided call of the config-3 pipeline (UNet pair + WCFG) reads nothing back
+    pair = eps_pair(model)
+
+    def config3_pipe(p, **kw):
+        return SonarPipeline(model=p[0], model_uncond=p[1], model_sampling=ms3,
+                             sampler="sonar_dpmpp_sde", sonar_config=SonarConfig(momentum=0.95),
+                             cfg_scale=7.0, wavelet_cfg=WaveletCFG(rules=config3_rules()),
+                             seed=7, **kw)
+
+    guided = config3_pipe(pair)._denoiser(sdxl_np)
+    gx, g_in = wx.to(dev), torch.full((1,), 5.0, device=dev)
+    guided(gx, g_in, sigma_host=5.0)  # the first call puts the DWT's constants on the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gout = guided(gx, g_in, sigma_host=5.0)
+    except RuntimeError as e:
+        fail(f"a guided call synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    need(bool(torch.isfinite(gout).all()), "guided call: not finite")
+    print("[17] one guided call (flagship UNet pair + config-3 WCFG at 1x4x128x128, sigma 5) "
+          "under torch.cuda.set_sync_debug_mode('error'): no synchronisation")
+    torch.backends.cudnn.allow_tf32 = True
+    wdev = wargs(dev, 5.0)
+    wfn = lambda: WaveletCFG(rules=config3_rules())(wdev)  # noqa: E731
+    w_host = cuda_ms(torch, wfn, 50)
+    w_tot, _ = device_us(torch, wfn, 20)
+    need(w_tot is not None, "WCFG call: device time not measured")
+    wcfg_kernels = device_us.launched
+    print(f"[17] one config-3 WCFG call at {SDXL_SHAPE}: {wcfg_kernels:.0f} device kernels, "
+          f"device_us {w_tot:.2f}, {w_host * 1000:.1f} us by events (host cost included) "
+          f"[{card}]")
+
+    # -- phase 18: config 3 through SonarPipeline, flagship UNet ----------------------
+    print(f"[18] {time.perf_counter() - t_run:.0f} s into the run")
+    n_guided = []
+
+    def counting(p):
+        return tuple((lambda xi, sb, _f=f, **kw: (n_guided.append(1), _f(xi, sb, **kw))[1])
+                     for f in p)
+
+    reset_counts()
+    p3 = config3_pipe(counting(pair), noise=noise_3a())(x0, sigmas)
+    p3_launches = read_counts()
+    need(p3.is_cuda and p3.shape == SHAPE and p3.dtype == torch.float32
+         and bool(torch.isfinite(p3).all()), "config-3 pipeline: output malformed or not finite")
+    p3std = float(p3.std())
+    need(0.01 < p3std < 100.0, f"config-3 pipeline: output std {p3std} implausible")
+    print(f"[18] config 3 through SonarPipeline: UNetConfig() {SHAPE}, {n_sde - 1} steps and "
+          f"the tail, {len(n_guided) // 2} guided calls ({len(n_guided)} UNet forwards), seed 7: "
+          f"output std {p3std:.4f}; launches {p3_launches} (config 3a, no CFG: {sde_launches})")
+    need(len(n_guided) == 2 * (2 * (n_sde - 1) + 1), f"config 3: {len(n_guided)} UNet forwards")
+    need(p3_launches == sde_launches,
+         "config 3: B2/B3 launches differ from config 3a's, or WCFG launched B1-B6")
+    need(torch.equal(p3, config3_pipe(pair, noise=noise_3a())(x0, sigmas)),
+         "config-3 pipeline not reproducible")
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_pair = eps_pair(copy.deepcopy(model).cpu())
+    c3_sig = bench_sigmas(torch, CONFIG3_STEPS)
+    ngen = torch.Generator().manual_seed(18)
+    c3_draws = [torch.randn(SHAPE, generator=ngen) for _ in range(2 * CONFIG3_STEPS)]
+    on_card = config3_pipe(pair)(x0, c3_sig, noise_sampler=lambda i, s, sn: c3_draws[i].to(dev))
+    on_cpu = config3_pipe(cpu_pair)(x0.cpu(), c3_sig, noise_sampler=lambda i, s, sn: c3_draws[i])
+    err, rel = rel_err(on_card, on_cpu)
+    print(f"[18] config-3 pipeline, {CONFIG3_STEPS - 1} steps and the tail on one injected "
+          f"noise stream, card vs CPU, TF32 off: max abs diff {err:.3e}, max rel diff "
+          f"{rel:.3e} (tolerance {TRAJ_TOL:g})")
+    need(on_card.is_cuda and on_cpu.device.type == "cpu" and rel <= TRAJ_TOL,
+         f"config-3 pipeline: card and CPU differ ({rel:.3e})")
+    torch.backends.cudnn.allow_tf32 = True
+
+    hp = config3_pipe(pair, noise=noise_3a())(x0.bfloat16(), short)
+    fp = config3_pipe(pair, noise=noise_3a())(x0.bfloat16().float(), short)
+    need(hp.dtype == torch.bfloat16 and bool(torch.isfinite(hp).all()),
+         "config-3 pipeline, bfloat16 latent: malformed or not finite")
+    err, rel = rel_err(hp.float(), fp)
+    print(f"[18] config-3 pipeline, bfloat16 latent, {SHORT_STEPS - 1} steps and the tail: "
+          f"against the float32 run from the same rounded start max abs diff {err:.3e}, max "
+          f"rel diff {rel:.3e} (tolerance {BF16_TRAJ_TOL:g})")
+    need(rel <= BF16_TRAJ_TOL, f"config-3 pipeline: bfloat16 and float32 runs differ {rel:.3e}")
+
+    # -- phase 19: config 3 at its own size: SDXL-class UNet, 1x4x128x128, 30 steps ----
+    print(f"[19] {time.perf_counter() - t_run:.0f} s into the run")
+    sdxl_cfg = UNetConfig(model_channels=320, channel_mult=(1, 2, 4, 4), num_res_blocks=2,
+                          attention_levels=(2, 3), num_heads=8, norm_groups=32)
+    t0 = time.perf_counter()
+    big = init_unet_params(torch.Generator().manual_seed(0), sdxl_cfg, device=dev)
+    n_par = sum(p_.numel() for p_ in big.parameters())
+    print(f"[19] SDXL-class UNet (bench.py:552-558): {n_par / 1e6:.1f} M parameters, float32, "
+          f"random weights from seed 0, made in {time.perf_counter() - t0:.1f} s")
+    sx0 = (torch.randn(SDXL_SHAPE, generator=torch.Generator().manual_seed(2)) * 14.6).to(dev)
+    bpair = eps_pair(big)
+    n_fwd = []
+
+    def sdxl_pipes(p):
+        euler = SonarPipeline(model=p[0], model_uncond=p[1], sampler="sonar_euler",
+                              sonar_config=SonarConfig(momentum=1.0), cfg_scale=7.0,
+                              model_sampling=ms3, seed=7)
+        return {"euler": lambda: euler(sx0, sdxl_sig),
+                "config3": lambda: config3_pipe(p, noise=noise_3a())(sx0, sdxl_sig)}
+
+    counted_runs = sdxl_pipes(counting(bpair))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_guided.clear()
+    reset_counts()
+    out3 = counted_runs["config3"]()
+    l19 = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    fwd3 = len(n_guided)
+    n_guided.clear()
+    outE = counted_runs["euler"]()
+    torch.cuda.synchronize()
+    fwdE = len(n_guided)
+    for nm, o in (("config 3", out3), ("euler", outE)):
+        need(o.shape == SDXL_SHAPE and o.is_cuda and bool(torch.isfinite(o).all()),
+             f"SDXL {nm}: output malformed or not finite")
+    sd_sched = _dpmpp_sde_schedule(sdxl_sig.tolist(), 1.0, 1.0, 0.5)
+    n_in19 = sum(f32(0.3) <= st_ <= f32(14.7) for st_ in sd_sched["s_t"])
+    want19 = {"B1": 0, "B2": 2 * SDXL_STEPS,
+              "B3": 51 * n_in19 + 17 + 2 * (SDXL_STEPS - n_in19), "B4": 0, "B5": 0, "B6": 0}
+    print(f"[19] config 3 at {SDXL_SHAPE}, {SDXL_STEPS - 1} two-stage steps and the tail: "
+          f"{fwd3 // 2} guided calls, {fwd3} UNet forwards; output std {float(out3.std()):.4f}; "
+          f"launches {l19}; peak device memory {peak / 2**30:.2f} GiB; euler + basic CFG: "
+          f"{fwdE // 2} guided calls, output std {float(outE.std()):.4f} [{card}]")
+    need(fwd3 == 2 * (2 * (SDXL_STEPS - 1) + 1) and fwdE == 2 * SDXL_STEPS,
+         f"SDXL: {fwd3} and {fwdE} UNet forwards")
+    need(l19 == want19, f"SDXL config 3: expected launches {want19}")
+
+    runs19 = sdxl_pipes(bpair)
+    ms19 = {"euler": [], "config3": []}
+    for which in ("euler", "config3", "config3", "euler") * 2:
+        ms19[which].append(cuda_ms(torch, runs19[which], 1))
+    per_call = {k: sorted(t / (SDXL_STEPS * (2 if k == "config3" else 1)) for t in v)
+                for k, v in ms19.items()}
+
+    def med(v):
+        return (v[len(v) // 2] + v[(len(v) - 1) // 2]) / 2
+
+    for k, v in per_call.items():
+        print(f"[19] {k}: {med(v):.3f} ms per model call median (min {v[0]:.3f}, max "
+              f"{v[-1]:.3f}; {len(v)} runs interleaved, run ms {[round(t, 1) for t in ms19[k]]}; "
+              f"cudnn TF32 on, matmul TF32 off) [{card}]")
+    overhead = 100.0 * (med(per_call["config3"]) / med(per_call["euler"]) - 1.0)
+    print(f"[19] config3_overhead_pct {overhead:.2f} (config 3 over euler + basic CFG per "
+          f"model call, medians) [{card}]")
+    # one run under the profiler, after 5 ms of small launches (the profiler
+    # misses what is launched in its first moments; device_us would run the
+    # 3.7 s run three times)
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        until = time.perf_counter() + 0.005
+        while time.perf_counter() < until:
+            torch.zeros(1, device=dev).add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(0.004)
+        with record_function("config3_run"):
+            runs19["config3"]()
+            torch.cuda.synchronize()
+    # the range shows twice, on the host's timeline and on the device's
+    mark = [e.time_range.start for e in prof.events() if e.name == "config3_run"]
+    need(bool(mark), "SDXL config 3: the profiled run left no mark")
+    k19 = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name != "config3_run" and e.time_range.start >= min(mark) - 2000.0]
+    by19 = {}
+    for e in k19:
+        by19[e.name] = by19.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    tot19 = sum(by19.values())
+    need(tot19 > 0, "SDXL config 3: device time not measured")
+    wall19 = med(sorted(ms19["config3"])) * 1000
+    top = sorted(by19.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[19] config-3 run under the profiler: {len(k19)} device kernels, "
+          f"{tot19:.1f} us of device time in {wall19:.1f} us wall (median run; busy "
+          f"{100 * tot19 / wall19:.1f} %); B3 "
+          f"{sum(v for n_, v in by19.items() if 'philox_fill' in n_):.1f} us, B2 "
+          f"{sum(v for n_, v in by19.items() if 'scale_noise_' in n_):.1f} us [{card}]")
+    for n_, v in top:
+        print(f"[19]   {100 * v / tot19:5.1f} %  {v:10.1f} us  {n_[:110]}")
+    del big, bpair, runs19, counted_runs, out3, outE
+    print(f"[19] phases 1-19 took {time.perf_counter() - t_run:.0f} s (the kernels' build "
+          f"{build_s:.0f} s of it)")
+
     src = "sonar_tpu_torch/csrc/"
     n_el = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
     rows = [
@@ -1682,7 +1956,8 @@ def main():
          "bound_by": bd["by"],
          "library_ms": library_us[k] / 1000 if k in library_us else None,
          "call_ms": timing[k][0], "plain_call_ms": timing[k][1],
-         "launches_dpmpp_sde": sde_launches[k]}
+         "launches_dpmpp_sde": sde_launches[k], "launches_config3": p3_launches[k],
+         "launches_config3_sdxl": l19[k]}
         for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,10 @@ BLENDING_MODES: dict[str, Callable] = {
 }
 
 
+def register_blend_mode(name: str, fn: Callable) -> None:
+    BLENDING_MODES[name] = fn
+
+
 def blend(name: str) -> Callable:
     """Look up a blend function by name with a helpful error."""
     try:
@@ -62,3 +66,16 @@ def blend(name: str) -> Callable:
     except KeyError:
         valid = ", ".join(sorted(BLENDING_MODES))
         raise ValueError(f"Unknown blend mode {name!r}; valid: {valid}") from None
+
+
+def blend_scalar(a: float, b: float, t: float, *, blend_function=None,
+                 clamp_function=None) -> float:
+    """Scalar blend used by schedule interpolation (py/utils.py:33-56); a
+    blend function runs on float32 CPU scalars, as the JAX package runs it
+    on float32 arrays."""
+    if blend_function is None:
+        val = a * (1.0 - t) + b * t
+    else:
+        val = float(blend_function(*(torch.tensor(v, dtype=torch.float32)
+                                     for v in (a, b, t))))
+    return clamp_function(val) if clamp_function is not None else val

@@ -292,25 +292,41 @@ def unet_apply(model: UNet, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tenso
     return model(x, sigma)
 
 
-def make_denoiser(model: UNet, *, prediction="eps") -> Callable:
+def make_denoiser(model: UNet, *, prediction="eps", params_kwarg: str = "params",
+                  timestep_fn: Callable | None = None) -> Callable:
     """Wrap the UNet into the sampler's denoiser protocol
     ``model(x, sigma_batch) -> denoised``.
 
     ``prediction`` names what the raw network output means (see
     :mod:`sonar_tpu_torch.models.prediction`): ``"eps"`` (default),
-    ``"v"``, ``"x0"``, or ``"const"``/``"flow"``. The network is conditioned
-    on the float32 sigma batch; the latent arithmetic runs in ``x.dtype``.
-    Runs without autograd."""
+    ``"v"``, ``"x0"``, or ``"const"``/``"flow"``. The latent arithmetic runs
+    in ``x.dtype`` on the float32 sigma batch.
+
+    ``timestep_fn`` maps the float32 sigma batch to what the network is
+    conditioned on (default: sigma itself; flow models are conditioned on
+    ``sigma * 1000``, ``cfg.Flow().timestep``). The preconditioning always
+    uses the true sigma.
+
+    ``params_kwarg`` names the call-time weight override: a call with
+    ``params_kwarg=`` a dict of tensors keyed as :func:`unet_params_from_jax`
+    keys them (the module's ``state_dict`` names; a subset overrides only
+    those) runs the module on those weights through
+    ``torch.func.functional_call``. The samplers' ``extra_args`` reach every
+    denoiser of a CFG pair, so two denoisers with different weights need
+    distinct names. Runs without autograd."""
     from .prediction import get_prediction
 
     pred = get_prediction(prediction)
 
     @torch.no_grad()
-    def denoiser(x, sigma, **_kw):
+    def denoiser(x, sigma, **kw):
         sb32 = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
         sb32 = sb32.reshape(-1).expand(x.shape[0])
         s4 = sb32.to(x.dtype).reshape(-1, 1, 1, 1)
-        out = model(pred.calculate_input(s4, x), sb32)
+        cond = sb32 if timestep_fn is None else timestep_fn(sb32)
+        xin = pred.calculate_input(s4, x)
+        p = kw.get(params_kwarg)
+        out = model(xin, cond) if p is None else torch.func.functional_call(model, p, (xin, cond))
         return pred.calculate_denoised(s4, out, x)
 
     return denoiser

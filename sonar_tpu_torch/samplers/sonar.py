@@ -8,6 +8,8 @@ step waits for the card. The carry is ``(x, momentum_state, noise_state)``.
 
 Model protocol: ``model(x, sigma_batch, **extra_args) -> denoised`` where
 ``sigma_batch`` has shape (B,) — the reference's ``model(x, sigma * s_in)``.
+A model with the attribute ``takes_sigma_host = True`` also gets
+``sigma_host=`` the step's sigma as a host float.
 
 Noise injection: pass ``noise_item`` (a NoiseItem spec) or ``noise_sampler``
 as a plain callable ``fn(step, sigma, sigma_next) -> noise`` (e.g. a
@@ -69,11 +71,18 @@ def _setup(model, x, sigmas, *, cfg: SonarConfig, default_noise_type: str,
     sigma_min = float(pos.min()) if pos.numel() else float("inf")
     sigma_max = float(s.max())
 
+    # a model that takes the step's sigma as a host number beside the batch
+    # (SonarPipeline's guided denoiser) gets it, so CFG-time host decisions
+    # read nothing back from the card
+    host_kw = getattr(model, "takes_sigma_host", False)
+
     def model_fn(xi, sigma, **kw):
         # float32 whatever the latent's type: JAX multiplies a float32 sigma
         # by ones of xi.dtype, which promotes, and the UNet is conditioned on
         # the unrounded sigma (bf16 would move 14.6 to 14.625)
         s_in = torch.full((xi.shape[0],), sigma, dtype=torch.float32, device=xi.device)
+        if host_kw:
+            kw = {**kw, "sigma_host": sigma}
         return model(xi, s_in, **extra_args, **kw)
 
     # Noise precedence: custom_noise > explicit sampler > typed default

@@ -37,8 +37,14 @@ correctly rounded, so the roots of the k smallest squares are the k
 smallest roots); minkowski within 1e-6 relative to max(1, |plain|) (both
 take powf on the card; torch special-cases p = 2 and 3, and the kernel
 follows it).
+
+Wavelet CFG and the DWT (torch ops, no kernel of their own) on the card
+against the same calls on the CPU: 1e-5 relative to max(1, |cpu|), and a
+guided call of the config-3 pipeline under
+``torch.cuda.set_sync_debug_mode("error")``.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -643,3 +649,91 @@ def test_voronoi_kernel_refuses_what_it_cannot_take(cuda):
             V.voronoi_ksmallest(fp, ys, ys, 0.0, scale=1.0, **bad)
     with pytest.raises(ValueError, match="on cpu"):
         V.voronoi_ksmallest(fp, ys.cpu(), ys, 0.0, scale=1.0, k=2)
+
+
+# ---------------------------------------------------------------------------
+# wavelet CFG on the card (no kernel of its own: torch ops). Tolerance 1e-5
+# relative to max(1, |cpu|): float32 products and sums in another order; TF32
+# off for the UNet's convolutions in the guided call.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["periodization", "symmetric", "reflect", "zero"])
+@pytest.mark.parametrize("wave", ["db4", "haar", "bior2.2"])
+def test_dwt_on_the_card_matches_the_cpu(cuda, mode, wave):
+    from sonar_tpu_torch.wavelets import dwt1d, dwt2d, idwt1d, idwt2d
+
+    for shape in ((1, 4, 128, 128), (2, 3, 13, 9)):
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+        cl, ch = dwt2d(x, wave, 3, mode)
+        gl, gh = dwt2d(x.to(cuda), wave, 3, mode)
+        assert gl.is_cuda and _rel_err(gl.cpu(), cl) <= 1e-5
+        assert all(_rel_err(g.cpu(), c) <= 1e-5 for g, c in zip(gh, ch))
+        back = idwt2d(gl, gh, wave, mode, out_hw=shape[-2:])
+        assert _rel_err(back.cpu(), idwt2d(cl, ch, wave, mode, out_hw=shape[-2:])) <= 1e-5
+        assert _rel_err(back.cpu(), x) <= 1e-5
+        flat = x.reshape(shape[0], shape[1], -1)
+        g1 = dwt1d(flat.to(cuda), wave, 3, mode)
+        c1 = dwt1d(flat, wave, 3, mode)
+        assert _rel_err(g1[0].cpu(), c1[0]) <= 1e-5
+        r1 = idwt1d(*g1, wave, mode, out_len=flat.shape[-1])
+        assert _rel_err(r1.cpu(), idwt1d(*c1, wave, mode, out_len=flat.shape[-1])) <= 1e-5
+
+
+def _config3_wcfg(**window):
+    from sonar_tpu_torch.cfg import WaveletCFG, WCFGRules
+
+    return WaveletCFG(rules=WCFGRules.build(
+        wave="db4", level=3, padding_mode="periodization", high_precision_mode=False,
+        diff=dict(yl_scale=8.0, yh_scales=[7.0, [6.0, 6.0, 7.0], "fill"],
+                  scales_end=dict(yl_scale=6.0, yh_scales=6.0),
+                  schedule="half_cosine", schedule_mode="sampling"), **window))
+
+
+def _wcfg_args(device, sigma, shape=(1, 4, 128, 128)):
+    from sonar_tpu_torch.cfg import DiscreteSampling
+
+    g = torch.Generator().manual_seed(5)
+    x, c, u = (torch.randn(shape, generator=g) * k for k in (14.6, 1.0, 1.1))
+    x, c, u = x.to(device), c.to(device), u.to(device)
+    sig = np.asarray([14.6, 9.0, 5.0, 2.0, 0.5, 0.03, 0.0], np.float32)
+    return dict(input=x, sigma=torch.full((1,), sigma, device=device), sigma_host=sigma,
+                cond=x - c, uncond=x - u, cond_denoised=c, uncond_denoised=u, cond_scale=7.0,
+                model_sampling=DiscreteSampling(), sample_sigmas=sig)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,sigma", [({}, 14.6), ({}, 0.0), ({}, 2.0),
+                                          ({"start_sigma": 9.0, "end_sigma": 1.0}, 9.0),
+                                          ({"start_sigma": 9.0, "end_sigma": 1.0}, 14.6)])
+def test_wavelet_cfg_on_the_card_matches_the_cpu(cuda, window, sigma):
+    wcfg = _config3_wcfg(**window)
+    got = wcfg(_wcfg_args(cuda, sigma))
+    assert got.is_cuda
+    assert _rel_err(got.cpu(), wcfg(_wcfg_args("cpu", sigma))) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_a_guided_call_does_not_synchronise(cuda):
+    """A guided call of the config-3 pipeline (UNet pair and wavelet CFG)
+    makes no host-device synchronisation: the rule and its percentages are
+    chosen on the host sigma the sampler passes beside the batch."""
+    from sonar_tpu_torch.api import SonarPipeline
+    from sonar_tpu_torch.cfg import DiscreteSampling
+    from sonar_tpu_torch.models import UNetConfig, init_unet_params, make_denoiser
+
+    cfg = UNetConfig(model_channels=32, channel_mult=(1, 2), attention_levels=(1,))
+    den = make_denoiser(init_unet_params(torch.Generator().manual_seed(0), cfg, device=cuda))
+    pipe = SonarPipeline(model=den, model_uncond=lambda x, s, **kw: den(x * 0.97, s),
+                         wavelet_cfg=_config3_wcfg(), model_sampling=DiscreteSampling(),
+                         sampler="sonar_dpmpp_sde")
+    guided = pipe._denoiser(np.asarray([14.6, 5.0, 1.0, 0.0], np.float32))
+    x, s_in = torch.randn((1, 4, 64, 64), device=cuda), torch.full((1,), 5.0, device=cuda)
+    guided(x, s_in, sigma_host=5.0)  # puts the transform's constants on the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = guided(x, s_in, sigma_host=5.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.is_cuda and bool(torch.isfinite(out).all())

@@ -212,7 +212,9 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(sonar_tpu_torch.__path__, "
         "'sonar_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 45, names\n"
+        "assert {'sonar_tpu_torch.api.pipeline', 'sonar_tpu_torch.cfg.wavelet_cfg',\n"
+        "        'sonar_tpu_torch.wavelets.dwt'} <= set(names), names\n"
         "bad = [m for m in ('jax', 'jaxlib', 'triton', 'sonar_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
