@@ -109,7 +109,26 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    ``sonar_euler`` (momentum 1.0) with basic CFG at scale 7: ms per model
    call (steps × stages, as bench.py reckons it) over interleaved runs,
    the overhead of config 3 per model call, the device-busy share of one
-   profiled run, the peak device memory and the launches of B2 and B3.
+   profiled run, the peak device memory and the launches of B2 and B3;
+20. holds FreeU-Extreme's three spectral operators (dense K, FFT, the
+   rank-decomposed pair) equal to each other on the card and the card's FFT
+   to the CPU's, on the stage-1 slice of the SDXL-class UNet (960 channels
+   at 16×16, 32×32 and 64×64) with the global TF32 switches on and off,
+   times each (device time and time by events), counts the activations a
+   config-4 cond forward filters, and runs one patched forward of the
+   SDXL-class UNet under ``torch.cuda.set_sync_debug_mode("error")``;
+21. runs BASELINE configs 4 (``sonar_euler``, momentum 0.95, per-band and
+   per-orientation wavelet CFG, FreeU on the cond UNet) and 2
+   (``sonar_euler_ancestral``, momentum 0.95, a NoiseChain of ``perlin``
+   and ``onef_pinkish``, CFG 7) on phase 19's SDXL-class UNet at
+   1×4×128×128, 30 steps: launches, reproducibility, ms per model call over
+   runs interleaved with ``sonar_euler`` + basic CFG, each config's
+   overhead per model call, the busy share of one profiled run and the peak
+   memory; then both on the flagship UNet at 1×4×64×64 on the card against
+   the CPU on one injected noise stream, TF32 off;
+22. runs config 5's video noise (16-frame time-brownian power noise, frames
+   folded into channels, 1×4×16×128×128): launches, normalization, Mpix/s
+   over 20 draws, and one seed on the CPU and the card.
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
@@ -174,6 +193,18 @@ SDXL_SHAPE = (1, 4, 128, 128)  # bench.py:397-398
 SDXL_STEPS = 30
 CONFIG3_STEPS = 4  # the card-vs-CPU config-3 pipeline comparison
 WCFG_TOL = 1e-5  # relative to max(1, |cpu|): float32 products and sums in another order
+# FreeU's spectral operators on the stage-1 slice of the SDXL-class UNet (1,280
+# channels, slice 0.75) at its three sizes; each against the FFT, relative to
+# max(1, |fft|): dense K 3e-6 up to 32x32 (float32 sums of up to 1,024
+# products), 1e-5 at 64x64 (4,096: read 3.99e-6 on the card), the factor pair
+# 3e-5 (rank truncation at 1e-7); the card's FFT against the CPU's 1e-5 (cuFFT
+# and pocketfft round differently)
+FREEU_CH, FREEU_HW = 960, (16, 32, 64)
+FREEU_TOL = {"dense": 3e-6, "sep": 3e-5, "fft": 1e-5}
+FREEU_DENSE_TOL_64 = 1e-5
+CONFIG4_PATCHES = {16: 6, 32: 5, 64: 1}  # stage-1 activations filtered per cond forward
+VIDEO_SHAPE = (1, 4, 16, 128, 128)  # tools/bench_configs.py:105, 16 frames
+VIDEO_DRAWS = 20  # tools/bench_configs.py:108
 
 
 def fail(msg: str):
@@ -271,6 +302,37 @@ def device_us(torch, fn, iters: int):
     device_us.launched = len(kernels) / iters
     return (sum(by_name.values()) / iters,
             {k: v / iters for k, v in by_name.items()})
+
+
+def profile_run(torch, fn, what: str):
+    """One call of ``fn`` under the profiler, device activity only (a
+    seconds-long run is tens of thousands of kernels; the host's events
+    would be ten times as many to collect): (device kernels, device µs by
+    kernel name). Small launches fill its first 5 ms (the profiler misses
+    what is launched in its first moments), then the device idles 4 ms; the
+    run's kernels are those after the first gap of 3 ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        until = time.perf_counter() + 0.005
+        while time.perf_counter() < until:
+            torch.zeros(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(0.004)
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    gaps = [i for i in range(1, len(kernels))
+            if kernels[i].time_range.start - kernels[i - 1].time_range.end >= 3000.0]
+    need(bool(gaps), f"{what}: the profile shows no idle gap before the run")
+    kernels = kernels[gaps[0]:]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    need(sum(by_name.values()) > 0, f"{what}: device time not measured")
+    return len(kernels), by_name
 
 
 def fmt_us(v):
@@ -382,13 +444,16 @@ def main():
     from sonar_tpu_torch.kernels import _build
     from sonar_tpu_torch.kernels import hwrng as H
     from sonar_tpu_torch.models import UNetConfig, init_unet_params, make_denoiser
-    from sonar_tpu_torch.noise import (NoiseChain, NoiseCtx, PowerNoiseItem, ScheduledNoise,
+    from sonar_tpu_torch.noise import (CustomNoiseParametersNoise, NoiseChain, NoiseCtx,
+                                       PowerFilter, PowerNoiseItem, ScheduledNoise,
                                        VoronoiGenerator, get_noise_item, make_noise_sampler)
     from sonar_tpu_torch.samplers import sample_sonar_dpmpp_sde, sample_sonar_euler_ancestral
     from sonar_tpu_torch.samplers.momentum import SonarConfig
     from sonar_tpu_torch.samplers.sonar import _dpmpp_sde_schedule
     from sonar_tpu_torch.api import SonarPipeline
-    from sonar_tpu_torch.cfg import DiscreteSampling, WaveletCFG, WCFGRules, basic_cfg
+    from sonar_tpu_torch.cfg import (DiscreteSampling, FreeUExtremeConfig, WaveletCFG, WCFGRules,
+                                     basic_cfg, ffilter, make_freeu_patches)
+    import sonar_tpu_torch.cfg.freeu as FU
 
     t_run = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -453,6 +518,7 @@ def main():
         return torch.randn(shape, generator=gen, device=dev)
 
     # -- phase 2: B1 against its plain version --------------------------------
+    print(f"[2] {time.perf_counter() - t_run:.0f} s into the run")
     b1_err = 0.0
     gates = [(h, i, w, 0.5) for h in (0.0, 1.0) for i in (0.0, 1.0) for w in (0.0, 1.0)]
     gates.append((1.0, 1.0, 1.0, 0.0))
@@ -488,6 +554,7 @@ def main():
           f"(tolerance {B1_TOL:g} x max(1,|plain|))")
 
     # -- phase 3: B2 against its plain version --------------------------------
+    print(f"[3] {time.perf_counter() - t_run:.0f} s into the run")
     b2_err = 0.0
 
     # one element under, at and over each size where B2's launch changes
@@ -600,6 +667,7 @@ def main():
     del vbase, views, v64
 
     # -- phase 4: the main path ------------------------------------------------
+    print(f"[4] {time.perf_counter() - t_run:.0f} s into the run")
     cfg = UNetConfig()
     model = init_unet_params(torch.Generator().manual_seed(0), cfg, device=dev)
     denoiser = make_denoiser(model)
@@ -649,6 +717,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # -- phase 5: timing ---------------------------------------------------------
+    print(f"[5] {time.perf_counter() - t_run:.0f} s into the run")
     print(f"[5] timing on {card} with torch defaults (cudnn TF32 on, matmul TF32 off)")
     runs = {"kernel": lambda: headline(), "plain": lambda: headline(use_fused=False)}
     for fn in runs.values():
@@ -715,6 +784,7 @@ def main():
     del big, large
 
     # -- phase 6: B3 against its plain version --------------------------------
+    print(f"[6] {time.perf_counter() - t_run:.0f} s into the run")
     # Box-Muller's two factors over every argument: a normal is r(u1) * c(u2),
     # so 2 * 2**24 values bound the error of all 2**48 products
     lib = _build.load_library()
@@ -792,6 +862,7 @@ def main():
     del z, firsts, u, ur, zr, again, zl, ul
 
     # -- phase 7: B4 against its plain version --------------------------------
+    print(f"[7] {time.perf_counter() - t_run:.0f} s into the run")
     b4_err = 0.0
     for hw in PYR_HW:
         sizes = G._size_ladder_pyramid(*hw, 10, 0)
@@ -838,6 +909,7 @@ def main():
           f"{PYR_TOL:g} x max(1,|plain|), matmul TF32 off)")
 
     # -- phase 8: B5 against its plain version --------------------------------
+    print(f"[8] {time.perf_counter() - t_run:.0f} s into the run")
     # both kernels forced and the wrapper's pick, at the generators' shapes
     # and on both sides of the size where the pick changes
     cap = P.DOWN_SPREAD_ELEMS
@@ -898,6 +970,7 @@ def main():
           f"{b5_err:.3e} (tolerance {PYR_TOL:g} x max(1,|plain|))")
 
     # -- phase 9: the pyramid path --------------------------------------------
+    print(f"[9] {time.perf_counter() - t_run:.0f} s into the run")
     pyr_cfg = SonarConfig(noise_type="pyramid")
     ladder = G._size_ladder_pyramid(SHAPE[2], SHAPE[3], 10, 0)
     reset_counts()
@@ -996,6 +1069,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = True
 
     # -- phase 10: timing -------------------------------------------------------
+    print(f"[10] {time.perf_counter() - t_run:.0f} s into the run")
     print(f"[10] timing on {card} (cudnn TF32 on, matmul TF32 off)")
     runs = {"gaussian": lambda: headline(), "pyramid": lambda: headline(sonar_config=pyr_cfg)}
     ms = {"gaussian": [], "pyramid": []}
@@ -1165,6 +1239,7 @@ def main():
           f"{fmt_us(library_us['B4'])} (B4) [{card}]")
 
     # -- phase 11: B6 against its plain version -------------------------------
+    print(f"[11] {time.perf_counter() - t_run:.0f} s into the run")
     b6_err, b6_cases = 0.0, 0
     dists = [("euclidean", 3.0), ("quadratic", 3.0), ("chebyshev", 3.0), ("minkowski", 2.5)]
 
@@ -1223,6 +1298,7 @@ def main():
           f"{b6_err:.3e}")
 
     # -- phase 12: the Voronoi path ---------------------------------------------
+    print(f"[12] {time.perf_counter() - t_run:.0f} s into the run")
     vor_cfg = SonarConfig(noise_type="voronoi_mix")
     reset_counts()
     vout = headline(sonar_config=vor_cfg)
@@ -1307,6 +1383,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = True
 
     # -- phase 13: bf16 and fp16 latents through B1 and B2 ---------------------
+    print(f"[13] {time.perf_counter() - t_run:.0f} s into the run")
     for dt in (torch.bfloat16, torch.float16):
         ulp, plain_tol = LOW_TOL[str(dt).split(".")[-1]]
         worst_up, worst_plain = 0.0, 0.0
@@ -1370,6 +1447,7 @@ def main():
     need(berr <= BF16_TRAJ_TOL * bscale, "bf16 kernel and plain trajectories differ")
 
     # -- phase 14: timing -------------------------------------------------------
+    print(f"[14] {time.perf_counter() - t_run:.0f} s into the run")
     print(f"[14] timing on {card} (cudnn TF32 on, matmul TF32 off)")
     runs = {"gaussian": lambda: headline(), "voronoi": lambda: headline(sonar_config=vor_cfg)}
     ms = {"gaussian": [], "voronoi": []}
@@ -1481,6 +1559,7 @@ def main():
           f"[{card}]")
 
     # -- phase 15: the config-3a path ---------------------------------------------
+    print(f"[15] {time.perf_counter() - t_run:.0f} s into the run")
     def noise_3a():
         """bench.py:468-471: scheduled time-brownian power noise, gaussian outside."""
         return ScheduledNoise(
@@ -1615,6 +1694,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = True
 
     # -- phase 16: timing ---------------------------------------------------------
+    print(f"[16] {time.perf_counter() - t_run:.0f} s into the run")
     print(f"[16] timing on {card} (cudnn TF32 on, matmul TF32 off)")
     runs = {"gaussian": lambda: headline(), "config3a": lambda: sde()}
     ms = {"gaussian": [], "config3a": []}
@@ -1691,17 +1771,18 @@ def main():
                       scales_end=dict(yl_scale=6.0, yh_scales=6.0),
                       schedule="half_cosine", schedule_mode="sampling"), **window)
 
-    def eps_pair(unet):
+    def eps_pair(unet, patches=None):
         """bench.py:413-422: the cond denoiser and the uncond one, which feeds
-        the UNet x·c_in·0.97; the sigma batch is float32."""
-        def make(scale):
+        the UNet x·c_in·0.97; the sigma batch is float32. ``patches`` go on
+        the cond UNet only (config 4's FreeU, tools/bench_configs.py:72-81)."""
+        def make(scale, bp):
             @torch.no_grad()
             def den(xi, sb, **_kw):
                 s4 = sb.reshape(-1, 1, 1, 1)
                 xin = xi * (1.0 / torch.sqrt(1.0 + s4**2))
-                return xi - s4 * unet(xin * scale if scale != 1.0 else xin, sb)
+                return xi - s4 * unet(xin * scale if scale != 1.0 else xin, sb, block_patches=bp)
             return den
-        return make(1.0), make(0.97)
+        return make(1.0, patches), make(0.97, None)
 
     ms3 = DiscreteSampling()
     sdxl_sig = bench_sigmas(torch, SDXL_STEPS)
@@ -1799,7 +1880,8 @@ def main():
          "config-3 pipeline not reproducible")
 
     torch.backends.cudnn.allow_tf32 = False
-    cpu_pair = eps_pair(copy.deepcopy(model).cpu())
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_pair = eps_pair(cpu_model)
     c3_sig = bench_sigmas(torch, CONFIG3_STEPS)
     ngen = torch.Generator().manual_seed(18)
     c3_draws = [torch.randn(SHAPE, generator=ngen) for _ in range(2 * CONFIG3_STEPS)]
@@ -1888,41 +1970,259 @@ def main():
     overhead = 100.0 * (med(per_call["config3"]) / med(per_call["euler"]) - 1.0)
     print(f"[19] config3_overhead_pct {overhead:.2f} (config 3 over euler + basic CFG per "
           f"model call, medians) [{card}]")
-    # one run under the profiler, after 5 ms of small launches (the profiler
-    # misses what is launched in its first moments; device_us would run the
-    # 3.7 s run three times)
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        until = time.perf_counter() + 0.005
-        while time.perf_counter() < until:
-            torch.zeros(1, device=dev).add_(1.0)
-        torch.cuda.synchronize()
-        time.sleep(0.004)
-        with record_function("config3_run"):
-            runs19["config3"]()
-            torch.cuda.synchronize()
-    # the range shows twice, on the host's timeline and on the device's
-    mark = [e.time_range.start for e in prof.events() if e.name == "config3_run"]
-    need(bool(mark), "SDXL config 3: the profiled run left no mark")
-    k19 = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.name != "config3_run" and e.time_range.start >= min(mark) - 2000.0]
-    by19 = {}
-    for e in k19:
-        by19[e.name] = by19.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    n19, by19 = profile_run(torch, runs19["config3"], "SDXL config 3")
     tot19 = sum(by19.values())
-    need(tot19 > 0, "SDXL config 3: device time not measured")
     wall19 = med(sorted(ms19["config3"])) * 1000
     top = sorted(by19.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[19] config-3 run under the profiler: {len(k19)} device kernels, "
+    print(f"[19] config-3 run under the profiler: {n19} device kernels, "
           f"{tot19:.1f} us of device time in {wall19:.1f} us wall (median run; busy "
           f"{100 * tot19 / wall19:.1f} %); B3 "
           f"{sum(v for n_, v in by19.items() if 'philox_fill' in n_):.1f} us, B2 "
           f"{sum(v for n_, v in by19.items() if 'scale_noise_' in n_):.1f} us [{card}]")
     for n_, v in top:
         print(f"[19]   {100 * v / tot19:5.1f} %  {v:10.1f} us  {n_[:110]}")
-    del big, bpair, runs19, counted_runs, out3, outE
-    print(f"[19] phases 1-19 took {time.perf_counter() - t_run:.0f} s (the kernels' build "
+    # -- phase 20: FreeU-Extreme's spectral operators on the card --------------------
+    print(f"[20] {time.perf_counter() - t_run:.0f} s into the run")
+    frux_filter = PowerFilter(alpha=0.4)  # tools/bench_configs.py:65-67, filter_norm 0
+    freeu_err = {op: 0.0 for op in FREEU_TOL}
+    freeu_times = {}
+    for hw in FREEU_HW:
+        fx = torch.randn((1, FREEU_CH, hw, hw), generator=torch.Generator().manual_seed(hw))
+        fx_cpu, fx = fx, fx.to(dev)
+        on_cpu = ffilter(fx_cpu, frux_filter, 0.0, operator="fft")
+        for tf32 in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            outs = {op: ffilter(fx, frux_filter, 0.0, operator=op) for op in FREEU_TOL}
+            torch.cuda.synchronize()
+            need(all(o.is_cuda and o.shape == fx.shape and bool(torch.isfinite(o).all())
+                     for o in outs.values()), f"FreeU {hw}x{hw}: an operator's output malformed")
+            errs = {"fft": rel_err(outs["fft"], on_cpu)[1],
+                    "dense": rel_err(outs["dense"], outs["fft"])[1],
+                    "sep": rel_err(outs["sep"], outs["fft"])[1]}
+            tols = dict(FREEU_TOL, dense=FREEU_TOL["dense"] if hw <= 32 else FREEU_DENSE_TOL_64)
+            for op, e in errs.items():
+                freeu_err[op] = max(freeu_err[op], e)
+                need(e <= tols[op], f"FreeU {op} at {FREEU_CH}x{hw}x{hw}, TF32 "
+                                    f"{'on' if tf32 else 'off'}: rel err {e:.3e}")
+            print(f"[20] ffilter at 1x{FREEU_CH}x{hw}x{hw}, global TF32 {'on' if tf32 else 'off'}: "
+                  f"dense vs fft {errs['dense']:.3e}, sep vs fft {errs['sep']:.3e}, card fft vs "
+                  f"CPU fft {errs['fft']:.3e} (tolerances {tols})")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        row = {}
+        for op in ("dense", "dense_fast", "sep", "fft"):
+            fn = lambda op=op: ffilter(fx, frux_filter, 0.0, operator=op)  # noqa: E731
+            ev = cuda_ms(torch, fn, 20) * 1000
+            tot, _ = device_us(torch, fn, 10)
+            need(tot is not None, f"FreeU {op} {hw}: device time not measured")
+            row[op] = (tot, ev, device_us.launched)
+        freeu_times[hw] = row
+        print(f"[20] ffilter at 1x{FREEU_CH}x{hw}x{hw} (JAX's default: "
+              f"{FU.default_operator(hw, hw)}; the port's: {FU.default_operator(hw, hw)}): "
+              + ", ".join(f"{op} {t:.2f} us device ({n:.0f} kernels), {e:.1f} us by events"
+                          for op, (t, e, n) in row.items()) + f" [{card}]")
+        del fx, fx_cpu, on_cpu, outs
+    def config4_patches(model_channels):
+        """tools/bench_configs.py:65-70: FreeU on stage 1 of the input and
+        output blocks, 3/4 of the channels, PowerFilter(alpha=0.4)."""
+        frux = FreeUExtremeConfig(target="backbone", stage_1=True, scale=1.12, slice=0.75,
+                                  sonar_power_filter=frux_filter)
+        return make_freeu_patches(model_sampling=ms3, model_channels=model_channels,
+                                  input_config=frux, output_config=frux)
+
+    # one stage-1 patch as config 4 runs it (hidden-mean scale, slice, filter,
+    # window select), at 32x32
+    p4 = config4_patches(sdxl_cfg.model_channels)
+    ph = torch.randn((1, 1280, 32, 32), device=dev)
+    pfn = lambda: p4["input"][0](ph, {"sigma": torch.full((1,), 5.0, device=dev)})  # noqa: E731
+    p_ev = cuda_ms(torch, pfn, 20) * 1000
+    p_tot, _ = device_us(torch, pfn, 10)
+    print(f"[20] one config-4 input patch at 1x1280x32x32: {device_us.launched:.0f} device "
+          f"kernels, {fmt_us(p_tot)} device, {p_ev:.1f} us by events [{card}]")
+    # one patched forward of the SDXL-class UNet reads nothing back from the card
+    patches4 = config4_patches(sdxl_cfg.model_channels)
+    filtered = []
+
+    def counted_ffilter(x, *a, **kw):
+        filtered.append(x.shape[-1])
+        return ffilter(x, *a, **kw)
+
+    s_in = torch.full((1,), 5.0, device=dev)
+    with torch.no_grad(), patched(FU, ffilter=counted_ffilter):
+        big(sx0, s_in, block_patches=patches4)  # the first call puts the operators on the card
+    torch.cuda.synchronize()
+    n_filtered = {hw: filtered.count(hw) for hw in sorted(set(filtered))}
+    need(n_filtered == CONFIG4_PATCHES, f"config 4: filtered activations {n_filtered}, "
+                                        f"expected {CONFIG4_PATCHES} a cond forward")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            pout = big(sx0, s_in, block_patches=patches4)
+    except RuntimeError as e:
+        fail(f"a patched forward synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with torch.no_grad():
+        plain_out = big(sx0, s_in)
+    need(bool(torch.isfinite(pout).all()) and not torch.equal(pout, plain_out),
+         "patched forward: not finite, or equal to the plain forward")
+    print(f"[20] one patched forward of the SDXL-class UNet at {SDXL_SHAPE}, sigma 5: stage-1 "
+          f"activations filtered by size {n_filtered} (dense K at 16 and 32, FFT at 64), under "
+          f"torch.cuda.set_sync_debug_mode('error'): no synchronisation")
+    del ph, pout, plain_out
+
+    # -- phase 21: configs 4 and 2 at their own size ------------------------------------
+    print(f"[21] {time.perf_counter() - t_run:.0f} s into the run")
+
+    def config4_pipe(p):
+        """tools/bench_configs.py:52-96: sonar_euler, momentum 0.95, per-band and
+        per-orientation wavelet CFG; FreeU on the cond UNet (in ``p``)."""
+        rules = WCFGRules.build(
+            wave="db4", level=3, padding_mode="periodization", high_precision_mode=False,
+            diff=dict(yl_scale=8.0, yh_scales=[[7.0, 6.5, 7.5], [6.0, 6.0, 7.0], "fill"],
+                      scales_end=dict(yl_scale=6.0, yh_scales=6.0), schedule="half_cosine",
+                      schedule_mode="sampling"))
+        return SonarPipeline(model=p[0], model_uncond=p[1], sampler="sonar_euler",
+                             sonar_config=SonarConfig(momentum=0.95), cfg_scale=7.0,
+                             wavelet_cfg=WaveletCFG(rules=rules), model_sampling=ms3, seed=7)
+
+    def config2_pipe(p, **kw):
+        """tools/bench_configs.py:33-49: sonar_euler_ancestral, momentum 0.95, a
+        NoiseChain of perlin (0.6) and onef_pinkish (0.4), CFG 7."""
+        kw.setdefault("noise", NoiseChain([get_noise_item("perlin", factor=0.6),
+                                           get_noise_item("onef_pinkish", factor=0.4)]))
+        return SonarPipeline(model=p[0], model_uncond=p[1], sampler="sonar_euler_ancestral",
+                             sonar_config=SonarConfig(momentum=0.95), cfg_scale=7.0,
+                             model_sampling=ms3, seed=7, **kw)
+
+    bpair4 = eps_pair(big, patches4)
+    runs21 = {"euler": runs19["euler"],
+              "config4": lambda: config4_pipe(bpair4)(sx0, sdxl_sig),
+              "config2": lambda: config2_pipe(bpair)(sx0, sdxl_sig)}
+    counted21 = {"config4": lambda: config4_pipe(counting(bpair4))(sx0, sdxl_sig),
+                 "config2": lambda: config2_pipe(counting(bpair))(sx0, sdxl_sig)}
+    l21, peak21, out21 = {}, {}, {}
+    for k, fn in counted21.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_guided.clear()
+        reset_counts()
+        out21[k] = fn()
+        l21[k] = read_counts()
+        peak21[k] = torch.cuda.max_memory_allocated()
+        o = out21[k]
+        need(o.shape == SDXL_SHAPE and o.is_cuda and bool(torch.isfinite(o).all()),
+             f"SDXL {k}: output malformed or not finite")
+        need(len(n_guided) == 2 * SDXL_STEPS, f"SDXL {k}: {len(n_guided)} UNet forwards")
+        need(torch.equal(o, runs21[k]()), f"SDXL {k}: not reproducible")
+        print(f"[21] {k} at {SDXL_SHAPE}, {SDXL_STEPS} steps: {len(n_guided) // 2} guided calls, "
+              f"output std {float(o.std()):.4f}; launches {l21[k]}; peak device memory "
+              f"{peak21[k] / 2**30:.2f} GiB [{card}]")
+    # config 2 draws once a step: perlin's base and two angle fields and
+    # onef's gaussian (B3 four times), one scale_noise at the chain (B2), and
+    # the fused momentum step (B1); config 4 draws nothing and launches none
+    want21 = {"config4": {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B6": 0},
+              "config2": {"B1": SDXL_STEPS, "B2": SDXL_STEPS, "B3": 4 * SDXL_STEPS, "B4": 0,
+                          "B5": 0, "B6": 0}}
+    need(l21 == want21, f"SDXL configs 4 and 2: expected launches {want21}")
+    need(not torch.equal(out21["config4"], config4_pipe(bpair)(sx0, sdxl_sig)),
+         "config 4: the FreeU patches changed nothing")
+
+    ms21 = {k: [] for k in runs21}
+    for which in ("euler", "config4", "config2", "config2", "config4", "euler") * 2:
+        ms21[which].append(cuda_ms(torch, runs21[which], 1))
+    per21 = {k: sorted(t / SDXL_STEPS for t in v) for k, v in ms21.items()}
+    for k, v in per21.items():
+        print(f"[21] {k}: {med(v):.3f} ms per model call median (min {v[0]:.3f}, max "
+              f"{v[-1]:.3f}; {len(v)} runs interleaved, run ms {[round(t, 1) for t in ms21[k]]}; "
+              f"cudnn TF32 on, matmul TF32 off) [{card}]")
+    for k in ("config4", "config2"):
+        pct = [100.0 * (t / med(per21["euler"]) - 1.0) for t in per21[k]]
+        print(f"[21] {k}_overhead_pct {100.0 * (med(per21[k]) / med(per21['euler']) - 1.0):.2f} "
+              f"(over euler + basic CFG per model call, medians; its runs against the euler "
+              f"median: min {pct[0]:.2f}, max {pct[-1]:.2f}) [{card}]")
+    parts = {"B1": "momentum_step_kernel", "B2": "scale_noise_", "B3": "philox_fill",
+             "FFT": "fft", "GEMM": "gemm"}
+    n21 = {}
+    for k in runs21:
+        n21[k], by21 = profile_run(torch, runs21[k], f"SDXL {k}")
+        tot21 = sum(by21.values())
+        wall21 = med(sorted(ms21[k])) * 1000
+        got21 = {p_: sum(v for n_, v in by21.items() if pat in n_.lower())
+                 for p_, pat in parts.items()}
+        print(f"[21] {k} run under the profiler: {n21[k]} device kernels "
+              f"({(n21[k] - n21['euler']) / SDXL_STEPS:+.1f} a guided call against euler), "
+              f"{tot21:.1f} us of device time in {wall21:.1f} us wall (median run; busy "
+              f"{100 * tot21 / wall21:.1f} %); "
+              f"{', '.join(f'{p_} {v:.1f} us' for p_, v in got21.items())} [{card}]")
+
+    # card against CPU on the flagship at 1x4x64x64, a few steps, TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    fl4 = config4_patches(cfg.model_channels)  # its operators are kept per device
+    for k, make, fp in (("config4", config4_pipe, fl4),
+                        ("config2", lambda p: config2_pipe(p, noise=None), None)):
+        on_card = make(eps_pair(model, fp))(
+            x0, c3_sig, noise_sampler=lambda i, s, sn: c3_draws[i].to(dev))
+        on_cpu = make(eps_pair(cpu_model, fp))(
+            x0.cpu(), c3_sig, noise_sampler=lambda i, s, sn: c3_draws[i])
+        err, rel = rel_err(on_card, on_cpu)
+        print(f"[21] {k} on the flagship at {SHAPE}, {CONFIG3_STEPS - 1} steps and the tail on "
+              f"one injected noise stream, card vs CPU, TF32 off: max abs diff {err:.3e}, max "
+              f"rel diff {rel:.3e} (tolerance {TRAJ_TOL:g})")
+        need(on_card.is_cuda and rel <= TRAJ_TOL, f"{k}: card and CPU differ ({rel:.3e})")
+    torch.backends.cudnn.allow_tf32 = True
+
+    # -- phase 22: config 5, 16-frame video noise ----------------------------------------
+    print(f"[22] {time.perf_counter() - t_run:.0f} s into the run")
+
+    def video_sampler(where):
+        """tools/bench_configs.py:129-140: time-brownian power noise with the
+        frames folded into channels."""
+        item = CustomNoiseParametersNoise(
+            noise=PowerNoiseItem(alpha=0.5, min_freq=0.05, time_brownian=True),
+            frames_to_channels=True)
+        return make_noise_sampler(item, VIDEO_SHAPE, device=where, seed=3, sigma_min=0.03,
+                                  sigma_max=14.6)
+
+    vfn, vst = video_sampler(dev)
+    reset_counts()
+    vnoise, _ = vfn(vst, 1.0, 0.9)
+    l22 = read_counts()
+    need(vnoise.shape == VIDEO_SHAPE and vnoise.is_cuda and bool(torch.isfinite(vnoise).all()),
+         "video noise: malformed or not finite")
+    band = 2.5 / math.sqrt(vnoise.numel())  # scale_noise's dead band
+    need(abs(float(vnoise.mean())) <= band and abs(float(vnoise.std()) - 1.0) <= band,
+         "video noise: not normalized")
+    # W at both ends (no cache hit: 17 B3 launches each), one scale_noise
+    want22 = {"B1": 0, "B2": 1, "B3": 34, "B4": 0, "B5": 0, "B6": 0}
+    need(l22 == want22, f"video noise: launches {l22}, expected {want22}")
+
+    def video_draws():
+        st = vst
+        for _ in range(VIDEO_DRAWS):
+            _, st = vfn(st, 1.0, 0.9)
+
+    vms = sorted(cuda_ms(torch, video_draws, 1) for _ in range(4))
+    mpix = [math.prod(VIDEO_SHAPE) * VIDEO_DRAWS / (t / 1000.0) / 1e6 for t in vms]
+    v_tot, _ = device_us(torch, lambda: vfn(vst, 1.0, 0.9), 5)
+    need(v_tot is not None, "video noise: device time not measured")
+    print(f"[22] video_noise_mpix_per_sec at {VIDEO_SHAPE}, {VIDEO_DRAWS} draws a run: "
+          f"{[round(m, 2) for m in sorted(mpix)]} over 4 runs (median "
+          f"{(sorted(mpix)[1] + sorted(mpix)[2]) / 2:.2f}); one draw {device_us.launched:.0f} "
+          f"device kernels, {v_tot:.1f} us device, launches {l22} [{card}]")
+    cfn, cst = video_sampler("cpu")
+    gfn, gst = video_sampler(dev)
+    worst = 0.0
+    for s_, sn_ in ((14.0, 9.0), (9.0, 4.0)):  # a miss, then a cache hit
+        a, cst = cfn(cst, s_, sn_)
+        b, gst = gfn(gst, s_, sn_)
+        worst = max(worst, rel_err(b, a)[1])
+    print(f"[22] video noise, seed 3, two draws, CPU (plain) vs card (kernels): max rel diff "
+          f"{worst:.3e} (tolerance {XDEV_TOL:g})")
+    need(worst <= XDEV_TOL, f"video noise: CPU and card differ ({worst:.3e})")
+    del big, bpair, bpair4, runs19, runs21, counted_runs, out3, outE, out21, vnoise
+    print(f"[22] phases 1-22 took {time.perf_counter() - t_run:.0f} s (the kernels' build "
           f"{build_s:.0f} s of it)")
 
     src = "sonar_tpu_torch/csrc/"
@@ -1957,7 +2257,8 @@ def main():
          "library_ms": library_us[k] / 1000 if k in library_us else None,
          "call_ms": timing[k][0], "plain_call_ms": timing[k][1],
          "launches_dpmpp_sde": sde_launches[k], "launches_config3": p3_launches[k],
-         "launches_config3_sdxl": l19[k]}
+         "launches_config3_sdxl": l19[k], "launches_config2_sdxl": l21["config2"][k],
+         "launches_config4_sdxl": l21["config4"][k], "launches_config5_video": l22[k]}
         for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

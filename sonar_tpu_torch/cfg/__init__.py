@@ -1,7 +1,8 @@
 """Model-patch subsystems that consume the denoiser (port of
-``sonar_tpu.cfg``): wavelet CFG, latent operations and the model-sampling
-protocol. FreeU-Extreme (``freeu.py``) is not ported yet."""
+``sonar_tpu.cfg``): wavelet CFG, FreeU-Extreme, latent operations and the
+model-sampling protocol."""
 
+from .freeu import FreeUExtremeConfig, ffilter, make_freeu_patches
 from .latent_ops import (
     SonarLatentOperation,
     SonarLatentOperationAdvanced,
@@ -36,6 +37,7 @@ __all__ = [
     "ContinuousEDM",
     "DiscreteSampling",
     "Flow",
+    "FreeUExtremeConfig",
     "SonarLatentOperation",
     "SonarLatentOperationAdvanced",
     "SonarLatentOperationNoise",
@@ -52,7 +54,9 @@ __all__ = [
     "apply_operations",
     "apply_wcfg_scales",
     "basic_cfg",
+    "ffilter",
     "make_beta_sigmas",
+    "make_freeu_patches",
     "max_denoise",
     "schedule_interp",
     "time_snr_shift",

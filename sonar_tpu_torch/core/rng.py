@@ -16,12 +16,21 @@ the same noise on the CPU and on the card (the uniforms bit for bit, the
 normals to a few ulps of log/cos/sin). The port's streams are its own:
 Philox does not reproduce threefry's bits.
 
-Student-t (``studentt_polar``, ``draw_t``) is not ported yet.
+Student-t (:func:`studentt_polar`, :func:`draw_t`) and Laplace
+(:func:`draw_laplace`) draws are transforms of Philox uniforms, computed in
+float32 when the type is narrower and rounded once.
 """
 
 from __future__ import annotations
 
+import math
 import zlib
+
+import numpy as np
+import torch
+
+from ..kernels.hwrng import philox_rand
+from ..utils.misc import work_dtype
 
 _MASK64 = (1 << 64) - 1
 
@@ -50,3 +59,39 @@ def derive_seed(seed: int, *path: int | str) -> int:
             p = zlib.crc32(p.encode("utf-8"))
         s = _mix64(s ^ _mix64(int(p) & 0x7FFFFFFF))
     return s
+
+
+def studentt_polar(seed: int, df, shape, dtype=torch.float32, *, device) -> torch.Tensor:
+    """Exact Student-t draws by the spherical polar construction, with no
+    rejection: for a 2D spherically symmetric Student-t with ``df`` degrees
+    of freedom the radius has the closed-form tail ``P(R > r) = (1 +
+    r²/df)^{-df/2}`` (inverse: ``R = sqrt(df·(U^{-2/df} - 1))``), and every
+    1D marginal of the multivariate t is t_df, so ``R·cos(2πV)`` with ``U,
+    V ~ Uniform`` is exactly t_df (Bailey's 1994 polar method without its
+    rejection step). ``U`` and ``V`` are the Philox uniforms of
+    ``derive_seed(seed, 0)`` and ``(seed, 1)``, as the JAX package splits
+    its key in two."""
+    cdt = work_dtype(dtype)
+    u = 1.0 - philox_rand(derive_seed(seed, 0), shape, device=device, dtype=cdt)  # (0, 1]
+    v = philox_rand(derive_seed(seed, 1), shape, device=device, dtype=cdt)
+    # the scalars as the JAX package computes them, in float32 (host numbers:
+    # a device tensor made from them would be a copy to the card per draw)
+    df32 = np.float32(df)
+    r = torch.sqrt(float(df32) * torch.expm1(float(np.float32(-2.0) / df32) * torch.log(u)))
+    return (r * torch.cos(float(np.float32(2.0 * math.pi)) * v)).to(dtype)
+
+
+def draw_t(seed: int, df, shape, dtype=torch.float32, *, device) -> torch.Tensor:
+    """Student-t draw: the polar construction (the JAX package's default;
+    its gamma-rejection alternative is not ported)."""
+    return studentt_polar(seed, df, shape, dtype, device=device)
+
+
+def draw_laplace(seed: int, shape, dtype=torch.float32, *, device) -> torch.Tensor:
+    """Standard Laplace draws by ``jax.random.laplace``'s inverse-CDF
+    transform of one uniform: ``u`` in ``[-1 + 2⁻²⁴, 1)``, then
+    ``sign(u)·log1p(-|u|)``."""
+    lo = -1.0 + 2.0**-24  # exact in float32; 1 - lo rounds to 2 there, as in JAX
+    u = philox_rand(seed, shape, device=device, dtype=work_dtype(dtype))
+    u = torch.clamp(u * 2.0 + lo, min=lo)
+    return (torch.sign(u) * torch.log1p(-torch.abs(u))).to(dtype)

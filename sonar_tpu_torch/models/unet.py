@@ -19,8 +19,17 @@ XLA and needs care in PyTorch:
 - the sigma embedding's angles and the conditioning sigma stay float32.
 
 The UNet holds no hand-written kernel: its convolutions, norms and
-attention are PyTorch operators. The FreeU ``block_patches`` hooks come with
-the FreeU slice.
+attention are PyTorch operators.
+
+``block_patches`` is the hook surface FreeU-Extreme installs into
+(:func:`sonar_tpu_torch.cfg.freeu.make_freeu_patches`), as in the JAX
+package: ``input`` patches run after ``conv_in``, after every down block and
+after every downsample, and the patched tensor goes onto the skip stack;
+``middle`` runs after the mid block; ``output`` gets ``(h, skip)`` before
+their concatenation. Each sees ``ctx["sigma"]``: the true float32 sigma
+batch, never what ``timestep_fn`` conditions the network on. Activations
+are NCHW, as the module computes. Without patches a forward runs exactly the
+operators it runs with none installed.
 """
 
 from __future__ import annotations
@@ -154,6 +163,16 @@ def _sigma_embedding(sigma, ch: int, dtype):
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1).to(dtype)
 
 
+def _maybe_patch(patches, name, *args, ctx):
+    """Run the ``name`` patches over ``args`` in order (each returns one
+    tensor, or a tuple for ``output``)."""
+    out = args
+    for fn in (patches or {}).get(name, ()):
+        res = fn(*out, ctx)
+        out = res if isinstance(res, tuple) else (res,)
+    return out if len(out) > 1 else out[0]
+
+
 class UNet(nn.Module):
     """Predicts epsilon for latent ``x`` (B,C,H,W) at noise level ``sigma`` (B,)."""
 
@@ -202,28 +221,37 @@ class UNet(nn.Module):
         self.norm_out = _group_norm(cur, g)
         self.conv_out = Conv(cur, cfg.out_channels, 3, init_scale=1e-2)
 
-    def forward(self, x, sigma):
+    def forward(self, x, sigma, *, block_patches: dict[str, list[Callable]] | None = None,
+                patch_sigma: torch.Tensor | None = None):
+        """``block_patches`` maps ``"input"``, ``"middle"``, ``"output"`` to
+        lists of patch functions (module docstring); ``patch_sigma`` is what
+        they see as ``ctx["sigma"]`` when the network is conditioned on
+        something else than sigma (default: ``sigma``)."""
         dt = self.cfg.dtype
+        p = block_patches
+        ctx = {"sigma": sigma if patch_sigma is None else patch_sigma, "cfg": self.cfg}
         t = self.time_mlp
         emb = t["fc2"](F.silu(t["fc1"](
             _sigma_embedding(sigma, self.cfg.model_channels, dt))))
-        h = self.conv_in(x.to(dt))
+        h = _maybe_patch(p, "input", self.conv_in(x.to(dt)), ctx=ctx)
         skips = [h]
         for level in self.down:
             for blk in level.blocks:
                 h = blk["res"](h, emb)
                 if "attn" in blk:
                     h = blk["attn"](h)
+                h = _maybe_patch(p, "input", h, ctx=ctx)
                 skips.append(h)
             if level.downsample is not None:
-                h = level.downsample(h)
+                h = _maybe_patch(p, "input", level.downsample(h), ctx=ctx)
                 skips.append(h)
         h = self.mid["res1"](h, emb)
         h = self.mid["attn"](h)
-        h = self.mid["res2"](h, emb)
+        h = _maybe_patch(p, "middle", self.mid["res2"](h, emb), ctx=ctx)
         for level in self.up:
             for blk in level.blocks:
-                h = blk["res"](torch.cat([h, skips.pop()], dim=1), emb)
+                h, hsp = _maybe_patch(p, "output", h, skips.pop(), ctx=ctx)
+                h = blk["res"](torch.cat([h, hsp], dim=1), emb)
                 if "attn" in blk:
                     h = blk["attn"](h)
             if level.upsample is not None:
@@ -287,12 +315,17 @@ def unet_params_from_jax(tree) -> dict[str, torch.Tensor]:
     return out
 
 
-def unet_apply(model: UNet, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-    """Predict epsilon for latent ``x`` (B,C,H,W) at noise level ``sigma`` (B,)."""
-    return model(x, sigma)
+def unet_apply(model: UNet, x: torch.Tensor, sigma: torch.Tensor, *,
+               block_patches: dict[str, list[Callable]] | None = None,
+               patch_sigma: torch.Tensor | None = None) -> torch.Tensor:
+    """Predict epsilon for latent ``x`` (B,C,H,W) at noise level ``sigma``
+    (B,), with ``block_patches`` and ``patch_sigma`` as :meth:`UNet.forward`
+    takes them."""
+    return model(x, sigma, block_patches=block_patches, patch_sigma=patch_sigma)
 
 
-def make_denoiser(model: UNet, *, prediction="eps", params_kwarg: str = "params",
+def make_denoiser(model: UNet, *, block_patches: dict[str, list[Callable]] | None = None,
+                  prediction="eps", params_kwarg: str = "params",
                   timestep_fn: Callable | None = None) -> Callable:
     """Wrap the UNet into the sampler's denoiser protocol
     ``model(x, sigma_batch) -> denoised``.
@@ -304,8 +337,8 @@ def make_denoiser(model: UNet, *, prediction="eps", params_kwarg: str = "params"
 
     ``timestep_fn`` maps the float32 sigma batch to what the network is
     conditioned on (default: sigma itself; flow models are conditioned on
-    ``sigma * 1000``, ``cfg.Flow().timestep``). The preconditioning always
-    uses the true sigma.
+    ``sigma * 1000``, ``cfg.Flow().timestep``). The preconditioning and
+    the ``block_patches`` always see the true sigma.
 
     ``params_kwarg`` names the call-time weight override: a call with
     ``params_kwarg=`` a dict of tensors keyed as :func:`unet_params_from_jax`
@@ -326,7 +359,9 @@ def make_denoiser(model: UNet, *, prediction="eps", params_kwarg: str = "params"
         cond = sb32 if timestep_fn is None else timestep_fn(sb32)
         xin = pred.calculate_input(s4, x)
         p = kw.get(params_kwarg)
-        out = model(xin, cond) if p is None else torch.func.functional_call(model, p, (xin, cond))
+        hooks = {"block_patches": block_patches, "patch_sigma": sb32}
+        out = (model(xin, cond, **hooks) if p is None
+               else torch.func.functional_call(model, p, (xin, cond), hooks))
         return pred.calculate_denoised(s4, out, x)
 
     return denoiser

@@ -1,13 +1,15 @@
 """Noise generators (port of ``sonar_tpu.noise.generators``; reference
-py/noise_generation.py). Ported so far: the base class, gaussian, uniform,
-brownian, the pyramid family (``highres_pyramid``, ``pyramid_old``,
-``pyramid``) and ``mixed``; the rest of the zoo follows in later slices.
+py/noise_generation.py): all fifteen of the JAX package's
+``GENERATOR_CLASSES``.
 
 Every draw goes through the Philox stream of :mod:`..kernels.hwrng` (kernel
 B3 on the card, its plain version on the CPU), seeded from the per-draw
 seed it is handed, so there is no global RNG state and one seed gives the
 same noise on both devices. Sub-draws take seeds from
-:func:`~sonar_tpu_torch.core.rng.derive_seed`, as the JAX package folds keys.
+:func:`~sonar_tpu_torch.core.rng.derive_seed`, as the JAX package folds keys
+(Student-t and Laplace are transforms of Philox uniforms,
+:mod:`..core.rng`). The FFT generators (``green_test``, ``onef``) use
+PyTorch's FFTs, as they are XLA ops in the JAX package.
 
 The pyramids take their kernel (B4 or B5) whenever its gate, a pure
 function of the configuration, holds (``*_supported`` in
@@ -19,11 +21,15 @@ package does with threefry.
 
 from __future__ import annotations
 
+import math
+from typing import Callable
+
 import numpy as np
 import torch
 
-from ..core.normalize import scale_noise
-from ..core.rng import derive_seed
+from ..core.blend import BLENDING_MODES
+from ..core.normalize import scale_noise, tquantile, tstd
+from ..core.rng import derive_seed, draw_laplace, draw_t
 from ..kernels.fused_pyramid import (
     fused_downscale_pyramid,
     fused_downscale_supported,
@@ -32,7 +38,7 @@ from ..kernels.fused_pyramid import (
 )
 from ..kernels.hwrng import philox_rand, philox_randn
 from ..ops.resample import scale_samples
-from ..utils.misc import default_device
+from ..utils.misc import default_device, work_dtype
 from .base import NoiseCtx, NoiseItem, fix_output_frames
 from .brownian import endpoint_increment, endpoint_state
 
@@ -161,6 +167,94 @@ class BrownianGenerator(Generator):
     def generate(self, ctx, state, seed, sigma, sigma_next):
         del seed  # path identity comes from the init-time seed
         return endpoint_increment(ctx, state, sigma, sigma_next, levels=self.levels)
+
+
+def perlin_noise(
+    seed: int,
+    grid_shape: tuple[int, int],
+    out_shape: tuple[int, int],
+    batch_size: int = 1,
+    blend: Callable | None = None,
+    dtype=torch.float32,
+    *,
+    device,
+) -> torch.Tensor:
+    """Classic grid-gradient Perlin (py/noise_generation.py:300-476).
+
+    Random angles on the (grid+1)² lattice (Philox uniforms times 2π); four
+    corner gradients per cell; smoothstep blend of the corner dot products.
+    Broadcasting instead of torch unfold, as the JAX package: the same
+    corner order (TL, TR, BL, BR) and (x, y) component layout.
+    """
+    blend = blend if blend is not None else BLENDING_MODES["lerp"]
+    gh, gw = grid_shape
+    oh, ow = out_shape
+    bh, bw = oh // gh, ow // gw
+    if oh != bh * gh:
+        raise ValueError(f"Output height {oh} must be divisible by grid height {gh}")
+    if ow != bw * gw:
+        raise ValueError(f"Output width {ow} must be divisible by grid width {gw}")
+    angle = philox_rand(seed, (batch_size, gh + 1, gw + 1), device=device,
+                        dtype=dtype) * (2.0 * math.pi)
+    # gradient components, last dim = (x, y)
+    grad = torch.stack((torch.cos(angle), torch.sin(angle)), dim=-1)
+    corners_v = (grad[:, :-1, :-1], grad[:, :-1, 1:], grad[:, 1:, :-1], grad[:, 1:, 1:])
+    # in-cell positions, last dim = (x, y): (bh, bw, 2)
+    px = (torch.arange(bw, dtype=dtype, device=angle.device) + 0.5) / bw
+    py = (torch.arange(bh, dtype=dtype, device=angle.device) + 0.5) / bh
+    pos = torch.stack(torch.meshgrid(px, py, indexing="xy"), dim=-1)
+    pos = pos.reshape(1, bh, bw, 1, 1, 2)
+
+    def step(t):
+        return t * t * (3.0 - 2.0 * t)
+
+    def corners(v, offset):
+        # (B,1,1,gh,gw,2) · (1,bh,bw,1,1,2) → (B,bh,bw,gh,gw): x term + y term
+        v = v.reshape(batch_size, 1, 1, gh, gw, 2)
+        return (v[..., 0] * (pos[..., 0] - offset[0])
+                + v[..., 1] * (pos[..., 1] - offset[1]))
+
+    v_tl, v_tr, v_bl, v_br = corners_v
+    step_x = step(pos[..., 0])
+    step_y = step(pos[..., 1])
+    row0 = blend(corners(v_tl, (0.0, 0.0)), corners(v_tr, (1.0, 0.0)), step_x)
+    row1 = blend(corners(v_bl, (0.0, 1.0)), corners(v_br, (1.0, 1.0)), step_x)
+    noise = blend(row0, row1, step_y)
+    # (B,bh,bw,gh,gw) → (B, gh*bh, gw*bw) cell-major interleave
+    return noise.permute(0, 3, 1, 4, 2).reshape(batch_size, gh * bh, gw * bw)
+
+
+class PerlinOldGenerator(Generator):
+    """py/noise_generation.py:289-493, with the grid_shape = (height,
+    attr-width) quirk of line 485 kept for parity."""
+
+    name = "perlin_old"
+    MIN_DIMS = 4
+    MAX_DIMS = 5
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {
+            "div_fac": 2.0,
+            "iterations": 2,
+            "blend_mode": "lerp",
+        }
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        blend = BLENDING_MODES[self.blend_mode]
+        noise = self.rand(ctx, derive_seed(seed, "base")) / self.div_fac
+        channels, height, width = noise.shape[1:]
+        for i in range(self.iterations):
+            noise = noise + perlin_noise(
+                derive_seed(seed, i),
+                (height, ctx.width),  # reference quirk: attr width as grid w
+                (height, width),
+                batch_size=channels,
+                blend=blend,
+                dtype=noise.dtype,
+                device=noise.device,
+            )
+        return fix_output_frames(ctx, noise), state
 
 
 def _size_ladder_highres(h: int, w: int, iterations: int, schedule_seed: int):
@@ -308,6 +402,185 @@ class PyramidGenerator(Generator):
         return fix_output_frames(ctx, noise), state
 
 
+class StudentTGenerator(Generator):
+    """StudentT(loc, scale, df) + per-batch abs-quantile clamp + sqrt-compress
+    (py/noise_generation.py:652-677)."""
+
+    name = "studentt"
+    DEFAULT_NORMALIZED = False
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {
+            "loc": 0.0,
+            "scale": 0.2,
+            "df": 1.0,
+            "quantile_fac": 0.75,
+            "pow_fac": 0.5,
+            "nq_fac": 1.0,
+        }
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        noise = self.loc + self.scale * draw_t(seed, self.df, ctx.shape, ctx.dtype,
+                                               device=_device(ctx))
+        flat = torch.abs(noise.reshape(ctx.shape[0], -1))
+        nq = tquantile(flat, self.quantile_fac, dim=-1) * self.nq_fac
+        nq = nq.reshape((ctx.shape[0],) + (1,) * (noise.ndim - 1))
+        noise = torch.clamp(noise, -nq, nq)
+        return torch.copysign(torch.abs(noise) ** self.pow_fac, noise), state
+
+
+class GreenTestGenerator(Generator):
+    """FFT 1/sqrt(power) shaping with sqrt-radial power
+    (py/noise_generation.py:680-704). The std is taken of the complex
+    inverse FFT (ddof 1, as ``jnp.std`` of a complex array)."""
+
+    name = "green_test"
+    MIN_DIMS = 4
+    MAX_DIMS = 5
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {
+            "scale_fac": 1.0,
+            "x_pow": 2,
+            "y_pow": 2,
+            "power_base": 1.0,
+        }
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        noise = self.randn(ctx, seed)
+        noise = noise.to(work_dtype(noise.dtype))
+        h, w = ctx.height, ctx.width
+        scale = self.scale_fac / (w * h)
+        fy = torch.fft.fftfreq(h, device=noise.device)[:, None] ** self.y_pow
+        fx = torch.fft.fftfreq(w, device=noise.device) ** self.x_pow
+        power = torch.sqrt(fy + fx)
+        power[0, 0] = self.power_base
+        spec = torch.fft.fft2(noise) / torch.sqrt(power).to(torch.complex64)
+        out = torch.fft.ifft2(spec)
+        out = out * (scale / tstd(out))
+        return fix_output_frames(ctx, out.real.to(ctx.dtype)), state
+
+
+class PinkOldGenerator(Generator):
+    """Admittedly-wrong scalar-scaled randn (py/noise_generation.py:707-717)."""
+
+    name = "pink_old"
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {"alpha": 2.0, "k": 1.0, "freq": 1.0}
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        spectral_density = self.k / self.freq**self.alpha
+        return self.randn(ctx, seed, shape=ctx.shape) * spectral_density, state
+
+
+class PowerOldGenerator(Generator):
+    """Admittedly-wrong historical power noise (py/noise_generation.py:
+    1259-1287): uniform noise scaled by a per-first-dim spectral density
+    k/i^alpha, then standardized per (H, W)."""
+
+    name = "power_old"
+    DEFAULT_NORMALIZED = False
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {"alpha": 2.0, "k": 1.0}
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        b = ctx.shape[0]
+        noise = self.rand(ctx, seed, shape=ctx.shape)
+        freq = torch.arange(1, b + 1, dtype=ctx.dtype, device=noise.device).reshape(
+            (b,) + (1,) * (len(ctx.shape) - 1))
+        noise = noise * (self.k / freq**self.alpha)
+        mean = noise.mean(dim=(-2, -1), keepdim=True)
+        std = tstd(noise, dim=(-2, -1), keepdim=True)
+        return (noise - mean) / torch.where(std == 0, 1.0, std), state
+
+
+class OneFGenerator(Generator):
+    """1/f^alpha spectrum shaping over a full fftn, batch and channel axes
+    included (py/noise_generation.py:720-759)."""
+
+    name = "onef"
+    MIN_DIMS = 4
+    MAX_DIMS = 5
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {
+            "alpha": 2.0,
+            "k": 1.0,
+            "hfac": 1.0,
+            "wfac": 1.0,
+            "base_power": 1.0,
+            "use_sqrt": True,
+        }
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        noise = self.randn(ctx, seed)
+        noise = noise.to(work_dtype(noise.dtype))
+        h, w = ctx.height, ctx.width
+        freq_x = torch.fft.fftfreq(h, self.hfac, device=noise.device)
+        freq_y = torch.fft.fftfreq(w, self.wfac, device=noise.device)
+        fx, fy = torch.meshgrid(freq_x, freq_y, indexing="ij")
+        power = (fx**2 + fy**2) ** (-self.alpha / 2.0)
+        if self.k != 0:
+            power = self.k / power
+        power[0, 0] = self.base_power
+        power = power[None, None].to(torch.complex64)
+        spec = torch.fft.fftn(noise)
+        spec = spec / (torch.sqrt(power) if self.use_sqrt else power)
+        out = torch.fft.ifftn(spec).real.to(ctx.dtype)
+        return fix_output_frames(ctx, out), state
+
+
+class PowerLawGenerator(Generator):
+    """noise(or sign)·|noise|^alpha with optional amax division
+    (py/noise_generation.py:762-786)."""
+
+    name = "powerlaw"
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {
+            "alpha": 2.0,
+            "div_max_dims": None,
+            "use_sign": False,
+            "use_div_max_abs": True,
+        }
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        noise = self.randn(ctx, seed, shape=ctx.shape)
+        modulation = torch.abs(noise) ** self.alpha
+        noise = (torch.sign(noise) if self.use_sign else noise) * modulation
+        if self.div_max_dims is not None:
+            noise = noise / torch.amax(
+                torch.abs(noise) if self.use_div_max_abs else noise,
+                dim=tuple(self.div_max_dims), keepdim=True)
+        return noise, state
+
+
+class LaplacianGenerator(Generator):
+    """randn/div_fac + Laplace(loc, scale) (py/noise_generation.py:789-802).
+    Unlike gaussian, uniform and studentt, it keeps the base class's
+    normalized default: its internal hook normalizes, as the reference's."""
+
+    name = "laplacian"
+
+    @classmethod
+    def ng_params(cls):
+        return super().ng_params() | {"loc": 0.0, "scale": 1.0, "div_fac": 4.0}
+
+    def generate(self, ctx, state, seed, sigma, sigma_next):
+        noise = self.randn(ctx, derive_seed(seed, 0), shape=ctx.shape) / self.div_fac
+        lap = self.loc + self.scale * draw_laplace(derive_seed(seed, 1), ctx.shape,
+                                                   ctx.dtype, device=_device(ctx))
+        return noise + lap, state
+
+
 class MixedGenerator(Generator):
     """Sum of member generators with optional transforms and an output fn
     (py/noise_generation.py:212-249). Members keep their class-default
@@ -351,3 +624,25 @@ class MixedGenerator(Generator):
             out = self.output_fun
             noise = out(noise) if callable(out) else noise * out
         return noise, tuple(new_states)
+
+
+GENERATOR_CLASSES: dict[str, type[Generator]] = {
+    cls.name: cls
+    for cls in (
+        GaussianGenerator,
+        UniformGenerator,
+        BrownianGenerator,
+        PerlinOldGenerator,
+        HighresPyramidGenerator,
+        PyramidOldGenerator,
+        PyramidGenerator,
+        StudentTGenerator,
+        GreenTestGenerator,
+        PinkOldGenerator,
+        PowerOldGenerator,
+        OneFGenerator,
+        PowerLawGenerator,
+        LaplacianGenerator,
+        MixedGenerator,
+    )
+}

@@ -40,7 +40,7 @@ import torch
 from ..core.normalize import scale_noise
 from ..core.rng import derive_seed
 from ..kernels.hwrng import philox_randn
-from ..utils.misc import default_device
+from ..utils.misc import default_device, work_dtype
 from .base import NoiseCtx, NoiseItem
 from .brownian import endpoint_increment, endpoint_state
 
@@ -243,11 +243,6 @@ def apply_channel_mixer(noise: torch.Tensor, mixer) -> torch.Tensor:
     return mixed.reshape(c, b, h, w).swapaxes(1, 0)
 
 
-def _work_dtype(dtype):
-    """The type the draw and the FFTs run in (see the module docstring)."""
-    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
-
-
 @lru_cache(maxsize=64)
 def _filter_tensor(power_filter: PowerFilter, mix: float, norm_factor: float, h: int,
                    w: int, device: str) -> torch.Tensor:
@@ -302,7 +297,7 @@ class PowerNoiseItem(NoiseItem):
                 raise ValueError(
                     "time correlated brownian mode is valid only for stochastic samplers"
                 )
-            return endpoint_state(ctx, seed, dtype=_work_dtype(ctx.dtype))
+            return endpoint_state(ctx, seed, dtype=work_dtype(ctx.dtype))
         return {}
 
     def _mixer(self, ctx):
@@ -315,7 +310,7 @@ class PowerNoiseItem(NoiseItem):
     def _filtered(self, ctx, noise_or_rfft, filter_rfft, *, is_spatial: bool):
         h, w = ctx.height, ctx.width
         if is_spatial:
-            rfft = torch.fft.rfft2(noise_or_rfft.to(_work_dtype(noise_or_rfft.dtype)),
+            rfft = torch.fft.rfft2(noise_or_rfft.to(work_dtype(noise_or_rfft.dtype)),
                                    norm="ortho")
         else:
             rfft = noise_or_rfft
@@ -327,7 +322,7 @@ class PowerNoiseItem(NoiseItem):
         filter_rfft = self.filter_tensor(ctx)
         if self.time_brownian:
             noise, state = endpoint_increment(ctx, state, sigma, sigma_next,
-                                              dtype=_work_dtype(ctx.dtype))
+                                              dtype=work_dtype(ctx.dtype))
             out = self._filtered(ctx, noise, filter_rfft, is_spatial=True)
         else:
             shape = tuple(ctx.shape[:-1]) + (ctx.width // 2 + 1,)

@@ -4,10 +4,9 @@ py/noise.py:2244-2489).
 The JAX registry imports the whole zoo when it is imported. The port
 registers lazily instead: a name maps to a loader that imports its generator
 module only when that name is first asked for, so the main path loads only
-the gaussian generator. Registered so far: ``gaussian``, ``uniform``,
-``brownian``, the thirteen pyramid-family names and the two Voronoi presets,
-with the JAX registry's exact parameters (presets.py:66, 73-75, 128-174,
-188-221); later slices add the rest of the zoo to ``_LOADERS``.
+the gaussian generator. Registered: 35 of the JAX registry's 38 names, with
+its exact parameters (presets.py:64-221); ``distro``, ``collatz`` and
+``wavelet`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,24 +25,6 @@ def _simple(cls, **preset):
     return factory
 
 
-def _load_gaussian():
-    from .generators import GaussianGenerator
-
-    return _simple(GaussianGenerator)
-
-
-def _load_uniform():
-    from .generators import UniformGenerator
-
-    return _simple(UniformGenerator)
-
-
-def _load_brownian():
-    from .generators import BrownianGenerator
-
-    return _simple(BrownianGenerator)
-
-
 def _mixed(mix_name, members, output_fun=None):
     """members: tuple of (cls, preset_kwargs, transform)."""
     from .generators import MixedGenerator
@@ -56,7 +37,9 @@ def _mixed(mix_name, members, output_fun=None):
     return factory
 
 
-def _load_pyramid(cls_name: str, **preset):
+def _load(cls_name: str, **preset):
+    """A loader of one generator class of :mod:`.generators` with a preset."""
+
     def load():
         from . import generators
 
@@ -65,16 +48,23 @@ def _load_pyramid(cls_name: str, **preset):
     return load
 
 
-def _load_pyramid_mix(name: str, **member):
-    """A pyramid mix: two PyramidGenerators with transforms 0.2 and -0.8."""
+def _load_mix(name: str, members, output_fun=None):
+    """A loader of a mix of :mod:`.generators` classes: members are
+    (class name, preset, transform)."""
 
     def load():
-        from .generators import PyramidGenerator
+        from . import generators
 
-        return _mixed(name, ((PyramidGenerator, member, 0.2),
-                             (PyramidGenerator, member, -0.8)))
+        return _mixed(name, tuple((getattr(generators, c), kw, t) for c, kw, t in members),
+                      output_fun=output_fun)
 
     return load
+
+
+def _load_pyramid_mix(name: str, **member):
+    """A pyramid mix: two PyramidGenerators with transforms 0.2 and -0.8."""
+    return _load_mix(name, (("PyramidGenerator", member, 0.2),
+                            ("PyramidGenerator", member, -0.8)))
 
 
 def _load_voronoi_fuzz():
@@ -97,21 +87,46 @@ def _load_voronoi_mix():
 
 
 _LOADERS: dict[str, Callable[[], Callable[..., Generator]]] = {
-    "gaussian": _load_gaussian,
-    "uniform": _load_uniform,
-    "brownian": _load_brownian,
-    "pyramid_old": _load_pyramid("PyramidOldGenerator"),
-    "pyramid": _load_pyramid("PyramidGenerator"),
-    "highres_pyramid": _load_pyramid("HighresPyramidGenerator"),
-    "pyramid_bislerp": _load_pyramid("PyramidGenerator", upscale_mode="bislerp"),
-    "highres_pyramid_bislerp": _load_pyramid("HighresPyramidGenerator",
-                                             upscale_mode="bislerp"),
-    "pyramid_area": _load_pyramid("PyramidGenerator", upscale_mode="area"),
-    "highres_pyramid_area": _load_pyramid("HighresPyramidGenerator",
-                                          upscale_mode="area"),
-    "pyramid_old_bislerp": _load_pyramid("PyramidOldGenerator", upscale_mode="bislerp"),
-    "pyramid_old_area": _load_pyramid("PyramidOldGenerator", upscale_mode="area"),
-    "pyramid_discount5": _load_pyramid("PyramidGenerator", discount=0.5),
+    "gaussian": _load("GaussianGenerator"),
+    "uniform": _load("UniformGenerator"),
+    "brownian": _load("BrownianGenerator"),
+    "perlin": _load("PerlinOldGenerator"),
+    "studentt": _load("StudentTGenerator"),
+    "pink_old": _load("PinkOldGenerator"),
+    "power_old": _load("PowerOldGenerator"),
+    "laplacian": _load("LaplacianGenerator"),
+    "green_test": _load("GreenTestGenerator"),
+    "pyramid_old": _load("PyramidOldGenerator"),
+    "pyramid": _load("PyramidGenerator"),
+    "highres_pyramid": _load("HighresPyramidGenerator"),
+    "onef_pinkish": _load("OneFGenerator", alpha=-0.5),
+    "onef_greenish": _load("OneFGenerator", alpha=0.5),
+    "onef_pinkishgreenish": _load_mix(
+        "onef_pinkishgreenish", (("OneFGenerator", {"alpha": 0.5}, None),
+                                 ("OneFGenerator", {"alpha": -0.5}, None)), output_fun=0.5),
+    "onef_pinkish_mix": _load_mix(
+        "onef_pinkish_mix", (("OneFGenerator", {"alpha": -0.5}, -1.0),
+                             ("OneFGenerator", {"alpha": -0.5}, None)), output_fun=0.5),
+    "onef_greenish_mix": _load_mix(
+        "onef_greenish_mix", (("OneFGenerator", {"alpha": 0.5}, -1.0),
+                              ("OneFGenerator", {"alpha": 0.5}, None)), output_fun=0.5),
+    "white": _load("PowerLawGenerator", alpha=0.0, use_sign=True),
+    "grey": _load("PowerLawGenerator", alpha=0.0, use_sign=False),
+    "velvet": _load("PowerLawGenerator", alpha=1.0, use_sign=True, div_max_dims=(-3, -2, -1)),
+    "violet": _load("PowerLawGenerator", alpha=0.5, use_sign=True, div_max_dims=(-3, -2, -1)),
+    "rainbow_mild": _load_mix(
+        "rainbow_mild", (("GreenTestGenerator", {}, 0.55), ("GreenTestGenerator", {}, 0.7)),
+        output_fun=1.15),
+    "rainbow_intense": _load_mix(
+        "rainbow_intense", (("GreenTestGenerator", {}, 0.75), ("GreenTestGenerator", {}, 0.5)),
+        output_fun=1.15),
+    "pyramid_bislerp": _load("PyramidGenerator", upscale_mode="bislerp"),
+    "highres_pyramid_bislerp": _load("HighresPyramidGenerator", upscale_mode="bislerp"),
+    "pyramid_area": _load("PyramidGenerator", upscale_mode="area"),
+    "highres_pyramid_area": _load("HighresPyramidGenerator", upscale_mode="area"),
+    "pyramid_old_bislerp": _load("PyramidOldGenerator", upscale_mode="bislerp"),
+    "pyramid_old_area": _load("PyramidOldGenerator", upscale_mode="area"),
+    "pyramid_discount5": _load("PyramidGenerator", discount=0.5),
     "pyramid_mix": _load_pyramid_mix("pyramid_mix", discount=0.6),
     "pyramid_mix_area": _load_pyramid_mix("pyramid_mix_area", discount=0.5,
                                           upscale_mode="area"),
@@ -120,6 +135,11 @@ _LOADERS: dict[str, Callable[[], Callable[..., Generator]]] = {
     "voronoi_fuzz": _load_voronoi_fuzz,
     "voronoi_mix": _load_voronoi_mix,
 }
+
+
+def register_noise_type(name: str, factory: Callable[..., Generator]) -> None:
+    """Register (or replace) the factory of a noise type name."""
+    NOISE_TYPES[name] = factory
 
 
 def _factory(name: str):
@@ -138,3 +158,15 @@ def get_noise_item(
         valid = ", ".join(sorted(set(NOISE_TYPES) | set(_LOADERS)))
         raise ValueError(f"Unknown noise type {noise_type!r}; valid: {valid}")
     return factory(factor=factor, normalize=normalize, **kwargs)
+
+
+def noise_type_names(default: str | None = "gaussian", skip=None):
+    """Default-first name iteration (py/noise_generation.py:71-80): the
+    registered names and those still to load, sorted."""
+    names = sorted(set(NOISE_TYPES) | set(_LOADERS))
+    if default is not None:
+        yield default
+    for n in names:
+        if n == default or (skip and n in skip):
+            continue
+        yield n

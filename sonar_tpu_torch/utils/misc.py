@@ -1,8 +1,8 @@
 """Misc utilities (port of ``sonar_tpu.utils.misc``; reference
 py/utils.py). Ported so far: ``fallback``, ``maybe_apply``,
 ``clamp_float``, ``filter_dict``, the two step-from-sigma helpers that
-wavelet CFG uses; and the port's own ``host_sigma`` and default-device
-rule."""
+wavelet CFG uses; and the port's own ``host_sigma``, default-device rule
+and ``work_dtype``."""
 
 from __future__ import annotations
 
@@ -41,6 +41,12 @@ def host_sigma(args: dict) -> float:
     if s is None:
         s = torch.as_tensor(args["sigma"]).max()
     return float(s)
+
+
+def work_dtype(dtype):
+    """The type FFTs and float32 transforms of a draw run in: float32 for
+    bfloat16 and float16 (the FFT libraries take neither), else ``dtype``."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
 
 
 def default_device(device=None) -> torch.device:

@@ -42,6 +42,12 @@ Wavelet CFG and the DWT (torch ops, no kernel of their own) on the card
 against the same calls on the CPU: 1e-5 relative to max(1, |cpu|), and a
 guided call of the config-3 pipeline under
 ``torch.cuda.set_sync_debug_mode("error")``.
+
+FreeU-Extreme's three spectral operators with the global TF32 switches on
+and off (dense K 3e-6 and the factor pair 3e-5 from the FFT, the card's FFT
+1e-5 from the CPU's) and a patched UNet forward under the same sync check;
+the 17 noise names of configs 2 and 4's slice and config 5's video noise,
+one seed on the CPU and the card, 1e-5.
 """
 
 import numpy as np
@@ -737,3 +743,95 @@ def test_a_guided_call_does_not_synchronise(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert out.is_cuda and bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------------------
+# FreeU-Extreme and the rest of the noise zoo on the card (torch ops and
+# kernel B3's draws). FreeU's operators against the FFT, relative to
+# max(1, |fft|): dense K 3e-6, the factor pair 3e-5, whatever the global TF32
+# switches say; the card's FFT against the CPU's 1e-5. Generators: one seed,
+# CPU against card, 1e-5 relative to max(1, |cpu|) (B3's ulps, cuFFT
+# against pocketfft).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [16, 32, 64])
+@pytest.mark.parametrize("tf32", [True, False])
+def test_freeu_operators_agree_on_the_card(cuda, hw, tf32):
+    from sonar_tpu_torch.cfg import ffilter
+    from sonar_tpu_torch.noise import PowerFilter
+
+    pf = PowerFilter(alpha=0.4)
+    x = torch.randn((1, 96, hw, hw), generator=torch.Generator().manual_seed(hw))
+    on_cpu = ffilter(x, pf, 0.25, operator="fft")
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        out = {op: ffilter(x.to(cuda), pf, 0.25, operator=op) for op in ("dense", "sep", "fft")}
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+    assert all(o.is_cuda for o in out.values())
+    assert _rel_err(out["fft"].cpu(), on_cpu) <= 1e-5
+    assert _rel_err(out["dense"], out["fft"]) <= 3e-6
+    assert _rel_err(out["sep"], out["fft"]) <= 3e-5
+
+
+@pytest.mark.cuda
+def test_a_patched_forward_does_not_synchronise(cuda):
+    """FreeU's percent window is a device-side select on the sigma the patch
+    sees: a patched forward reads nothing back from the card."""
+    from sonar_tpu_torch.cfg import DiscreteSampling, FreeUExtremeConfig, make_freeu_patches
+    from sonar_tpu_torch.models import UNetConfig, init_unet_params
+    from sonar_tpu_torch.noise import PowerFilter
+
+    cfg = UNetConfig(model_channels=16, channel_mult=(1, 2, 4), attention_levels=(2,))
+    model = init_unet_params(torch.Generator().manual_seed(0), cfg, device=cuda)
+    frux = FreeUExtremeConfig(target="both", stage_1=True, stage_2=True, scale=1.12, slice=0.75,
+                              start=0.1, end=0.9, sonar_power_filter=PowerFilter(alpha=0.4))
+    patches = make_freeu_patches(model_sampling=DiscreteSampling(), model_channels=16,
+                                 input_config=frux, middle_config=frux, output_config=frux)
+    x, s = torch.randn((1, 4, 64, 64), device=cuda), torch.full((1,), 3.0, device=cuda)
+    with torch.no_grad():
+        model(x, s, block_patches=patches)  # puts the operators and the table on the card
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = model(x, s, block_patches=patches)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert bool(torch.isfinite(out).all()) and not torch.equal(out, model(x, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["perlin", "studentt", "pink_old", "power_old", "laplacian",
+                                  "green_test", "onef_pinkish", "onef_greenish",
+                                  "onef_pinkishgreenish", "onef_pinkish_mix",
+                                  "onef_greenish_mix", "white", "grey", "velvet", "violet",
+                                  "rainbow_mild", "rainbow_intense"])
+def test_new_generators_draw_the_same_on_cpu_and_card(cuda, name):
+    from sonar_tpu_torch.noise import get_noise_item, make_noise_sampler
+
+    out = []
+    for where in ("cpu", cuda):
+        fn, st = make_noise_sampler(get_noise_item(name), (2, 4, 64, 64), device=where, seed=5)
+        out.append(fn(st, 1.0, 0.5)[0])
+    assert out[1].is_cuda and _rel_err(out[1].cpu(), out[0]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_video_noise_draws_the_same_on_cpu_and_card(cuda):
+    from sonar_tpu_torch.noise import CustomNoiseParametersNoise, make_noise_sampler
+    from sonar_tpu_torch.noise.power import PowerNoiseItem
+
+    out = []
+    for where in ("cpu", cuda):
+        item = CustomNoiseParametersNoise(
+            noise=PowerNoiseItem(alpha=0.5, min_freq=0.05, time_brownian=True),
+            frames_to_channels=True)
+        fn, st = make_noise_sampler(item, (1, 4, 4, 64, 64), device=where, seed=3,
+                                    sigma_min=0.03, sigma_max=14.6)
+        a, st = fn(st, 14.0, 9.0)
+        b, st = fn(st, 9.0, 4.0)
+        out.append(torch.stack([a, b]))
+    assert out[1].is_cuda and _rel_err(out[1].cpu(), out[0]) <= 1e-5

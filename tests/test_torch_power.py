@@ -313,8 +313,8 @@ def test_power_item_keeps_the_jax_constructor():
     assert item.factor == 0.5 and item.mix == 0.7 and not item.time_brownian
     assert dataclass_dict(item.power_filter) == dataclass_dict(ref.power_filter)
     assert sorted(item.params()) == sorted(ref.params())
-    assert tp._work_dtype(torch.bfloat16) == torch.float32
-    assert tp._work_dtype(torch.float64) == torch.float64
+    assert tp.work_dtype(torch.bfloat16) == torch.float32
+    assert tp.work_dtype(torch.float64) == torch.float64
 
 
 def dataclass_dict(pf):
