@@ -128,7 +128,23 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    the CPU on one injected noise stream, TF32 off;
 22. runs config 5's video noise (16-frame time-brownian power noise, frames
    folded into channels, 1×4×16×128×128): launches, normalization, Mpix/s
-   over 20 draws, and one seed on the CPU and the card.
+   over 20 draws, and one seed on the CPU and the card;
+23. runs the sampler registry, every one of its 31 names (the three ``_gpu``
+   aliases once, 28 functions), on the flagship at 1×4×64×64, 20 steps,
+   seed 7: a first run counting model calls (a wrapper that takes the
+   host sigma) and launches, with ``torch.cuda.set_sync_debug_mode("error")``
+   on from its first model call (dpm_adaptive, which reads its error back
+   once an attempt, exempt); steps/s as the median of 3 runs by CUDA
+   events; the busy share of one profiled run; one
+   ``sampler_config_override`` of dpmpp_2s_ancestral with pyramid noise
+   (B4); and every function on the card against the CPU at 4 steps on one
+   injected numpy stream, TF32 off (dpm_adaptive with a tight controller:
+   the same attempts and accepted steps on both);
+24. runs ``dpmpp_2m_sde_gpu`` (Brownian noise) and ``dpmpp_2s_ancestral``
+   through ``SonarPipeline`` with basic CFG 7 on phase 19's SDXL-class UNet
+   at 1×4×128×128, 30 steps: guided calls, launches, peak memory, ms per
+   model call over 2 runs each interleaved with ``sonar_euler`` + basic CFG,
+   the overhead against it, and the busy share of one profiled run.
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
@@ -247,6 +263,18 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def event_ms(torch, fn) -> float:
+    """ms of one call by CUDA events, with no warm-up call (for runs of a
+    second and more, timed in turns after a first run)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def device_us(torch, fn, iters: int):
@@ -1956,7 +1984,7 @@ def main():
     runs19 = sdxl_pipes(bpair)
     ms19 = {"euler": [], "config3": []}
     for which in ("euler", "config3", "config3", "euler") * 2:
-        ms19[which].append(cuda_ms(torch, runs19[which], 1))
+        ms19[which].append(event_ms(torch, runs19[which]))
     per_call = {k: sorted(t / (SDXL_STEPS * (2 if k == "config3" else 1)) for t in v)
                 for k, v in ms19.items()}
 
@@ -2131,7 +2159,7 @@ def main():
 
     ms21 = {k: [] for k in runs21}
     for which in ("euler", "config4", "config2", "config2", "config4", "euler") * 2:
-        ms21[which].append(cuda_ms(torch, runs21[which], 1))
+        ms21[which].append(event_ms(torch, runs21[which]))
     per21 = {k: sorted(t / SDXL_STEPS for t in v) for k, v in ms21.items()}
     for k, v in per21.items():
         print(f"[21] {k}: {med(v):.3f} ms per model call median (min {v[0]:.3f}, max "
@@ -2221,8 +2249,205 @@ def main():
     print(f"[22] video noise, seed 3, two draws, CPU (plain) vs card (kernels): max rel diff "
           f"{worst:.3e} (tolerance {XDEV_TOL:g})")
     need(worst <= XDEV_TOL, f"video noise: CPU and card differ ({worst:.3e})")
-    del big, bpair, bpair4, runs19, runs21, counted_runs, out3, outE, out21, vnoise
-    print(f"[22] phases 1-22 took {time.perf_counter() - t_run:.0f} s (the kernels' build "
+    del vnoise
+
+    # -- phase 23: the sampler registry on the flagship, at full width -------------------
+    print(f"[23] {time.perf_counter() - t_run:.0f} s into the run")
+    import inspect
+
+    import numpy as np
+
+    from sonar_tpu_torch.api import get_sampler, sampler_config_override
+    from sonar_tpu_torch.api.functions import SAMPLERS as REGISTRY
+
+    need(len(REGISTRY) == 31, f"the registry holds {len(REGISTRY)} names, not 31")
+    first_name = {}
+    for nm in sorted(REGISTRY):
+        first_name.setdefault(id(REGISTRY[nm]), nm)
+    sweep = [nm for nm in sorted(REGISTRY) if first_name[id(REGISTRY[nm])] == nm]
+    aliases = sorted(set(REGISTRY) - set(sweep))
+    need(len(sweep) == 28 and all(a.endswith("_gpu") and get_sampler(a) is get_sampler(a[:-4])
+                                  for a in aliases), f"registry aliases: {aliases}")
+
+    class Recorded:
+        """The denoiser, counting its calls and recording each call's host
+        sigma (the samplers pass it beside the batch, so recording reads
+        nothing back); with ``sync_check`` it turns on the sync check at its
+        first call, after the sampler's set-up."""
+
+        takes_sigma_host = True
+
+        def __init__(self, fn, sync_check=False):
+            self.fn, self.sigmas, self.sync_check = fn, [], sync_check
+
+        def __call__(self, xi, s_in, *, sigma_host=None, **kw):
+            if self.sync_check and not self.sigmas:
+                torch.cuda.set_sync_debug_mode("error")
+            self.sigmas.append(sigma_host)
+            return self.fn(xi, s_in, **kw)
+
+    # draws a run at STEPS steps and a final 0 (every step but the tail:
+    # sigma_down or sigma_next is 0 there; restart: its two jumps, B3 alone)
+    n_draws = {"euler_ancestral": STEPS, "dpmpp_2s_ancestral": STEPS, "lcm": STEPS,
+               "sonar_euler_ancestral": STEPS, "dpm_2_ancestral": STEPS - 1,
+               "ddpm": STEPS - 1, "res_multistep_ancestral": STEPS - 1, "restart": 0}
+    brownian = {"dpmpp_sde": 2 * STEPS, "sonar_dpmpp_sde": 2 * STEPS,
+                "dpmpp_2m_sde": STEPS, "dpmpp_3m_sde": STEPS}
+    reg = {}
+    reg_launches = {k: 0 for k in counters}
+    print(f"[23] {len(sweep)} samplers ({len(REGISTRY)} names; {', '.join(aliases)} are the "
+          f"same functions), {cfg} {SHAPE}, {STEPS} Karras steps 14.6 -> 0.03 and 0, seed 7; "
+          f"3 timed runs each after one counted run under the sync check [{card}]")
+    for nm in sweep:
+        fn = REGISTRY[nm]
+        rec = Recorded(denoiser, sync_check=nm != "dpm_adaptive")
+        reset_counts()
+        try:
+            so = fn(rec, x0, sigmas, seed=7)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            fail(f"[23] {nm}: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        lr = read_counts()
+        for k in counters:
+            reg_launches[k] += lr[k]
+        need(so.is_cuda and so.shape == SHAPE and so.dtype == torch.float32
+             and bool(torch.isfinite(so).all()), f"[23] {nm}: output malformed or not finite")
+        want_b2 = n_draws.get(nm, brownian.get(nm, 0))
+        want = {"B1": STEPS if nm == "sonar_euler_ancestral" else 0, "B2": want_b2,
+                "B4": 0, "B5": 0, "B6": 0}
+        if nm not in brownian:
+            want["B3"] = 2 if nm == "restart" else want_b2
+        need(all(lr[k] == v for k, v in want.items()) and (nm not in brownian or lr["B3"] > 0),
+             f"[23] {nm}: launches {lr}, expected {want}")
+        runs = sorted(event_ms(torch, lambda: fn(denoiser, x0, sigmas, seed=7)) for _ in range(3))
+        nk, by = profile_run(torch, lambda: fn(denoiser, x0, sigmas, seed=7), f"[23] {nm}")
+        dev_us = sum(by.values())
+        reg[nm] = {"steps_per_s": STEPS / (runs[1] / 1000.0), "run_ms": runs,
+                   "model_calls": len(rec.sigmas), "B2": lr["B2"], "B3": lr["B3"],
+                   "device_kernels": nk, "device_us": dev_us,
+                   "busy_pct": 100.0 * dev_us / (runs[1] * 1000.0)}
+        if nm == "dpm_adaptive":
+            reg[nm]["attempts"] = len(rec.sigmas) // 3
+            reg[nm]["accepted"] = len(set(rec.sigmas[::3]))
+        r_ = reg[nm]
+        print(f"[23] {nm:>24}: {r_['steps_per_s']:8.2f} steps/s (median of "
+              f"{[round(t, 2) for t in runs]} ms), {r_['model_calls']:3d} model calls, B2 "
+              f"{lr['B2']:3d}, B3 {lr['B3']:4d}, {nk} device kernels, {dev_us:.1f} us device, busy "
+              f"{r_['busy_pct']:.1f} %"
+              + (f"; {r_['attempts']} attempts, {r_['accepted']} accepted" if "attempts" in r_
+                 else "") + f" [{card}]")
+    print(json.dumps({"registry": reg}))
+
+    # one override: a k-diffusion sampler handed pyramid noise launches B4
+    over = sampler_config_override(get_sampler("dpmpp_2s_ancestral"),
+                                   noise_item=get_noise_item("pyramid"))
+    reset_counts()
+    po = over(denoiser, x0, sigmas, seed=7)
+    lo = read_counts()
+    for k in counters:
+        reg_launches[k] += lo[k]
+    need(po.shape == SHAPE and bool(torch.isfinite(po).all()), "[23] override: not finite")
+    need(lo["B4"] == STEPS and lo["B2"] == STEPS and lo["B3"] > 0 and lo["B1"] == 0,
+         f"[23] override with pyramid noise: launches {lo}")
+    print(f"[23] sampler_config_override(dpmpp_2s_ancestral, noise_item=pyramid): launches {lo}")
+
+    # the card against the CPU on one injected numpy stream (restart: one
+    # seed's Philox jumps, the same on both), TF32 off, at CONFIG3_STEPS steps;
+    # dpm_adaptive with a tight controller, so that it rejects attempts
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(23)
+    np_draws = [torch.from_numpy(rng.standard_normal(SHAPE).astype(np.float32))
+                for _ in range(2 * CONFIG3_STEPS)]
+    card_draws = [d.to(dev) for d in np_draws]
+    cpu_den = make_denoiser(cpu_model)
+    xerr = {}
+    t0 = time.perf_counter()
+    for nm in sweep:
+        fn = REGISTRY[nm]
+        takes = "noise_sampler" in inspect.signature(fn).parameters
+        res = {}
+        for where, den, dr in ((dev, denoiser, card_draws), ("cpu", cpu_den, np_draws)):
+            kw = {"noise_sampler": (lambda i, s, sn, _d=dr: _d[i])} if takes else {}
+            if nm == "dpm_adaptive":
+                kw.update(h_init=2.0, rtol=1e-4, atol=1e-5)
+            rec = Recorded(den)
+            res[str(where)] = fn(rec, x0.to(where), c3_sig, seed=7, **kw), rec.sigmas
+        (co, cs), (po_, ps) = res[str(dev)], res["cpu"]
+        need(co.is_cuda and po_.device.type == "cpu" and len(cs) == len(ps),
+             f"[23] {nm}: card and CPU made {len(cs)} and {len(ps)} model calls")
+        if nm == "dpm_adaptive":
+            need(len(set(cs[::3])) == len(set(ps[::3])),
+                 f"[23] dpm_adaptive: {len(set(cs[::3]))} accepted steps on the card, "
+                 f"{len(set(ps[::3]))} on the CPU")
+            print(f"[23] dpm_adaptive at {CONFIG3_STEPS} steps: {len(cs) // 3} attempts, "
+                  f"{len(set(cs[::3]))} accepted, on the card and on the CPU alike")
+        xerr[nm] = rel_err(co, po_)[1]
+    torch.backends.cudnn.allow_tf32 = True
+    worst_nm = max(xerr, key=xerr.get)
+    print(f"[23] card vs CPU, {CONFIG3_STEPS} Karras steps on one injected numpy stream, TF32 "
+          f"off, {cfg} at full width: max rel diff {xerr[worst_nm]:.3e} ({worst_nm}; tolerance "
+          f"{TRAJ_TOL:g}) in {time.perf_counter() - t0:.0f} s; "
+          f"{ {k: float(f'{v:.2e}') for k, v in xerr.items()} }")
+    need(xerr[worst_nm] <= TRAJ_TOL, f"[23] {worst_nm}: card and CPU differ ({xerr[worst_nm]:.3e})")
+
+    # -- phase 24: two registry samplers on the SDXL-class UNet, with CFG ----------------
+    print(f"[24] {time.perf_counter() - t_run:.0f} s into the run")
+
+    def reg_pipe(p, nm):
+        return SonarPipeline(model=p[0], model_uncond=p[1], sampler=nm, cfg_scale=7.0,
+                             model_sampling=ms3, seed=7)
+
+    names24 = ("dpmpp_2m_sde_gpu", "dpmpp_2s_ancestral")
+    runs24 = {"euler": runs19["euler"],
+              **{nm: (lambda _nm=nm: reg_pipe(bpair, _nm)(sx0, sdxl_sig)) for nm in names24}}
+    l24, peak24, calls24 = {}, {}, {"euler": SDXL_STEPS}
+    for nm in names24:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_guided.clear()
+        reset_counts()
+        o = reg_pipe(counting(bpair), nm)(sx0, sdxl_sig)
+        l24[nm] = read_counts()
+        peak24[nm] = torch.cuda.max_memory_allocated()
+        calls24[nm] = len(n_guided) // 2
+        need(o.shape == SDXL_SHAPE and o.is_cuda and bool(torch.isfinite(o).all()),
+             f"SDXL {nm}: output malformed or not finite")
+        print(f"[24] {nm} + basic CFG 7 at {SDXL_SHAPE}, {SDXL_STEPS} steps: {calls24[nm]} "
+              f"guided calls, output std {float(o.std()):.4f}; launches {l24[nm]}; peak device "
+              f"memory {peak24[nm] / 2**30:.2f} GiB [{card}]")
+    need(calls24["dpmpp_2m_sde_gpu"] == SDXL_STEPS
+         and calls24["dpmpp_2s_ancestral"] == 2 * SDXL_STEPS - 1,
+         f"[24] guided calls {calls24}")
+    # one draw a step, the tail too: B2 once a draw; the Brownian W
+    # evaluations launch B3 17 times each, the gaussian once a draw
+    need(l24["dpmpp_2s_ancestral"] == {"B1": 0, "B2": SDXL_STEPS, "B3": SDXL_STEPS, "B4": 0,
+                                       "B5": 0, "B6": 0}
+         and l24["dpmpp_2m_sde_gpu"]["B2"] == SDXL_STEPS
+         and l24["dpmpp_2m_sde_gpu"]["B3"] >= 17 * SDXL_STEPS
+         and all(l24["dpmpp_2m_sde_gpu"][k] == 0 for k in ("B1", "B4", "B5", "B6")),
+         f"[24] launches {l24}")
+    ms24 = {k: [] for k in runs24}
+    for which in ("euler", names24[0], names24[1], names24[1], names24[0], "euler"):
+        ms24[which].append(event_ms(torch, runs24[which]))
+    per24 = {k: sorted(t / calls24[k] for t in v) for k, v in ms24.items()}
+    for k, v in per24.items():
+        print(f"[24] {k}: {med(v):.3f} ms per model call median (min {v[0]:.3f}, max {v[-1]:.3f}; "
+              f"{len(v)} runs interleaved, run ms {[round(t, 1) for t in ms24[k]]}; cudnn TF32 "
+              f"on, matmul TF32 off) [{card}]")
+    for nm in names24:
+        pct = 100.0 * (med(per24[nm]) / med(per24["euler"]) - 1.0)
+        n24, by24 = profile_run(torch, runs24[nm], f"SDXL {nm}")
+        tot24 = sum(by24.values())
+        print(f"[24] {nm}: {pct:.2f} % per model call over euler + basic CFG (medians); under "
+              f"the profiler {n24} device kernels ({n24 / calls24[nm]:.1f} a guided call), "
+              f"{tot24:.1f} us of device time in {med(sorted(ms24[nm])) * 1000:.1f} us wall "
+              f"(busy {100 * tot24 / (med(sorted(ms24[nm])) * 1000):.1f} %); B2 "
+              f"{sum(v for n_, v in by24.items() if 'scale_noise_' in n_):.1f} us, B3 "
+              f"{sum(v for n_, v in by24.items() if 'philox_fill' in n_):.1f} us [{card}]")
+    del big, bpair, bpair4, runs19, runs21, runs24, counted_runs, out3, outE, out21
+    print(f"[24] phases 1-24 took {time.perf_counter() - t_run:.0f} s (the kernels' build "
           f"{build_s:.0f} s of it)")
 
     src = "sonar_tpu_torch/csrc/"
@@ -2258,7 +2483,9 @@ def main():
          "call_ms": timing[k][0], "plain_call_ms": timing[k][1],
          "launches_dpmpp_sde": sde_launches[k], "launches_config3": p3_launches[k],
          "launches_config3_sdxl": l19[k], "launches_config2_sdxl": l21["config2"][k],
-         "launches_config4_sdxl": l21["config4"][k], "launches_config5_video": l22[k]}
+         "launches_config4_sdxl": l21["config4"][k], "launches_config5_video": l22[k],
+         "launches_registry": reg_launches[k],
+         "launches_registry_sdxl": sum(l24[nm][k] for nm in names24)}
         for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@ equivalents of the reference's utility nodes (py/nodes/misc.py):
 ``noisy_latent_like``, ``noise_image``, the sampler registry, the sampler
 config override and ``split_noise_chain``.
 
-The registry holds the three sonar samplers. The JAX package also registers
-``restart`` and the k-diffusion set (28 more names); those are not ported
-yet, and asking for one raises a ``ValueError`` that says so.
+The registry holds the JAX package's 31 names: the three sonar samplers,
+``restart`` and the k-diffusion set (with its multistep tables and the
+DPM-Solver fast/adaptive pair).
 """
 
 from __future__ import annotations
@@ -159,16 +159,6 @@ def split_noise_chain(chain: NoiseItem, split_index: int = 1):
 
 SAMPLERS: dict[str, Callable] = {}
 
-# names the JAX package registers that the port has not ported yet
-# (ROADMAP.md §1 item 5): restart and the k-diffusion set
-NOT_PORTED = (
-    "restart", "euler", "euler_ancestral", "heun", "heunpp2", "dpm_2", "dpm_2_ancestral",
-    "dpmpp_2m", "dpmpp_2s_ancestral", "dpmpp_sde", "dpmpp_sde_gpu", "dpmpp_2m_sde",
-    "dpmpp_2m_sde_gpu", "dpmpp_3m_sde", "dpmpp_3m_sde_gpu", "ddim", "ddpm", "lcm",
-    "res_multistep", "res_multistep_ancestral", "deis", "lms", "ipndm", "ipndm_v",
-    "uni_pc", "uni_pc_bh2", "dpm_fast", "dpm_adaptive",
-)
-
 
 def register_sampler(name: str, fn: Callable) -> None:
     SAMPLERS[name] = fn
@@ -178,21 +168,24 @@ def get_sampler(name: str) -> Callable:
     try:
         return SAMPLERS[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise ValueError(
-                f"Sampler {name!r} is not ported to sonar_tpu_torch yet (ROADMAP.md §1 "
-                f"item 5); ported: {', '.join(sorted(SAMPLERS))}") from None
         valid = ", ".join(sorted(SAMPLERS))
         raise ValueError(f"Unknown sampler {name!r}; valid: {valid}") from None
 
 
 def _register_builtin_samplers():
+    from ..samplers.kdiffusion import KDIFFUSION_SAMPLERS
+    from ..samplers.restart import sample_restart
     from ..samplers.sonar import (sample_sonar_dpmpp_sde, sample_sonar_euler,
                                   sample_sonar_euler_ancestral)
 
     register_sampler("sonar_euler", sample_sonar_euler)
     register_sampler("sonar_euler_ancestral", sample_sonar_euler_ancestral)
     register_sampler("sonar_dpmpp_sde", sample_sonar_dpmpp_sde)
+    register_sampler("restart", sample_restart)
+    # the plain k-diffusion set under their ComfyUI names, so workflows that
+    # sample with host samplers (KSamplerSelect -> SamplerConfigOverride) run
+    for name, fn in KDIFFUSION_SAMPLERS.items():
+        register_sampler(name, fn)
 
 
 _register_builtin_samplers()

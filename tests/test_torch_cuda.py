@@ -50,6 +50,8 @@ the 17 noise names of configs 2 and 4's slice and config 5's video noise,
 one seed on the CPU and the card, 1e-5.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -835,3 +837,78 @@ def test_video_noise_draws_the_same_on_cpu_and_card(cuda):
         b, st = fn(st, 9.0, 4.0)
         out.append(torch.stack([a, b]))
     assert out[1].is_cuda and _rel_err(out[1].cpu(), out[0]) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The sampler registry on the card (torch ops; noise through B2 and B3): a
+# narrow UNet on the card against the same weights on the CPU, one injected
+# numpy noise stream (or one seed's Philox draws), TF32 off, 1e-4 relative to
+# the trajectory's largest magnitude; dpm_adaptive with the same attempts
+# and accepted steps on both; no host synchronisation inside a step.
+# ---------------------------------------------------------------------------
+
+class _Recorded:
+    """A denoiser that records the host sigma of each call (passed beside the
+    batch: recording reads nothing back from the card) and, with
+    ``sync_check``, turns on the sync check at its first call."""
+
+    takes_sigma_host = True
+
+    def __init__(self, fn, sync_check=False):
+        self.fn, self.sigmas, self.sync_check = fn, [], sync_check
+
+    def __call__(self, x, s, *, sigma_host=None, **kw):
+        if self.sync_check and not self.sigmas:
+            torch.cuda.set_sync_debug_mode("error")
+        self.sigmas.append(sigma_host)
+        return self.fn(x, s, **kw)
+
+
+def _registry_pair(device):
+    from sonar_tpu_torch.models import UNetConfig, init_unet_params, make_denoiser
+
+    cfg = UNetConfig(model_channels=32, channel_mult=(1, 2), attention_levels=(1,))
+    model = init_unet_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    return make_denoiser(copy.deepcopy(model).to(device)), make_denoiser(model)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["euler_ancestral", "heunpp2", "dpmpp_2m", "dpmpp_2s_ancestral",
+                                  "dpmpp_2m_sde", "dpmpp_3m_sde", "res_multistep_ancestral",
+                                  "ddpm", "uni_pc", "lms", "dpm_fast", "dpm_adaptive",
+                                  "restart"])
+def test_registry_sampler_on_the_card_matches_the_cpu(cuda, name):
+    import inspect
+
+    from sonar_tpu_torch.api import get_sampler
+
+    torch.backends.cudnn.allow_tf32 = False
+    fn = get_sampler(name)
+    card_den, cpu_den = _registry_pair(cuda)
+    ramp = np.linspace(0, 1, 6)
+    sig = np.append((14.6 ** (1 / 7) + ramp * (0.03 ** (1 / 7) - 14.6 ** (1 / 7))) ** 7, 0.0)
+    sig = torch.from_numpy(sig.astype(np.float32))
+    rng = np.random.default_rng(3)
+    draws = [torch.from_numpy(rng.standard_normal((1, 4, 32, 32)).astype(np.float32))
+             for _ in range(16)]
+    x0 = draws[-1] * 14.6
+    out = {}
+    for where, den in ((cuda, card_den), ("cpu", cpu_den)):
+        # dpm_adaptive with a tight controller, so that it rejects attempts
+        kw = dict(seed=7, **(dict(h_init=2.0, rtol=1e-4, atol=1e-5)
+                             if name == "dpm_adaptive" else {}))
+        if "noise_sampler" in inspect.signature(fn).parameters:
+            dev_draws = [d.to(where) for d in draws]
+            kw["noise_sampler"] = lambda i, s, sn, _d=dev_draws: _d[i]
+        rec = _Recorded(den, sync_check=where == cuda and name != "dpm_adaptive")
+        try:
+            out[where == cuda] = fn(rec, x0.to(where), sig, **kw), rec.sigmas
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    (card, card_calls), (cpu, cpu_calls) = out[True], out[False]
+    torch.backends.cudnn.allow_tf32 = True
+    assert card.is_cuda and bool(torch.isfinite(card).all())
+    assert len(card_calls) == len(cpu_calls)
+    if name == "dpm_adaptive":  # the same attempts, the same accepted steps
+        assert len(set(card_calls[::3])) == len(set(cpu_calls[::3]))
+    assert _rel_err(card.cpu(), cpu) <= 1e-4

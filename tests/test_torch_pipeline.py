@@ -266,15 +266,10 @@ def test_make_denoiser_overrides_match_jax(unets, prediction):
 
 
 def test_sampler_registry():
-    assert sorted(tapi.SAMPLERS) == ["sonar_dpmpp_sde", "sonar_euler", "sonar_euler_ancestral"]
-    from sonar_tpu_torch.api.functions import NOT_PORTED
-
-    assert sorted((*tapi.SAMPLERS, *NOT_PORTED)) == sorted(japi.SAMPLERS)
+    assert sorted(tapi.SAMPLERS) == sorted(japi.SAMPLERS) and len(tapi.SAMPLERS) == 31
     for name in ("restart", "dpmpp_2m", "uni_pc", "dpm_adaptive"):
-        with pytest.raises(ValueError, match="not ported"):
-            tapi.get_sampler(name)
-        with pytest.raises(ValueError, match="not ported"):
-            tapi.SonarPipeline(sampler=name)
+        assert tapi.SonarPipeline(sampler=name).sampler is tapi.get_sampler(name)
+        assert tapi.get_sampler(name).__name__ == japi.get_sampler(name).__name__
     with pytest.raises(ValueError, match="Unknown sampler 'bogus'"):
         tapi.get_sampler("bogus")
     with pytest.raises(ValueError, match="mutually exclusive"):
