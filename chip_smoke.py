@@ -130,7 +130,8 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    folded into channels, 1×4×16×128×128): launches, normalization, Mpix/s
    over 20 draws, and one seed on the CPU and the card;
 23. runs the sampler registry, every one of its 31 names (the three ``_gpu``
-   aliases once, 28 functions), on the flagship at 1×4×64×64, 20 steps,
+   aliases once, 28 functions), on the flagship at 1×4×64×64, 10 steps (20
+   until PR 10, cut to leave [25] room),
    seed 7: a first run counting model calls (a wrapper that takes the
    host sigma) and launches, with ``torch.cuda.set_sync_debug_mode("error")``
    on from its first model call (dpm_adaptive, which reads its error back
@@ -144,7 +145,25 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    through ``SonarPipeline`` with basic CFG 7 on phase 19's SDXL-class UNet
    at 1×4×128×128, 30 steps: guided calls, launches, peak memory, ms per
    model call over 2 runs each interleaved with ``sonar_euler`` + basic CFG,
-   the overhead against it, and the busy share of one profiled run.
+   the overhead against it, and the busy share of one profiled run;
+25. runs the combinator algebra: config 5's Voronoi z-walk cell
+   (tools/bench_configs.py:143-157: ``PerDimNoise`` over the frames of a
+   ``CustomNoiseParametersNoise`` Voronoi generator, 32 points, f1, z up
+   0.35 a frame) at 1×4×16×128×128, seed 3, sigma 1.0 → 0.9: launches (B6
+   and B3 once a frame), the z walk, Mpix/s over 4 runs of 5 draws, device
+   time, CPU vs card on two draws; then three combinator trees under
+   ``sample_sonar_euler_ancestral`` on the flagship at 1×4×64×64, 20 steps,
+   seed 7 (A: a composite of a repeated pyramid and a modulated channel
+   noise, all six kernels; B: pattern break, shuffle, quantile filter,
+   advanced range remap, an ops program, a blend filter of ripple-filtered,
+   wavelet-filtered and ``wavelet`` noise; C: a blend of a guided random
+   pick of resized, per-dim and latent-op-filtered noise with gaussian):
+   launches, reproducibility, 20 steps under
+   ``torch.cuda.set_sync_debug_mode("error")``, steps/s as the median of 3
+   runs by events in turns with the gaussian headline, busy share, and
+   card vs CPU at 4 steps, TF32 off (tree B without its outer
+   ``PatternBreakNoise``, whose hash of the sixth decimal turns ulps into
+   unrelated values, and ``pattern_break`` alone on one input).
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
@@ -171,6 +190,10 @@ sys.path.insert(0, ROOT)
 
 STEPS = 20
 SHORT_STEPS = 5
+REG_STEPS = 10  # [23]'s registry sweep (20 until PR 9; cut for [25]'s room)
+# [10]'s timings of the plain B3-B5 (200 calls by events and 50 profiled
+# until PR 9; cut in PR 10, where a loaded host took [10] from 124 to 234 s)
+PLAIN_CALLS, PLAIN_PROFILED = 20, 5
 SHAPE = (1, 4, 64, 64)
 B1_SHAPES = [(1, 4, 64, 64), (4, 4, 128, 128), (1, 4, 67, 61), (1, 3, 67, 61)]
 B2_SHAPES = [(1, 4, 64, 64), (4, 4, 128, 128), (1, 4, 67, 61), (1, 4, 2304, 2048)]
@@ -198,6 +221,7 @@ PYR_EDGE = [((8, 6), [(3, 2), (2, 3), (1, 1)]),
             ((16, 18), [(max(1, 16 - i), max(1, 18 - 2 * i)) for i in range(1, 17)])]
 HBM_BYTES_S = 3.35e12  # H100 SXM, published
 INSTR_S = 33.5e12  # 67 TFLOP/s fp32, a fused multiply-add counted as two
+SPIN_CYCLES = 100_000  # profile_run's marker kernel: ~50 µs at the H100's clock
 B6_TOL = 1e-6  # minkowski only, relative to max(1, |plain|); the rest bit for bit
 # bf16/fp16: one ulp of the working type against the plain version on the
 # float32 upcast (relative to max(1, |plain|)); against the plain version
@@ -221,6 +245,22 @@ FREEU_DENSE_TOL_64 = 1e-5
 CONFIG4_PATCHES = {16: 6, 32: 5, 64: 1}  # stage-1 activations filtered per cond forward
 VIDEO_SHAPE = (1, 4, 16, 128, 128)  # tools/bench_configs.py:105, 16 frames
 VIDEO_DRAWS = 20  # tools/bench_configs.py:108
+ZWALK_DRAWS = 5  # tools/bench_configs.py:157
+# [25]'s trees under sonar_euler_ancestral, 20 steps, seed 7: B1 once a step;
+# A: B2 5 a draw (ModulatedNoise's reference, ChannelNoise, the modulation,
+# RepeatedNoise, the composite), B3 gaussian 1 + perlin 3 + highres 1 +
+# voronoi_mix 4 a draw and 3 for each of RepeatedNoise's 11 fresh pyramid
+# draws (B4 11; the slot choices are host integers of the seed), B5 20,
+# B6 3 a draw; B: B2 4 a draw (BlendFilterNoise's three children and its
+# result), B3 7 (three gaussians, OneF, three wavelet octaves, the shuffle's
+# uniforms); C: B2 2, B3 and B4 as RandomNoise picks (PerDimNoise's pyramid,
+# four channels: a B4 and three B3 each)
+TREE_LAUNCHES = {
+    "A": {"B1": 20, "B2": 100, "B3": 216, "B4": 11, "B5": 20, "B6": 60},
+    "B": {"B1": 20, "B2": 80, "B3": 140, "B4": 0, "B5": 0, "B6": 0},
+    "C": {"B1": 20, "B2": 40, "B3": 252, "B4": 48, "B5": 0, "B6": 0},
+}
+ZWALK_Z_INCREMENT = 0.35  # tools/bench_configs.py:151
 
 
 def fail(msg: str):
@@ -337,25 +377,39 @@ def profile_run(torch, fn, what: str):
     seconds-long run is tens of thousands of kernels; the host's events
     would be ten times as many to collect): (device kernels, device µs by
     kernel name). Small launches fill its first 5 ms (the profiler misses
-    what is launched in its first moments), then the device idles 4 ms; the
-    run's kernels are those after the first gap of 3 ms."""
+    what is launched in its first moments), then a marker, the spin kernel
+    of ``torch.cuda._sleep``, then the device idles 4 ms; the run's kernels
+    are those that start after the marker ends. A run's own idle gaps do not
+    move that edge. Now and then the profiler misses every launch before
+    the run (that once got a run of this script refused while the edge was
+    the first idle gap, which no kernel then preceded): a profile in which
+    the marker does not show is printed and taken again with four times the
+    small launches (sixteen from the third); five such in a row fail.
+    ``profile_run.attempts`` is the number of profiles the last call took."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        until = time.perf_counter() + 0.005
-        while time.perf_counter() < until:
-            torch.zeros(1, device="cuda").add_(1.0)
-        torch.cuda.synchronize()
-        time.sleep(0.004)
-        fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    gaps = [i for i in range(1, len(kernels))
-            if kernels[i].time_range.start - kernels[i - 1].time_range.end >= 3000.0]
-    need(bool(gaps), f"{what}: the profile shows no idle gap before the run")
-    kernels = kernels[gaps[0]:]
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            until = time.perf_counter() + 0.005 * 4**min(attempt, 2)
+            while time.perf_counter() < until:
+                torch.zeros(1, device="cuda").add_(1.0)
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            time.sleep(0.004)
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        marks = [e.time_range.end for e in kernels if "spin_kernel" in e.name]
+        if marks:
+            break
+        print(f"profile_run: {what}: profile {attempt + 1} saw {len(kernels)} device kernels "
+              f"and not its marker; taken again", flush=True)
+    else:
+        fail(f"{what}: five profiles in a row missed the marker before the run")
+    profile_run.attempts = attempt + 1
+    kernels = [e for e in kernels if e.time_range.start >= max(marks)]
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
@@ -1202,7 +1256,7 @@ def main():
             if dshape == (1, 4, 128, 128):
                 k = cuda_ms(torch, kf, 50)
                 p = cuda_ms(torch, lambda: P.fused_downscale_pyramid_reference(
-                    5, dshape, sz, cf, mode, base=b, device=dev), 50)
+                    5, dshape, sz, cf, mode, base=b, device=dev), PLAIN_CALLS)
                 c = cuda_ms(torch, composed(generate(nt, dshape)), 5)
                 line += (f"; by events kernel {k * 1000:.1f} us, plain {p * 1000:.1f} us, "
                          f"composed path (oversized levels built) {c * 1000:.1f} us per draw")
@@ -1249,8 +1303,10 @@ def main():
                                                            base=pbase, device=dev)),
     }
     for k, (kf, pf) in path_fns.items():
-        timing[k] = (cuda_ms(torch, kf, 200), cuda_ms(torch, pf, 200))
-        (kd, kby), (pd, _) = device_us(torch, kf, 50), device_us(torch, pf, 50)
+        # the plain versions are thousands of torch ops a call (B5's ~35 ms of
+        # host): PLAIN_CALLS by events and PLAIN_PROFILED under the profiler
+        timing[k] = (cuda_ms(torch, kf, 200), cuda_ms(torch, pf, PLAIN_CALLS))
+        (kd, kby), (pd, _) = device_us(torch, kf, 50), device_us(torch, pf, PLAIN_PROFILED)
         # B4's draw also launches B3 for the small levels: B4 is its own kernel's time
         dev_timing[k] = (sum(v for n_, v in kby.items() if "pyramid_up_kernel" in n_)
                          if k == "B4" else kd, pd)
@@ -2260,6 +2316,8 @@ def main():
     from sonar_tpu_torch.api import get_sampler, sampler_config_override
     from sonar_tpu_torch.api.functions import SAMPLERS as REGISTRY
 
+    # at REG_STEPS steps since PR 10, to leave room for [25] (depth, not width)
+    reg_sig = bench_sigmas(torch, REG_STEPS)
     need(len(REGISTRY) == 31, f"the registry holds {len(REGISTRY)} names, not 31")
     first_name = {}
     for nm in sorted(REGISTRY):
@@ -2286,24 +2344,26 @@ def main():
             self.sigmas.append(sigma_host)
             return self.fn(xi, s_in, **kw)
 
-    # draws a run at STEPS steps and a final 0 (every step but the tail:
+    # draws a run at REG_STEPS steps and a final 0 (every step but the tail:
     # sigma_down or sigma_next is 0 there; restart: its two jumps, B3 alone)
-    n_draws = {"euler_ancestral": STEPS, "dpmpp_2s_ancestral": STEPS, "lcm": STEPS,
-               "sonar_euler_ancestral": STEPS, "dpm_2_ancestral": STEPS - 1,
-               "ddpm": STEPS - 1, "res_multistep_ancestral": STEPS - 1, "restart": 0}
-    brownian = {"dpmpp_sde": 2 * STEPS, "sonar_dpmpp_sde": 2 * STEPS,
-                "dpmpp_2m_sde": STEPS, "dpmpp_3m_sde": STEPS}
+    n_draws = {"euler_ancestral": REG_STEPS, "dpmpp_2s_ancestral": REG_STEPS,
+               "lcm": REG_STEPS,
+               "sonar_euler_ancestral": REG_STEPS, "dpm_2_ancestral": REG_STEPS - 1,
+               "ddpm": REG_STEPS - 1, "res_multistep_ancestral": REG_STEPS - 1, "restart": 0}
+    brownian = {"dpmpp_sde": 2 * REG_STEPS, "sonar_dpmpp_sde": 2 * REG_STEPS,
+                "dpmpp_2m_sde": REG_STEPS, "dpmpp_3m_sde": REG_STEPS}
     reg = {}
     reg_launches = {k: 0 for k in counters}
     print(f"[23] {len(sweep)} samplers ({len(REGISTRY)} names; {', '.join(aliases)} are the "
-          f"same functions), {cfg} {SHAPE}, {STEPS} Karras steps 14.6 -> 0.03 and 0, seed 7; "
+          f"same functions), {cfg} {SHAPE}, {REG_STEPS} Karras steps 14.6 -> 0.03 and 0, "
+          f"seed 7; "
           f"3 timed runs each after one counted run under the sync check [{card}]")
     for nm in sweep:
         fn = REGISTRY[nm]
         rec = Recorded(denoiser, sync_check=nm != "dpm_adaptive")
         reset_counts()
         try:
-            so = fn(rec, x0, sigmas, seed=7)
+            so = fn(rec, x0, reg_sig, seed=7)
             torch.cuda.synchronize()
         except RuntimeError as e:
             fail(f"[23] {nm}: {e}")
@@ -2315,16 +2375,16 @@ def main():
         need(so.is_cuda and so.shape == SHAPE and so.dtype == torch.float32
              and bool(torch.isfinite(so).all()), f"[23] {nm}: output malformed or not finite")
         want_b2 = n_draws.get(nm, brownian.get(nm, 0))
-        want = {"B1": STEPS if nm == "sonar_euler_ancestral" else 0, "B2": want_b2,
+        want = {"B1": REG_STEPS if nm == "sonar_euler_ancestral" else 0, "B2": want_b2,
                 "B4": 0, "B5": 0, "B6": 0}
         if nm not in brownian:
             want["B3"] = 2 if nm == "restart" else want_b2
         need(all(lr[k] == v for k, v in want.items()) and (nm not in brownian or lr["B3"] > 0),
              f"[23] {nm}: launches {lr}, expected {want}")
-        runs = sorted(event_ms(torch, lambda: fn(denoiser, x0, sigmas, seed=7)) for _ in range(3))
-        nk, by = profile_run(torch, lambda: fn(denoiser, x0, sigmas, seed=7), f"[23] {nm}")
+        runs = sorted(event_ms(torch, lambda: fn(denoiser, x0, reg_sig, seed=7)) for _ in range(3))
+        nk, by = profile_run(torch, lambda: fn(denoiser, x0, reg_sig, seed=7), f"[23] {nm}")
         dev_us = sum(by.values())
-        reg[nm] = {"steps_per_s": STEPS / (runs[1] / 1000.0), "run_ms": runs,
+        reg[nm] = {"steps_per_s": REG_STEPS / (runs[1] / 1000.0), "run_ms": runs,
                    "model_calls": len(rec.sigmas), "B2": lr["B2"], "B3": lr["B3"],
                    "device_kernels": nk, "device_us": dev_us,
                    "busy_pct": 100.0 * dev_us / (runs[1] * 1000.0)}
@@ -2344,12 +2404,12 @@ def main():
     over = sampler_config_override(get_sampler("dpmpp_2s_ancestral"),
                                    noise_item=get_noise_item("pyramid"))
     reset_counts()
-    po = over(denoiser, x0, sigmas, seed=7)
+    po = over(denoiser, x0, reg_sig, seed=7)
     lo = read_counts()
     for k in counters:
         reg_launches[k] += lo[k]
     need(po.shape == SHAPE and bool(torch.isfinite(po).all()), "[23] override: not finite")
-    need(lo["B4"] == STEPS and lo["B2"] == STEPS and lo["B3"] > 0 and lo["B1"] == 0,
+    need(lo["B4"] == REG_STEPS and lo["B2"] == REG_STEPS and lo["B3"] > 0 and lo["B1"] == 0,
          f"[23] override with pyramid noise: launches {lo}")
     print(f"[23] sampler_config_override(dpmpp_2s_ancestral, noise_item=pyramid): launches {lo}")
 
@@ -2450,6 +2510,205 @@ def main():
     print(f"[24] phases 1-24 took {time.perf_counter() - t_run:.0f} s (the kernels' build "
           f"{build_s:.0f} s of it)")
 
+    # -- phase 25: the combinator algebra: config 5's z-walk and three trees -------------
+    print(f"[25] {time.perf_counter() - t_run:.0f} s into the run")
+    from sonar_tpu_torch.cfg.latent_ops import SonarLatentOperationQuantileFilter
+    from sonar_tpu_torch.noise import (BlehOpsNoise, BlendedNoise, BlendFilterNoise, ChannelNoise,
+                                       CompositeNoise, GuidedNoise, LatentOperationFilteredNoise,
+                                       ModulatedNoise, MultiChildNoise, NoiseItem,
+                                       NormalizeToScaleNoise, PatternBreakNoise, PerDimNoise,
+                                       QuantileFilteredNoise, RandomNoise, RepeatedNoise,
+                                       ResizedNoise, RippleFilteredNoise, ShuffledNoise,
+                                       WaveletFilteredNoise, WaveletGenerator)
+
+    # (a) config 5's Voronoi z-walk cell (tools/bench_configs.py:143-157)
+    def zwalk_sampler(where):
+        inner = VoronoiGenerator(n_points=(32,), z_increment=ZWALK_Z_INCREMENT, z_range=10.0,
+                                 result_mode=("f1",))
+        item = PerDimNoise(noise=CustomNoiseParametersNoise(noise=inner, frames_to_channels=True,
+                                                            normalize=False),
+                           dim=2, chunk_size=1, normalize=False)
+        return make_noise_sampler(item, VIDEO_SHAPE, device=where, seed=3)
+
+    def zwalk_z(st):
+        return float(st["node"]["noise"]["noise"]["z"])
+
+    frames = VIDEO_SHAPE[2]
+    zfn, zst = zwalk_sampler(dev)
+    reset_counts()
+    znoise, zst1 = zfn(zst, 1.0, 0.9)
+    lz = read_counts()
+    need(znoise.shape == VIDEO_SHAPE and znoise.is_cuda and bool(torch.isfinite(znoise).all()),
+         "z-walk: malformed or not finite")
+    # a frame a chunk: B6 once (k = 1, f1) and the reset mode's fresh feature
+    # points (B3) once; nothing normalizes
+    want_z = {"B1": 0, "B2": 0, "B3": frames, "B4": 0, "B5": 0, "B6": frames}
+    need(lz == want_z, f"z-walk: launches {lz}, expected {want_z}")
+    dz = zwalk_z(zst1) - zwalk_z(zst)
+    need(abs(dz - frames * ZWALK_Z_INCREMENT) <= 1e-4,
+         f"z-walk: z moved {dz} in a draw, not {frames} x {ZWALK_Z_INCREMENT}")
+
+    def zwalk_draws():
+        st = zst
+        for _ in range(ZWALK_DRAWS):
+            _, st = zfn(st, 1.0, 0.9)
+
+    zms = sorted(cuda_ms(torch, zwalk_draws, 1) for _ in range(4))
+    zmpix = sorted(math.prod(VIDEO_SHAPE) * ZWALK_DRAWS / (t / 1000.0) / 1e6 for t in zms)
+    z_tot, z_by = device_us(torch, lambda: zfn(zst, 1.0, 0.9), 3)
+    need(z_tot is not None, "z-walk: device time not measured")
+    z_b6 = sum(v for n_, v in z_by.items() if "voronoi_ksmallest_kernel" in n_)
+    print(f"[25] voronoi_zwalk_mpix_per_sec at {VIDEO_SHAPE}, {ZWALK_DRAWS} draws a run: median "
+          f"{(zmpix[1] + zmpix[2]) / 2:.2f} (min {zmpix[0]:.2f}, max {zmpix[-1]:.2f}, 4 runs); one "
+          f"draw {device_us.launched:.0f} device kernels, {z_tot:.1f} us device (B6 {z_b6:.1f} "
+          f"us), {zms[1] / ZWALK_DRAWS * 1000:.1f} us wall; z moved {dz:.5f}; launches {lz} "
+          f"[{card}]")
+    cfn, cst = zwalk_sampler("cpu")
+    gfn, gst = zwalk_sampler(dev)
+    worst = 0.0
+    for _ in range(2):
+        a, cst = cfn(cst, 1.0, 0.9)
+        b, gst = gfn(gst, 1.0, 0.9)
+        worst = max(worst, rel_err(b, a)[1])
+    print(f"[25] z-walk, seed 3, two draws, CPU (plain) vs card (kernels): max rel diff "
+          f"{worst:.3e} (tolerance {XDEV_TOL:g})")
+    need(worst <= XDEV_TOL, f"z-walk: CPU and card differ ({worst:.3e})")
+    del znoise, zst1, a, b
+
+    # (b) three combinator trees under sample_sonar_euler_ancestral, flagship, 20 steps
+    g = get_noise_item
+    mask_a = np.zeros(SHAPE[-2:], np.float32)
+    mask_a[:, : SHAPE[-1] // 2] = 1.0  # left half src, right half dst
+    guide_c = np.random.default_rng(11).standard_normal((1, 4, 32, 32)).astype(np.float32)
+    rules_b = [{"when": {"sigma_min": 0.5, "sigma_max": 10.0},
+                "ops": [["ffilter", {"filter": "highpass", "threshold": 0.1, "scale": 0.5,
+                                     "strength": 0.6}],
+                        ["enhance", {"mode": "sharpen", "scale": 0.3}],
+                        ["roll", {"dim": -1, "amount": 5}]]}]
+    qfilter_c = SonarLatentOperationQuantileFilter(quantile=0.9, strategy="tanh", start_sigma=5.0)
+    trees = {
+        "A": CompositeNoise(
+            mask=mask_a,
+            dst_noise=RepeatedNoise(noise=g("pyramid"), repeat_length=4, max_recycle=2),
+            src_noise=ModulatedNoise(noise=ChannelNoise(noise=[
+                g("gaussian"), g("perlin"), g("highres_pyramid"), g("voronoi_mix")]),
+                modulation_type="intensity")),
+        "B": PatternBreakNoise(noise=ShuffledNoise(noise=QuantileFilteredNoise(
+            noise=NormalizeToScaleNoise(mode="advanced", noise=BlehOpsNoise(
+                rules=rules_b, noise=BlendFilterNoise(noise=[
+                    RippleFilteredNoise(noise=g("gaussian")),
+                    WaveletFilteredNoise(noise=g("gaussian"), noise_high=g("onef_pinkish"),
+                                         wave="db4", level=3),
+                    g("wavelet")], ffilter="highpass", enhance_mode="sharpen",
+                    affect="both")))))),
+        "C": BlendedNoise(
+            custom_noise_mask=g("perlin"),
+            custom_noise_1=GuidedNoise(ref_latent=guide_c, method="euler", noise=RandomNoise(
+                mix_count=2, noise=[
+                    ResizedNoise(custom_noise=g("gaussian"), width=256, height=256),
+                    PerDimNoise(noise=g("pyramid"), dim=1),
+                    LatentOperationFilteredNoise(noise=g("gaussian"), operations=[qfilter_c])])),
+            custom_noise_2=g("gaussian")),
+    }
+
+    def nodes(v):
+        if isinstance(v, NoiseItem):
+            yield v
+            v = list(v.params().values())
+        if isinstance(v, (list, tuple)):
+            for x in v:
+                yield from nodes(x)
+
+    used = [n for t in trees.values() for n in nodes(t)]
+    for cls in (CompositeNoise, GuidedNoise, RepeatedNoise, ModulatedNoise, MultiChildNoise,
+                RandomNoise, ChannelNoise, RippleFilteredNoise, NormalizeToScaleNoise,
+                BlendedNoise, ResizedNoise, LatentOperationFilteredNoise, QuantileFilteredNoise,
+                PerDimNoise, ShuffledNoise, PatternBreakNoise, BlendFilterNoise, BlehOpsNoise,
+                WaveletFilteredNoise, WaveletGenerator):
+        need(any(isinstance(n, cls) for n in used), f"[25] no tree holds a {cls.__name__}")
+
+    def run_item(item, den=None, x=None, sig=None):
+        return sample_sonar_euler_ancestral(den or denoiser, x0 if x is None else x,
+                                            sigmas if sig is None else sig, seed=7,
+                                            noise_item=item)
+
+    def run_tree(k, **kw):
+        return run_item(trees[k], **kw)
+
+    l25 = {}
+    print(f"[25] trees A (composite), B (filters), C (guided) under sonar_euler_ancestral, "
+          f"{cfg} {SHAPE}, {STEPS} Karras steps 14.6 -> 0.03 and 0, seed 7 [{card}]")
+    for k in "ABC":
+        rec = Recorded(denoiser)
+        reset_counts()
+        o = run_tree(k, den=rec)
+        l25[k] = read_counts()
+        need(o.is_cuda and o.shape == SHAPE and bool(torch.isfinite(o).all()),
+             f"[25] tree {k}: output malformed or not finite")
+        need(len(rec.sigmas) == STEPS, f"[25] tree {k}: {len(rec.sigmas)} model calls")
+        need(l25[k] == TREE_LAUNCHES[k], f"[25] tree {k}: launches {l25[k]}, expected "
+                                          f"{TREE_LAUNCHES[k]}")
+        need(torch.equal(o, run_tree(k)), f"[25] tree {k} is not reproducible for one seed")
+        # no host synchronisation inside a step (the first run put the
+        # resize matrices, filter gains and DWT taps on the card)
+        rec = Recorded(denoiser, sync_check=True)
+        try:
+            run_tree(k, den=rec)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            fail(f"[25] tree {k} synchronised inside a step: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print(f"[25] tree {k}: {len(rec.sigmas)} model calls, output std {float(o.std()):.4f}; "
+              f"launches {l25[k]}; {STEPS} steps under set_sync_debug_mode('error'): no sync")
+    need(all(v > 0 for v in l25["A"].values()), f"[25] tree A launched {l25['A']}")
+
+    runs25 = {"gaussian": headline, **{k: (lambda _k=k: run_tree(_k)) for k in "ABC"}}
+    ms25 = {k: [] for k in runs25}
+    for _ in range(3):
+        for k, fn in runs25.items():
+            ms25[k].append(event_ms(torch, fn))
+    tree_stats = {}
+    for k, fn in runs25.items():
+        v = sorted(ms25[k])
+        n25, by25 = profile_run(torch, fn, f"[25] {k}")
+        dev25 = sum(by25.values())
+        tree_stats[k] = {"steps_per_s": STEPS / (v[1] / 1000.0), "run_ms": v,
+                         "device_kernels": n25, "device_us": dev25,
+                         "busy_pct": 100.0 * dev25 / (v[1] * 1000.0)}
+        print(f"[25] {k}: {tree_stats[k]['steps_per_s']:.2f} steps/s (median of "
+              f"{[round(t, 2) for t in v]} ms, in turns with the others), {n25} device "
+              f"kernels, {dev25:.1f} us device, busy {tree_stats[k]['busy_pct']:.1f} % [{card}]")
+    print(json.dumps({"trees": tree_stats, "voronoi_zwalk_mpix_per_sec": zmpix}))
+
+    # the card against the CPU at CONFIG3_STEPS steps, one seed, TF32 off.
+    # pattern_break hashes its input's sixth decimal (remainder(|x|·1e6, 11)),
+    # so the ulps by which the card's FFTs and sums differ from the CPU's come
+    # out of it as unrelated values: tree B is held without its outer
+    # PatternBreakNoise, and pattern_break alone on one input on both
+    torch.backends.cudnn.allow_tf32 = False
+    held = {"A": trees["A"], "B without its PatternBreakNoise": trees["B"].noise,
+            "C": trees["C"]}
+    for k, item in held.items():
+        a = run_item(item, den=cpu_den, x=x0.cpu(), sig=c3_sig)
+        b = run_item(item, sig=c3_sig)
+        rel = rel_err(b, a)[1]
+        print(f"[25] tree {k}, {CONFIG3_STEPS} steps, seed 7, card vs CPU, TF32 off: max rel "
+              f"diff {rel:.3e} (tolerance {TRAJ_TOL:g})")
+        need(b.is_cuda and a.device.type == "cpu" and rel <= TRAJ_TOL,
+             f"[25] tree {k}: card and CPU differ ({rel:.3e})")
+    whole = rel_err(run_tree("B", sig=c3_sig), run_tree("B", den=cpu_den, x=x0.cpu(),
+                                                        sig=c3_sig))[1]
+    from sonar_tpu_torch.utils.misc import pattern_break
+
+    pb_in = torch.randn(SHAPE, generator=torch.Generator().manual_seed(25))
+    rel = rel_err(pattern_break(pb_in.to(dev)), pattern_break(pb_in))[1]
+    print(f"[25] pattern_break on one input, card vs CPU: max rel diff {rel:.3e} (tolerance "
+          f"{XDEV_TOL:g}); tree B whole at {CONFIG3_STEPS} steps: {whole:.3e} (its hash)")
+    need(rel <= XDEV_TOL, f"[25] pattern_break: card and CPU differ ({rel:.3e})")
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"[25] phases 1-25 took {time.perf_counter() - t_run:.0f} s")
+
     src = "sonar_tpu_torch/csrc/"
     n_el = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
     rows = [
@@ -2485,7 +2744,9 @@ def main():
          "launches_config3_sdxl": l19[k], "launches_config2_sdxl": l21["config2"][k],
          "launches_config4_sdxl": l21["config4"][k], "launches_config5_video": l22[k],
          "launches_registry": reg_launches[k],
-         "launches_registry_sdxl": sum(l24[nm][k] for nm in names24)}
+         "launches_registry_sdxl": sum(l24[nm][k] for nm in names24),
+         "launches_combinators": sum(l25[t][k] for t in "ABC"),
+         "launches_config5_zwalk": lz[k]}
         for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 from .blend import BLENDING_MODES, blend, blend_scalar, register_blend_mode
-from .normalize import (normalize_to_scale, quantile_normalize, scale_noise, tmedian, tmode,
+from .normalize import (normalize_to_scale, normalize_to_scale_adv, quantile_normalize, scale_noise, tmedian, tmode,
                         tquantile, tstd)
 from .rng import derive_seed, seed_from
 
@@ -9,6 +9,7 @@ __all__ = [
     "blend_scalar",
     "derive_seed",
     "normalize_to_scale",
+    "normalize_to_scale_adv",
     "quantile_normalize",
     "register_blend_mode",
     "scale_noise",

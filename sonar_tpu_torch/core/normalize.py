@@ -14,7 +14,8 @@ a Python ``if`` on a tensor would wait for the card once per noise draw.
 The global mode is kernel B2's wrapper, so on a CUDA tensor it launches the
 kernel and on a CPU tensor it runs the plain version.
 
-``normalize_to_scale_adv`` is not ported yet.
+``normalize_to_scale_adv`` remaps the negative and the positive values to
+ranges of their own with masks (its auto-bounds are 0-dim device tensors).
 """
 
 from __future__ import annotations
@@ -263,6 +264,52 @@ def normalize_to_scale(
     normalized = (latent - min_val) / ((max_val - min_val) + eps)
     return torch.clamp(normalized * (target_max - target_min) + target_min,
                        target_min, target_max)
+
+
+def _clip(v: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip`` with bounds that are numbers or 0-dim tensors, mixed."""
+    v = torch.maximum(v, lo) if isinstance(lo, torch.Tensor) else v.clamp(min=lo)
+    return torch.minimum(v, hi) if isinstance(hi, torch.Tensor) else v.clamp(max=hi)
+
+
+def _masked_normalize_to_scale(t, mask, target_min, target_max, *, eps=1e-07):
+    """normalize_to_scale over only the masked elements (global stats)."""
+    big = torch.finfo(t.dtype).max
+    min_val = torch.where(mask, t, big).min()
+    max_val = torch.where(mask, t, -big).max()
+    normalized = (t - min_val) / ((max_val - min_val) + eps)
+    remapped = _clip(normalized * (target_max - target_min) + target_min,
+                     target_min, target_max)
+    return torch.where(mask, remapped, t)
+
+
+def normalize_to_scale_adv(t: torch.Tensor, *, min_pos: float, max_pos: float,
+                           min_neg: float, max_neg: float, dim=(-3, -2, -1)) -> torch.Tensor:
+    """Separate ± range remap with auto-bounds (py/utils.py:473-510). The
+    reference flattens each sign's values into one 1-D tensor, so its
+    statistics are global over that sign whatever ``dim`` says; masks do
+    the same here. ``max_neg >= 0`` takes the largest negative value as the
+    bound and ``min_pos < 0`` the smallest positive one, as 0-dim tensors on
+    the device."""
+    del dim  # the reference's statistics are global (see above)
+    skip_pos = max_pos <= 0 or min_pos >= max_pos
+    skip_neg = min_neg >= 0 or min_neg >= max_neg
+    neg_mask, pos_mask = t < 0.0, t > 0.0
+    big = torch.finfo(t.dtype).max
+    result = torch.zeros_like(t)
+    if skip_neg:
+        result = torch.where(neg_mask, t, result)
+    else:
+        mn = torch.where(neg_mask, t, -big).max() if max_neg >= 0 else max_neg
+        result = torch.where(neg_mask, _masked_normalize_to_scale(t, neg_mask, min_neg, mn),
+                             result)
+    if skip_pos:
+        result = torch.where(pos_mask, t, result)
+    else:
+        mp = torch.where(pos_mask, t, big).min() if min_pos < 0 else min_pos
+        result = torch.where(pos_mask, _masked_normalize_to_scale(t, pos_mask, mp, max_pos),
+                             result)
+    return result
 
 
 def scale_noise(

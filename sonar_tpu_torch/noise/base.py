@@ -19,6 +19,7 @@ normalization of their children via ``normalized``; an item's own tri-state
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable
 
 import torch
@@ -68,6 +69,24 @@ class NoiseCtx:
 
     def with_shape(self, shape: tuple[int, ...]) -> "NoiseCtx":
         return dataclasses.replace(self, shape=tuple(shape))
+
+    def ref_like(self):
+        """The exemplar latent conformed to this ctx, or None: unchanged
+        when the shapes are equal, bicubic-resized when only H and W differ
+        (the reference's interpolate fallback, py/noise.py:582-589), None
+        otherwise. It follows the ctx's device and type."""
+        if self.ref is None:
+            return None
+        ref = torch.as_tensor(self.ref).to(device=default_device(self.device),
+                                           dtype=self.dtype)
+        if tuple(ref.shape) == tuple(self.shape):
+            return ref
+        if (ref.ndim == self.ndim and ref.ndim >= 3
+                and tuple(ref.shape[:-2]) == tuple(self.shape[:-2])):
+            from ..ops.resample import scale_samples
+
+            return scale_samples(ref, self.width, self.height, mode="bicubic")
+        return None
 
     def adjusted_shape(self) -> tuple[int, ...]:
         """5D (B,C,F,H,W) folded to (B,C*F,H,W) for 2D-spatial algorithms
@@ -119,6 +138,13 @@ class NoiseItem:
     def clone(self) -> "NoiseItem":
         p = self.cloned_params()
         factor = p.pop("factor")
+        # the base records ``normalize`` for every item, but some subclasses
+        # take only normalize_result, normalize_noise, ...: drop what their
+        # __init__ does not accept (only ever at its default)
+        sig = inspect.signature(self.__class__.__init__)
+        if not any(prm.kind == prm.VAR_KEYWORD for prm in sig.parameters.values()):
+            allowed = set(sig.parameters) - {"self", "factor"}
+            p = {k: v for k, v in p.items() if k in allowed}
         return self.__class__(factor, **p)
 
     def set_factor(self, factor: float) -> "NoiseItem":

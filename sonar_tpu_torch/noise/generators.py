@@ -456,7 +456,7 @@ class GreenTestGenerator(Generator):
         fy = torch.fft.fftfreq(h, device=noise.device)[:, None] ** self.y_pow
         fx = torch.fft.fftfreq(w, device=noise.device) ** self.x_pow
         power = torch.sqrt(fy + fx)
-        power[0, 0] = self.power_base
+        power[0, 0].fill_(self.power_base)  # a fill: assigning a number copies it to the card
         spec = torch.fft.fft2(noise) / torch.sqrt(power).to(torch.complex64)
         out = torch.fft.ifft2(spec)
         out = out * (scale / tstd(out))
@@ -529,7 +529,7 @@ class OneFGenerator(Generator):
         power = (fx**2 + fy**2) ** (-self.alpha / 2.0)
         if self.k != 0:
             power = self.k / power
-        power[0, 0] = self.base_power
+        power[0, 0].fill_(self.base_power)  # a fill: assigning a number copies it to the card
         power = power[None, None].to(torch.complex64)
         spec = torch.fft.fftn(noise)
         spec = spec / (torch.sqrt(power) if self.use_sqrt else power)

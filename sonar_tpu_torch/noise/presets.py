@@ -4,9 +4,9 @@ py/noise.py:2244-2489).
 The JAX registry imports the whole zoo when it is imported. The port
 registers lazily instead: a name maps to a loader that imports its generator
 module only when that name is first asked for, so the main path loads only
-the gaussian generator. Registered: 35 of the JAX registry's 38 names, with
-its exact parameters (presets.py:64-221); ``distro``, ``collatz`` and
-``wavelet`` are not ported yet.
+the gaussian generator. Registered: 36 of the JAX registry's 38 names, with
+its exact parameters (presets.py:64-221, 187); ``distro`` and ``collatz``
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,6 +65,12 @@ def _load_pyramid_mix(name: str, **member):
     """A pyramid mix: two PyramidGenerators with transforms 0.2 and -0.8."""
     return _load_mix(name, (("PyramidGenerator", member, 0.2),
                             ("PyramidGenerator", member, -0.8)))
+
+
+def _load_wavelet():
+    from .wavelet import WaveletGenerator
+
+    return _simple(WaveletGenerator)
 
 
 def _load_voronoi_fuzz():
@@ -134,6 +140,7 @@ _LOADERS: dict[str, Callable[[], Callable[..., Generator]]] = {
                                              upscale_mode="bislerp"),
     "voronoi_fuzz": _load_voronoi_fuzz,
     "voronoi_mix": _load_voronoi_mix,
+    "wavelet": _load_wavelet,
 }
 
 

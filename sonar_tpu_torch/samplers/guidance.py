@@ -11,14 +11,17 @@ from .ancestral import to_d
 from .momentum import GuidanceConfig, GuidanceType, SonarConfig
 
 
-def prepare_ref_latent(latent):
+def prepare_ref_latent(latent, *, strict_reference_compat: bool = False):
     """Per-(H,W) standardize (py/sonar.py:335-341). Zero-std guard: a
     constant guide latent degrades to the mean-subtracted latent instead of
-    the reference's NaN."""
+    the reference's NaN; ``strict_reference_compat=True`` keeps the
+    reference's raw division (a NaN trajectory for a constant guide)."""
     if latent is None:
         return None
     avg = latent.mean(dim=(-2, -1), keepdim=True)
     std = tstd(latent, dim=(-2, -1), keepdim=True)
+    if strict_reference_compat:
+        return (latent - avg) / std
     return (latent - avg) / torch.where(std == 0, torch.ones_like(std), std)
 
 

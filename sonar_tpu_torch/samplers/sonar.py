@@ -322,7 +322,12 @@ def sample_sonar_euler_ancestral(
         noise, nstate = st.noise_fn(nstate, i, sigma, sigma_next)
         info = {"sigma": sigma, "sigma_hat": sigma, "denoised": denoised}
         if fused:
-            out, new_hd = fused_momentum_step(xc, denoised, mom["hd"], noise,
+            # the tail (sigma_next == 0) adds no noise, as the composed path
+            # below: zeros in its place, so that a draw that is not finite
+            # there (ModulatedNoise's 0/0 norm ratio at sigma_up == 0) does
+            # not turn noise * 0 into NaN
+            step_noise = noise if sigma_next > 0 else torch.zeros_like(noise)
+            out, new_hd = fused_momentum_step(xc, denoised, mom["hd"], step_noise,
                                               tables[int(mom["has"]), i])
             mom = {"hd": new_hd,
                    "has": mom["has"] or check_step(cfg, i, is_history=True)}

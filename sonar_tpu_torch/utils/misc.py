@@ -1,12 +1,13 @@
 """Misc utilities (port of ``sonar_tpu.utils.misc``; reference
-py/utils.py). Ported so far: ``fallback``, ``maybe_apply``,
-``clamp_float``, ``filter_dict``, the two step-from-sigma helpers that
-wavelet CFG uses; and the port's own ``host_sigma``, default-device rule
-and ``work_dtype``."""
+py/utils.py): ``fallback``, ``maybe_apply``, ``clamp_float``,
+``filter_dict``, ``trunc_decimals``, ``adjust_slice``, ``crop_samples``,
+``pattern_break``, ``elementwise_shuffle_by_dim``, the two step-from-sigma
+helpers that wavelet CFG uses; and the port's own ``host_sigma``,
+default-device rule and ``work_dtype``."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +31,106 @@ def filter_dict(d: dict, keep, *, recursive: bool = False) -> dict:
         for k, v in d.items()
         if k in keep
     }
+
+
+def trunc_decimals(x: torch.Tensor, decimals: int = 3) -> torch.Tensor:
+    """py/utils.py:660-664 — truncate (toward zero) to N decimals."""
+    x_i = torch.trunc(x)
+    scale = 10.0**decimals
+    return x_i + torch.trunc((x - x_i) * scale) * (1.0 / scale)
+
+
+def adjust_slice(s: slice, size: int, offset: int) -> slice:
+    """py/utils.py:513-523 — shift a slice by a clamped offset."""
+    if offset == 0:
+        return s
+    start = s.start if s.start is not None else 0
+    stop = s.stop if s.stop is not None else size
+    if offset < 0:
+        adj = min(start, abs(offset))
+        return slice(start - adj, stop - adj)
+    adj = min(size - stop, offset)
+    return slice(start + adj, stop + adj)
+
+
+def crop_samples(tensor: torch.Tensor, width: int, height: int, *, mode: str = "center",
+                 offset_width: int = 0, offset_height: int = 0) -> torch.Tensor:
+    """9-anchor crop with clamped offsets (py/utils.py:526-568): ``mode`` is
+    ``center`` or ``<top|center|bottom>_<left|center|right>``."""
+    if tensor.ndim < 3:
+        raise ValueError("Can only handle >= 3 dimensional tensors")
+    th, tw = tensor.shape[-2:]
+    if (tw, th) == (width, height):
+        return tensor
+    if tw < width or th < height:
+        raise ValueError("Can't crop sample smaller than requested width or height")
+    if mode == "center":
+        hmode = wmode = "center"
+    else:
+        hmode, wmode, *extra = mode.split("_")
+        if extra:
+            raise ValueError("Bad composite mode")
+    starts = {"top": 0, "left": 0, "bottom": th - height, "right": tw - width}
+    if hmode not in ("top", "center", "bottom"):
+        raise ValueError("Bad height mode in composite mode")
+    if wmode not in ("left", "center", "right"):
+        raise ValueError("Bad width mode in composite mode")
+    h0 = (th - height) // 2 if hmode == "center" else starts[hmode]
+    w0 = (tw - width) // 2 if wmode == "center" else starts[wmode]
+    wslice = adjust_slice(slice(w0, w0 + width), tw, offset_width)
+    hslice = adjust_slice(slice(h0, h0 + height), th, offset_height)
+    return tensor[..., hslice, wslice]
+
+
+def pattern_break(noise: torch.Tensor, *, percentage: float = 0.5, detail_level: float = 0.0,
+                  restore_scale: bool = True,
+                  blend_function: Callable | None = None) -> torch.Tensor:
+    """Remainder-hash + erfinv pattern scrambler (py/utils.py:576-596), in
+    float32 and rounded once to the input's type. The range is restored
+    from 0-dim device tensors: nothing is read back."""
+    from ..core.blend import BLENDING_MODES
+    from ..core.normalize import normalize_to_scale
+
+    blend_function = fallback(blend_function, BLENDING_MODES["lerp"])
+    x = noise.to(torch.float32)
+    noise_normed = normalize_to_scale(x, -1.0, 1.0, dim=None)
+    result = torch.remainder(torch.abs(noise_normed) * 1000000, 11) / 11
+    result = torch.clamp((1 + detail_level / 10) * torch.erfinv(2 * result - 1)
+                         * (2**0.5) * 0.2, -1, 1)
+    if restore_scale:
+        result = normalize_to_scale(result, x.min(), x.max(), dim=None)
+    return blend_function(x, result, percentage).to(noise.dtype)
+
+
+def elementwise_shuffle_by_dim(t: torch.Tensor, seed: int, *, dim: int = -1,
+                               prob: float = 1.0, no_identity: bool = False) -> torch.Tensor:
+    """Per-position shuffle along one axis (py/utils.py:599-657), drawn on
+    the device: each line along ``dim`` is shuffled with probability
+    ``prob`` by a permutation that is the ``argsort`` of Philox uniforms
+    (kernel B3), or, with ``no_identity``, by a cyclic shift of 1 to n-1
+    (a derangement), ``1 + floor(u·(n-1))`` of one uniform a line."""
+    from ..core.rng import derive_seed
+    from ..kernels.hwrng import philox_rand
+
+    dim = dim % t.ndim
+    moved = torch.movedim(t, dim, -1)
+    lead, n = moved.shape[:-1], moved.shape[-1]
+    flat = moved.reshape(-1, n)
+    p = flat.shape[0]
+    base = torch.arange(n, device=t.device).expand(p, n)
+    mask = (philox_rand(derive_seed(seed, "mask"), (p,), device=t.device) < prob
+            if prob < 1.0 else None)
+    if no_identity:
+        u = philox_rand(derive_seed(seed, "perm"), (p,), device=t.device)
+        offsets = torch.floor(u * (n - 1)).to(torch.int64) + 1
+        perms = (base + offsets[:, None]) % n
+    else:
+        u = philox_rand(derive_seed(seed, "perm"), (p, n), device=t.device)
+        perms = torch.argsort(u, dim=1, stable=True)
+    if mask is not None:
+        perms = torch.where(mask[:, None], perms, base)
+    shuffled = torch.gather(flat, 1, perms)
+    return torch.movedim(shuffled.reshape(*lead, n), -1, dim)
 
 
 def host_sigma(args: dict) -> float:

@@ -138,7 +138,10 @@ def _sfb(pair: torch.Tensor, w: WaveletFilters, mode: str, axis: int,
     shape[axis] = 2 * m - 1 + 2 * (L - 1)
     up = pair.new_zeros(shape)
     up.narrow(axis, L - 1, 2 * m - 1)[(slice(None),) * (pair.ndim + axis) + (slice(None, None, 2),)] = pair
-    win = up.unfold(axis, L, 1).narrow(axis - 1, start, out_len)
+    win = up.unfold(axis, L, 1)
+    # a slice that runs past the end stops there, as the JAX package's does
+    # (an inverse in a padded mode of a periodization analysis)
+    win = win.narrow(axis - 1, start, min(out_len, win.shape[axis - 1] - start))
     return (win * _bank(w, "rec", axis, pair.device, pair.dtype)).sum((axis - 2, -1))
 
 

@@ -912,3 +912,156 @@ def test_registry_sampler_on_the_card_matches_the_cpu(cuda, name):
     if name == "dpm_adaptive":  # the same attempts, the same accepted steps
         assert len(set(card_calls[::3])) == len(set(cpu_calls[::3]))
     assert _rel_err(card.cpu(), cpu) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The combinator algebra on the card (torch ops; noise through B2-B6): each
+# of the JAX package's 16 other combinator classes, BlendFilterNoise,
+# BlehOpsNoise and WaveletFilteredNoise, one seed, CPU against card, 1e-5
+# relative to max(1, |cpu|) (1e-4 where cuFFT meets pocketfft in
+# ModulatedNoise's frequency and spectral modes); trees A and B of
+# chip_smoke.py [25] under sonar_euler_ancestral with no host
+# synchronisation inside a step; the blur and the frequency filter bit for
+# bit whatever the TF32 switches say.
+# ---------------------------------------------------------------------------
+
+
+def _combinator_cases():
+    from sonar_tpu_torch.cfg.latent_ops import SonarLatentOperationQuantileFilter
+    from sonar_tpu_torch.noise import (BlehOpsNoise, BlendedNoise, BlendFilterNoise, ChannelNoise,
+                                       CompositeNoise, GuidedNoise, LatentOperationFilteredNoise,
+                                       ModulatedNoise, NormalizeToScaleNoise, PatternBreakNoise,
+                                       PerDimNoise, QuantileFilteredNoise, RandomNoise,
+                                       RepeatedNoise, ResizedNoise, RippleFilteredNoise,
+                                       ShuffledNoise, WaveletFilteredNoise, get_noise_item)
+
+    g = get_noise_item
+    mask = np.zeros((64, 64), np.float32)
+    mask[:, :32] = 1.0
+    guide = np.random.default_rng(11).standard_normal((1, 4, 32, 32)).astype(np.float32)
+    rules = [{"when": {"sigma_min": 0.5, "sigma_max": 10.0},
+              "ops": [["ffilter", {"filter": "highpass", "strength": 0.6}],
+                      ["enhance", {"mode": "sharpen", "scale": 0.3}],
+                      ["roll", {"dim": -1, "amount": 5}]]}]
+    return {
+        "composite": (lambda: CompositeNoise(mask=mask, dst_noise=g("gaussian"),
+                                             src_noise=g("pyramid")), 1e-5),
+        "guided": (lambda: GuidedNoise(ref_latent=guide, noise=g("gaussian")), 1e-5),
+        "repeated": (lambda: RepeatedNoise(noise=g("pyramid"), repeat_length=2,
+                                           max_recycle=1, permute="always"), 1e-5),
+        **{f"modulated_{m}": (lambda _m=m: ModulatedNoise(noise=g("gaussian"),
+                                                           modulation_type=_m),
+                              1e-5 if m == "intensity" else 1e-4)
+           for m in ("intensity", "frequency", "spectral_signum")},
+        "random": (lambda: RandomNoise(noise=[g("gaussian"), g("perlin"), g("pyramid")],
+                                       mix_count=2), 1e-5),
+        "channel": (lambda: ChannelNoise(noise=[g("gaussian"), g("highres_pyramid")]), 1e-5),
+        "ripple": (lambda: RippleFilteredNoise(noise=g("gaussian"), roll=2.0), 1e-5),
+        "normalize_to_scale": (lambda: NormalizeToScaleNoise(noise=g("gaussian"),
+                                                             mode="advanced"), 1e-5),
+        "blended": (lambda: BlendedNoise(custom_noise_1=g("gaussian"),
+                                         custom_noise_2=g("perlin"),
+                                         custom_noise_mask=g("pyramid")), 1e-5),
+        "resized": (lambda: ResizedNoise(custom_noise=g("gaussian"), width=256, height=256),
+                    1e-5),
+        "latent_op": (lambda: LatentOperationFilteredNoise(
+            noise=g("gaussian"), operations=[SonarLatentOperationQuantileFilter(
+                quantile=0.9, strategy="tanh")]), 1e-5),
+        "quantile": (lambda: QuantileFilteredNoise(noise=g("gaussian")), 1e-5),
+        "per_dim": (lambda: PerDimNoise(noise=g("pyramid"), dim=1), 1e-5),
+        "shuffled": (lambda: ShuffledNoise(noise=g("gaussian"), dims=(1, -1),
+                                           percentages=(0.5, 1.0)), 1e-5),
+        # uniforms are the same bits on both: pattern_break hashes its input's
+        # sixth decimal, so the normals' ulps would come out as other values
+        "pattern_break": (lambda: PatternBreakNoise(noise=g("uniform")), 1e-5),
+        "blend_filter": (lambda: BlendFilterNoise(
+            noise=[g("gaussian"), g("wavelet")], ffilter="highpass", enhance_mode="sharpen",
+            affect="both"), 1e-5),
+        "bleh_ops": (lambda: BlehOpsNoise(noise=g("gaussian"), rules=rules), 1e-5),
+        "wavelet_filtered": (lambda: WaveletFilteredNoise(noise=g("gaussian"),
+                                                          noise_high=g("onef_pinkish"),
+                                                          wave="db4", level=3), 1e-5),
+        "wavelet": (lambda: g("wavelet"), 1e-5),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_combinator_cases()))
+def test_combinators_draw_the_same_on_cpu_and_card(cuda, name):
+    from sonar_tpu_torch.noise import make_noise_sampler
+
+    make, tol = _combinator_cases()[name]
+    ref = _randn((1, 4, 64, 64), "cpu", 4)
+    out = []
+    for where in ("cpu", cuda):
+        fn, st = make_noise_sampler(make(), (1, 4, 64, 64), device=where, seed=5,
+                                    ref_latent=ref.to(where))
+        draws = []
+        for s, sn in ((14.6, 9.0), (9.0, 4.0), (4.0, 1.0)):
+            n, st = fn(st, s, sn)
+            draws.append(n)
+        out.append(torch.stack(draws))
+    assert out[1].is_cuda and _rel_err(out[1].cpu(), out[0]) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", ["A", "B"])
+def test_combinator_trees_do_not_synchronise(cuda, tree):
+    from sonar_tpu_torch.noise import (BlehOpsNoise, BlendFilterNoise, ChannelNoise,
+                                       CompositeNoise, ModulatedNoise, NormalizeToScaleNoise,
+                                       PatternBreakNoise, QuantileFilteredNoise, RepeatedNoise,
+                                       RippleFilteredNoise, ShuffledNoise, WaveletFilteredNoise,
+                                       get_noise_item as g)
+    from sonar_tpu_torch.samplers import sample_sonar_euler_ancestral
+
+    cases = _combinator_cases()
+    if tree == "A":
+        mask = np.zeros((32, 32), np.float32)
+        mask[:, :16] = 1.0
+        item = CompositeNoise(
+            mask=mask, dst_noise=RepeatedNoise(noise=g("pyramid"), repeat_length=4,
+                                               max_recycle=2),
+            src_noise=ModulatedNoise(noise=ChannelNoise(noise=[
+                g("gaussian"), g("perlin"), g("highres_pyramid"), g("voronoi_mix")]),
+                modulation_type="intensity"))
+    else:
+        rules = cases["bleh_ops"][0]().rules
+        item = PatternBreakNoise(noise=ShuffledNoise(noise=QuantileFilteredNoise(
+            noise=NormalizeToScaleNoise(mode="advanced", noise=BlehOpsNoise(
+                rules=rules, noise=BlendFilterNoise(noise=[
+                    RippleFilteredNoise(noise=g("gaussian")),
+                    WaveletFilteredNoise(noise=g("gaussian"), noise_high=g("onef_pinkish"),
+                                         wave="db4", level=3),
+                    g("wavelet")], ffilter="highpass", enhance_mode="sharpen",
+                    affect="both"))))))
+    card_den, _ = _registry_pair(cuda)
+    sig = torch.tensor([14.6, 6.0, 2.5, 0.9, 0.3, 0.0])
+    x0 = _randn((1, 4, 32, 32), cuda, 2) * 14.6
+    first = sample_sonar_euler_ancestral(card_den, x0, sig, seed=7, noise_item=item)
+    torch.cuda.synchronize()  # the first run puts the constants on the card
+    rec = _Recorded(card_den, sync_check=True)
+    try:
+        again = sample_sonar_euler_ancestral(rec, x0, sig, seed=7, noise_item=item)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(rec.sigmas) == 5 and torch.equal(first, again)
+    assert bool(torch.isfinite(again).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(64, 64), (37, 50)])
+def test_blur_and_ffilter_are_bit_stable_under_tf32(cuda, hw):
+    from sonar_tpu_torch.noise.blendfilter import _sep_blur, ffilter
+
+    x = _randn((2, 4) + hw, cuda, 6)
+    outs = []
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        outs.append((_sep_blur(x, 1.0), ffilter(x, 0.2, 0.5, "highpass", 0.7)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert _rel_err(outs[0][0].cpu(), _sep_blur(x.cpu(), 1.0)) <= 1e-5
+    assert _rel_err(outs[0][1].cpu(), ffilter(x.cpu(), 0.2, 0.5, "highpass", 0.7)) <= 1e-5

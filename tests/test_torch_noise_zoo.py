@@ -236,8 +236,8 @@ def test_class_constants_match_jax():
 def test_registry_names_and_parameters_match_jax():
     jnames = list(JP.noise_type_names())
     tnames = list(noise_type_names())
-    assert len(tnames) == 35
-    assert tnames == [n for n in jnames if n not in ("distro", "collatz", "wavelet")]
+    assert len(tnames) == 36
+    assert tnames == [n for n in jnames if n not in ("distro", "collatz")]
     assert list(noise_type_names(default=None, skip=("perlin",))) == \
         [n for n in sorted(tnames) if n != "perlin"]
     for name in NEW_NAMES:
