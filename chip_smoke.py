@@ -163,7 +163,28 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    runs by events in turns with the gaussian headline, busy share, and
    card vs CPU at 4 steps, TF32 off (tree B without its outer
    ``PatternBreakNoise``, whose hash of the sixth decimal turns ulps into
-   unrelated values, and ``pattern_break`` alone on one input).
+   unrelated values, and ``pattern_break`` alone on one input);
+26. runs the rest of the noise zoo and the dual-tree transform: (a)
+   ``sample_sonar_euler_ancestral`` on the flagship at 1×4×64×64, 20 steps,
+   seed 7, with ``distro`` noise (its default normal and its gamma, whose
+   rounds of rejection are drawn at once), ``collatz`` noise and
+   ``ScatternetFilteredNoise`` over gaussian (DTCWT, order 1): launches,
+   reproducibility, 20 steps under ``torch.cuda.set_sync_debug_mode("error")``,
+   steps/s as the median of 3 runs by events in turns with the headline,
+   busy share, card vs CPU at 4 steps, TF32 off (gamma by the share of
+   elements past the tolerance: an accept decision may differ where B3's
+   normals differ by an ulp); (b) each of the 26 distributions drawn once on
+   the card and the CPU on one seed (transforms within 1e-5; the rejection
+   samplers and geometric's floor by the share past 1e-5, under 1e-3) and
+   2^20 times on the card, held by a KS test against ``scipy.stats`` or by
+   their moments; (c) ``dtcwt2d``/``idtcwt2d`` at 1×4×128×128, level 3, for
+   every biort and qshift name: reconstruction within 1e-5 with the TF32
+   switches on and off, card vs CPU 1e-5, and scatternet's four layers card
+   vs CPU; (d) config 3 with ``use_dtcwt`` on phase 19's SDXL-class UNet
+   (30 steps, 3 runs a side in turns with [19]'s config 3 and euler + basic
+   CFG): ms per model call, the overhead, one WCFG call's device time and
+   kernels, busy share, peak memory, one guided call under the sync check,
+   and the flagship card vs CPU at 4 steps on one injected stream, TF32 off.
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
@@ -261,6 +282,13 @@ TREE_LAUNCHES = {
     "C": {"B1": 20, "B2": 40, "B3": 252, "B4": 48, "B5": 0, "B6": 0},
 }
 ZWALK_Z_INCREMENT = 0.35  # tools/bench_configs.py:151
+# [26]'s noises under sonar_euler_ancestral, 20 steps, seed 7: B1 and B2 once a
+# step (the sampler's step and its normalized draw); B3 a draw: distro normal
+# 1 (the normals), gamma 2 (its 8 rounds' normals and uniforms, drawn at once),
+# collatz 10 (one seed array an iteration), scatternet 1 (its gaussian child)
+ZOO_LAUNCHES = {k: {"B1": 20, "B2": 20, "B3": 20 * n, "B4": 0, "B5": 0, "B6": 0}
+                for k, n in (("distro", 1), ("distro gamma", 2), ("collatz", 10),
+                             ("scatternet", 1))}
 
 
 def fail(msg: str):
@@ -1782,7 +1810,8 @@ def main():
     print(f"[16] timing on {card} (cudnn TF32 on, matmul TF32 off)")
     runs = {"gaussian": lambda: headline(), "config3a": lambda: sde()}
     ms = {"gaussian": [], "config3a": []}
-    for which in ("gaussian", "config3a", "config3a", "gaussian") * 2:
+    # 4 runs a side (8 until [26] needed the room)
+    for which in ("gaussian", "config3a", "config3a", "gaussian"):
         ms[which] += [cuda_ms(torch, runs[which], 1) for _ in range(2)]
 
     def spread(vals, scale):
@@ -1908,10 +1937,10 @@ def main():
     # one guided call of the config-3 pipeline (UNet pair + WCFG) reads nothing back
     pair = eps_pair(model)
 
-    def config3_pipe(p, **kw):
+    def config3_pipe(p, rules=None, **kw):
         return SonarPipeline(model=p[0], model_uncond=p[1], model_sampling=ms3,
                              sampler="sonar_dpmpp_sde", sonar_config=SonarConfig(momentum=0.95),
-                             cfg_scale=7.0, wavelet_cfg=WaveletCFG(rules=config3_rules()),
+                             cfg_scale=7.0, wavelet_cfg=WaveletCFG(rules=rules or config3_rules()),
                              seed=7, **kw)
 
     guided = config3_pipe(pair)._denoiser(sdxl_np)
@@ -2039,7 +2068,8 @@ def main():
 
     runs19 = sdxl_pipes(bpair)
     ms19 = {"euler": [], "config3": []}
-    for which in ("euler", "config3", "config3", "euler") * 2:
+    # 2 runs a side ([26] d times config 3 again, 3 runs a side in turns)
+    for which in ("euler", "config3", "config3", "euler"):
         ms19[which].append(event_ms(torch, runs19[which]))
     per_call = {k: sorted(t / (SDXL_STEPS * (2 if k == "config3" else 1)) for t in v)
                 for k, v in ms19.items()}
@@ -2214,7 +2244,8 @@ def main():
          "config 4: the FreeU patches changed nothing")
 
     ms21 = {k: [] for k in runs21}
-    for which in ("euler", "config4", "config2", "config2", "config4", "euler") * 2:
+    # 2 runs a side (4 until [26] needed the room)
+    for which in ("euler", "config4", "config2", "config2", "config4", "euler"):
         ms21[which].append(event_ms(torch, runs21[which]))
     per21 = {k: sorted(t / SDXL_STEPS for t in v) for k, v in ms21.items()}
     for k, v in per21.items():
@@ -2506,7 +2537,7 @@ def main():
               f"(busy {100 * tot24 / (med(sorted(ms24[nm])) * 1000):.1f} %); B2 "
               f"{sum(v for n_, v in by24.items() if 'scale_noise_' in n_):.1f} us, B3 "
               f"{sum(v for n_, v in by24.items() if 'philox_fill' in n_):.1f} us [{card}]")
-    del big, bpair, bpair4, runs19, runs21, runs24, counted_runs, out3, outE, out21
+    del bpair4, runs19, runs21, runs24, counted_runs, out3, outE, out21  # [26] d uses big
     print(f"[24] phases 1-24 took {time.perf_counter() - t_run:.0f} s (the kernels' build "
           f"{build_s:.0f} s of it)")
 
@@ -2709,6 +2740,270 @@ def main():
     torch.backends.cudnn.allow_tf32 = True
     print(f"[25] phases 1-25 took {time.perf_counter() - t_run:.0f} s")
 
+    # -- phase 26: the rest of the noise zoo, the DTCWT and wavelet CFG on it -------------
+    t26 = time.perf_counter()
+    print(f"[26] {t26 - t_run:.0f} s into the run")
+    from scipy import stats as sst
+
+    from sonar_tpu_torch.noise import ScatternetFilteredNoise
+    from sonar_tpu_torch.noise import scatternet as SN
+    from sonar_tpu_torch.noise.distro import DISTRO_PARAMS, REJECTION, DistroGenerator
+    from sonar_tpu_torch.wavelets import dtcwt2d, idtcwt2d
+
+    # (a) four noises under sonar_euler_ancestral, flagship, 20 steps, seed 7
+    zoo = {"distro": {"sonar_config": SonarConfig(noise_type="distro")},
+           "distro gamma": {"noise_item": get_noise_item("distro", distro="gamma")},
+           "collatz": {"sonar_config": SonarConfig(noise_type="collatz")},
+           "scatternet": {"noise_item": ScatternetFilteredNoise(noise=get_noise_item("gaussian"))}}
+
+    def run_zoo(k, den=None, x=None, sig=None):
+        return sample_sonar_euler_ancestral(den or denoiser, x0 if x is None else x,
+                                            sigmas if sig is None else sig, seed=7, **zoo[k])
+
+    l26 = {}
+    for k in zoo:
+        rec = Recorded(denoiser)
+        reset_counts()
+        o = run_zoo(k, den=rec)
+        l26[k] = read_counts()
+        need(o.is_cuda and o.shape == SHAPE and bool(torch.isfinite(o).all()),
+             f"[26] {k}: output malformed or not finite")
+        need(len(rec.sigmas) == STEPS, f"[26] {k}: {len(rec.sigmas)} model calls")
+        need(l26[k] == ZOO_LAUNCHES[k], f"[26] {k}: launches {l26[k]}, expected "
+                                        f"{ZOO_LAUNCHES[k]}")
+        # the run under the sync check is the reproducibility run too
+        rec = Recorded(denoiser, sync_check=True)
+        try:
+            again = run_zoo(k, den=rec)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            fail(f"[26] {k} synchronised inside a step: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        need(torch.equal(o, again), f"[26] {k} is not reproducible for one seed")
+        print(f"[26] {k}: {len(rec.sigmas)} model calls, output std {float(o.std()):.4f}; "
+              f"launches {l26[k]}; {STEPS} steps under set_sync_debug_mode('error'): no sync")
+    runs26 = {"gaussian": headline, **{k: (lambda _k=k: run_zoo(_k)) for k in zoo}}
+    ms26 = {k: [] for k in runs26}
+    for _ in range(3):
+        for k, fn in runs26.items():
+            ms26[k].append(event_ms(torch, fn))
+    zoo_stats = {}
+    for k, fn in runs26.items():
+        v = sorted(ms26[k])
+        n26, by26 = profile_run(torch, fn, f"[26] {k}")
+        dev26 = sum(by26.values())
+        zoo_stats[k] = {"steps_per_s": STEPS / (v[1] / 1000.0), "run_ms": v,
+                        "device_kernels": n26, "device_us": dev26,
+                        "busy_pct": 100.0 * dev26 / (v[1] * 1000.0)}
+        print(f"[26] {k}: {zoo_stats[k]['steps_per_s']:.2f} steps/s (median of "
+              f"{[round(t, 2) for t in v]} ms, in turns with the others), {n26} device "
+              f"kernels, {dev26:.1f} us device, busy {zoo_stats[k]['busy_pct']:.1f} % [{card}]")
+    # card vs CPU at CONFIG3_STEPS steps, one seed, TF32 off. Gamma's accept
+    # decisions may differ where B3's normals differ by an ulp (a round's
+    # test lands within ~1e-6 of its edge about once in a million): its share
+    # of elements past the tolerance must stay under 1e-3, as the draws' must
+    torch.backends.cudnn.allow_tf32 = False
+    for k in zoo:
+        a = run_zoo(k, den=cpu_den, x=x0.cpu(), sig=c3_sig)
+        b = run_zoo(k, sig=c3_sig)
+        rel = rel_err(b, a)[1]
+        past = float(((b.cpu().double() - a.double()).abs()
+                      > TRAJ_TOL * float(a.abs().max())).double().mean())
+        print(f"[26] {k}, {CONFIG3_STEPS} steps, seed 7, card vs CPU, TF32 off: max rel diff "
+              f"{rel:.3e}, share past {TRAJ_TOL:g}: {past:.2e}")
+        ok = past <= 1e-3 if k == "distro gamma" else rel <= TRAJ_TOL
+        need(b.is_cuda and a.device.type == "cpu" and ok, f"[26] {k}: card and CPU differ")
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"[26] (a) took {time.perf_counter() - t26:.0f} s")
+
+    # (b) every distribution: one draw card vs CPU (geometric floors a
+    # logarithm: an ulp can move an element to the next integer), then 2^20
+    # draws on the card by statistics (KS against scipy.stats where a CDF
+    # exists, p > 1e-4; else the mean within 5 standard errors, the variance
+    # within 10)
+    def ks(x, cdf, *args):
+        # a scipy.stats name becomes its frozen distribution's CDF (scipy
+        # hands some names' args to a ufunc that takes none)
+        cdf = getattr(sst, cdf)(*args).cdf if isinstance(cdf, str) else cdf
+        r = sst.kstest(x.ravel(), cdf)
+        return r.pvalue > 1e-4, f"KS D {r.statistic:.2e} p {r.pvalue:.3f}"
+
+    def moments(x, mean, var):
+        x = x.ravel()
+        m, v = float(x.mean()), float(x.var())
+        ok = (abs(m - mean) <= 5 * math.sqrt(var / x.size)
+              and abs(v - var) <= 10 * var * math.sqrt(2.0 / x.size))
+        return ok, f"mean {m:.4f} ({mean}), var {v:.4f} ({var})"
+
+    def relaxed(logit, temp):
+        return lambda x: 1.0 / (1.0 + np.exp(-(temp * np.log(x / (1.0 - x)) - logit)))
+
+    dist_checks = {
+        "exponential": lambda x: ks(x, "expon"), "cauchy": lambda x: ks(x, "cauchy"),
+        "geometric": lambda x: moments(x, 4.0, 12.0),
+        "log_normal": lambda x: ks(x, "lognorm", 2.0, 0.0, math.e),
+        "normal": lambda x: ks(x, "norm"), "beta": lambda x: ks(x, "beta", 0.5, 0.5),
+        "continuous_bernoulli": lambda x: ks(x, "uniform"),
+        "dirichlet": lambda x: ks(x[..., 0], "beta", 0.5, 0.5),
+        "fisher_snedecor": lambda x: ks(x, "f", 1.0, 2.0), "gamma": lambda x: ks(x, "gamma", 1.0),
+        "gumbel": lambda x: ks(x, "gumbel_r", 1.0, 2.0),
+        "inverse_gamma": lambda x: ks(x, "invgamma", 1.0),
+        "kumaraswamy": lambda x: ks(x, "uniform"),
+        "laplacian": lambda x: ks(x, "laplace"),
+        "lkjcholesky": lambda x: ks(((x[..., 1, :] * x[..., 2, :]).sum(-1) + 1.0) / 2.0, "beta",
+                                    1.5, 1.5),
+        "lrmvariate_normal": lambda x: ks(x[..., 0], "norm", 0.0, math.sqrt(2.0)),
+        "mvariate_normal": lambda x: ks(x, "norm"), "pareto": lambda x: ks(x, "pareto", 1.0),
+        "poisson": lambda x: moments(x, 1.5, 1.5),
+        "relaxed_bernoulli": lambda x: ks(x, relaxed(math.log(0.66 / 0.34), 0.75)),
+        "relaxed_onehotcategorical": lambda x: ks(x[..., 1], relaxed(math.log(2.0), 1.5)),
+        "studentt": lambda x: ks(x, "t", 1.0), "uniform": lambda x: ks(x, "uniform"),
+        "vonmises": lambda x: ks(x, "vonmises", 1.0, 1.0),
+        "weibull": lambda x: ks(x, "weibull_min", 1.0),
+        "wishart": lambda x: ks(x[..., 0, 0], "chi2", 2.0),
+    }
+    need(set(dist_checks) == set(DISTRO_PARAMS), "[26] a distribution has no check")
+    big_ctx = NoiseCtx((1, 1, 1024, 1024), device=dev)
+    dist_rows = {}
+    for d in DISTRO_PARAMS:
+        gen = DistroGenerator(distro=d)
+        a = gen.raw(NoiseCtx(SHAPE, device="cpu"), 26).double()
+        b = gen.raw(NoiseCtx(SHAPE, device=dev), 26)
+        need(b.is_cuda and b.shape == a.shape and bool(torch.isfinite(b).all()),
+             f"[26] {d}: card draw malformed or not finite")
+        diff = (b.cpu().double() - a).abs() / a.abs().clamp(min=1.0)
+        past = float((diff > XDEV_TOL).double().mean())
+        ok_dev = past <= (1e-3 if d in REJECTION | {"geometric"} else 0.0)
+        with np.errstate(divide="ignore"):
+            ok_stat, what = dist_checks[d](gen.raw(big_ctx, 260).double().cpu().numpy())
+        dist_rows[d] = {"max_rel": float(diff.max()), "share_past": past, "stat": what}
+        print(f"[26] {d:26s} card vs CPU: max rel {float(diff.max()):.2e}, share past "
+              f"{XDEV_TOL:g} {past:.2e} ({'rejection' if d in REJECTION else 'transform'}); "
+              f"2^20 draws on the card: {what}")
+        need(ok_dev, f"[26] {d}: card and CPU draws differ (share {past:.2e})")
+        need(ok_stat, f"[26] {d}: statistics of 2^20 card draws off: {what}")
+    print(f"[26] (b) took {time.perf_counter() - t26:.0f} s")
+
+    # (c) the DTCWT at 1x4x128x128, level 3, every bank name: reconstruction
+    # with the TF32 switches on and off, card vs CPU; scatternet's layers
+    xd = torch.randn(SDXL_SHAPE, generator=torch.Generator().manual_seed(26))
+    xd_dev = xd.to(dev)
+    dtcwt_worst = {"recon": 0.0, "xdev": 0.0}
+    bank_cases = ([(b_, "qshift_a") for b_ in ("legall", "near_sym_a", "antonini", "near_sym_b",
+                                              "near_sym_a_bp", "near_sym_b_bp", "native")]
+                  + [("near_sym_a", q_) for q_ in ("qshift_06", "qshift_b", "qshift_c",
+                                                   "qshift_d", "qshift_b_bp", "native")])
+    for b_, q_ in bank_cases:
+        cl, ch = dtcwt2d(xd, 3, biort=b_, qshift=q_)
+        for tf32 in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            gl, gh = dtcwt2d(xd_dev, 3, biort=b_, qshift=q_)
+            need(gh[0].is_cuda and gh[0].dtype == torch.complex64 and gh[0].shape[2] == 6,
+                 f"[26] dtcwt {b_}/{q_}: subbands malformed")
+            rec_err = rel_err(idtcwt2d(gl, gh, biort=b_, qshift=q_), xd_dev)[1]
+            xdev = max([rel_err(g_, c_)[1] for g_, c_ in zip(gl, cl)]
+                       + [rel_err(torch.view_as_real(g_), torch.view_as_real(c_))[1]
+                          for g_, c_ in zip(gh, ch)])
+            dtcwt_worst["recon"] = max(dtcwt_worst["recon"], rec_err)
+            dtcwt_worst["xdev"] = max(dtcwt_worst["xdev"], xdev)
+            need(rec_err <= XDEV_TOL and xdev <= XDEV_TOL,
+                 f"[26] dtcwt {b_}/{q_}, TF32 {tf32}: reconstruction {rec_err:.2e}, card vs "
+                 f"CPU {xdev:.2e}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    layer_err = {}
+    for lname in ("scat_layer_dwt", "scat_layer_dtcwt", "scat_layer_j2", "scat_layer_j2_dwt"):
+        layer = getattr(SN, lname)
+        out_c, out_g = layer(xd), layer(xd_dev)
+        layer_err[lname] = rel_err(out_g, out_c)[1]
+        need(out_g.is_cuda and layer_err[lname] <= XDEV_TOL,
+             f"[26] {lname}: card and CPU differ ({layer_err[lname]:.2e})")
+    print(f"[26] dtcwt2d/idtcwt2d at {SDXL_SHAPE}, level 3, {len(bank_cases)} bank pairs, TF32 "
+          f"on and off: worst reconstruction {dtcwt_worst['recon']:.2e}, worst card vs CPU "
+          f"{dtcwt_worst['xdev']:.2e} (tolerance {XDEV_TOL:g}); scatternet layers card vs CPU "
+          f"{ {k: float(f'{v:.2e}') for k, v in layer_err.items()} }")
+    print(f"[26] (c) took {time.perf_counter() - t26:.0f} s")
+
+    # (d) config 3 with use_dtcwt on the SDXL-class UNet, in turns with [19]'s
+    # config 3 on the DWT and with euler + basic CFG
+    dt_rules = config3_rules(use_dtcwt=True)
+    dt_runs = {**sdxl_pipes(bpair),
+               "config3_dtcwt": lambda: config3_pipe(bpair, rules=dt_rules,
+                                                     noise=noise_3a())(sx0, sdxl_sig)}
+    counted_dt = config3_pipe(counting(bpair), rules=dt_rules, noise=noise_3a())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_guided.clear()
+    reset_counts()
+    out_dt = counted_dt(sx0, sdxl_sig)
+    l26d = read_counts()
+    peak_dt = torch.cuda.max_memory_allocated()
+    need(out_dt.shape == SDXL_SHAPE and out_dt.is_cuda and bool(torch.isfinite(out_dt).all()),
+         "[26] SDXL config 3 on the DTCWT: output malformed or not finite")
+    need(len(n_guided) == fwd3 and l26d == want19,
+         f"[26] SDXL config 3 on the DTCWT: {len(n_guided)} UNet forwards, launches {l26d}")
+    ms26d = {k: [] for k in dt_runs}
+    for _ in range(3):
+        for k in ("euler", "config3", "config3_dtcwt"):
+            ms26d[k].append(event_ms(torch, dt_runs[k]))
+    pc26 = {k: sorted(t / (SDXL_STEPS * (1 if k == "euler" else 2)) for t in v)
+            for k, v in ms26d.items()}
+    for k, v in pc26.items():
+        print(f"[26] SDXL {k}: {med(v):.3f} ms per model call median (min {v[0]:.3f}, max "
+              f"{v[-1]:.3f}; 3 runs in turns, run ms {[round(t, 1) for t in ms26d[k]]}) [{card}]")
+    ov_dt = 100.0 * (med(pc26["config3_dtcwt"]) / med(pc26["euler"]) - 1.0)
+    ov_dwt = 100.0 * (med(pc26["config3"]) / med(pc26["euler"]) - 1.0)
+    print(f"[26] config3_dtcwt_overhead_pct {ov_dt:.2f} (config 3 on the DWT in these turns: "
+          f"{ov_dwt:.2f}) [{card}]")
+    n26d, by26d = profile_run(torch, dt_runs["config3_dtcwt"], "[26] SDXL config 3 DTCWT")
+    tot26d = sum(by26d.values())
+    wall26d = med(sorted(ms26d["config3_dtcwt"])) * 1000
+    print(f"[26] SDXL config 3 on the DTCWT under the profiler: {n26d} device kernels, "
+          f"{tot26d:.1f} us device in {wall26d:.1f} us wall (busy {100 * tot26d / wall26d:.1f} "
+          f"%); peak device memory {peak_dt / 2**30:.2f} GiB; launches {l26d} [{card}]")
+    wdt = wargs(dev, 5.0)
+    wdt_fn = lambda: WaveletCFG(rules=dt_rules)(wdt)  # noqa: E731
+    wdt_fn()
+    wdt_tot, _ = device_us(torch, wdt_fn, 10)
+    need(wdt_tot is not None, "[26] DTCWT WCFG call: device time not measured")
+    wdt_kernels = device_us.launched
+    wdt_host = cuda_ms(torch, wdt_fn, 20)
+    print(f"[26] one config-3 WCFG call on the DTCWT at {SDXL_SHAPE}: {wdt_kernels:.0f} device "
+          f"kernels, device_us {wdt_tot:.2f}, {wdt_host * 1000:.1f} us by events (the DWT's: "
+          f"{wcfg_kernels:.0f} kernels, {w_tot:.2f} us, [17]) [{card}]")
+    guided_dt = config3_pipe(pair, rules=dt_rules)._denoiser(sdxl_np)
+    guided_dt(gx, g_in, sigma_host=5.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gout_dt = guided_dt(gx, g_in, sigma_host=5.0)
+    except RuntimeError as e:
+        fail(f"[26] a guided call on the DTCWT synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    need(bool(torch.isfinite(gout_dt).all()), "[26] DTCWT guided call: not finite")
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = config3_pipe(pair, rules=dt_rules)(
+        x0, c3_sig, noise_sampler=lambda i, s, sn: c3_draws[i].to(dev))
+    on_cpu = config3_pipe(cpu_pair, rules=dt_rules)(
+        x0.cpu(), c3_sig, noise_sampler=lambda i, s, sn: c3_draws[i])
+    torch.backends.cudnn.allow_tf32 = True
+    err_dt, rel_dt = rel_err(on_card, on_cpu)
+    print(f"[26] one guided call on the DTCWT under set_sync_debug_mode('error'): no sync; "
+          f"config 3 on the DTCWT, flagship, {CONFIG3_STEPS - 1} steps and the tail on one "
+          f"injected stream, card vs CPU, TF32 off: max rel diff {rel_dt:.3e} (tolerance "
+          f"{TRAJ_TOL:g})")
+    need(on_card.is_cuda and rel_dt <= TRAJ_TOL,
+         f"[26] config 3 on the DTCWT: card and CPU differ ({rel_dt:.3e})")
+    print(json.dumps({"noise_zoo_rest": zoo_stats, "distributions": dist_rows,
+                      "config3_dtcwt_ms_per_model_call": pc26,
+                      "config3_dtcwt_overhead_pct": ov_dt}))
+    del big, bpair, dt_runs, counted_dt, out_dt
+    print(f"[26] took {time.perf_counter() - t26:.0f} s; phases 1-26 took "
+          f"{time.perf_counter() - t_run:.0f} s")
+
     src = "sonar_tpu_torch/csrc/"
     n_el = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
     rows = [
@@ -2746,7 +3041,9 @@ def main():
          "launches_registry": reg_launches[k],
          "launches_registry_sdxl": sum(l24[nm][k] for nm in names24),
          "launches_combinators": sum(l25[t][k] for t in "ABC"),
-         "launches_config5_zwalk": lz[k]}
+         "launches_config5_zwalk": lz[k],
+         "launches_noise_zoo_rest": sum(l26[z][k] for z in l26),
+         "launches_dtcwt_wcfg_sdxl": l26d[k]}
         for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

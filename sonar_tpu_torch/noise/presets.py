@@ -4,13 +4,13 @@ py/noise.py:2244-2489).
 The JAX registry imports the whole zoo when it is imported. The port
 registers lazily instead: a name maps to a loader that imports its generator
 module only when that name is first asked for, so the main path loads only
-the gaussian generator. Registered: 36 of the JAX registry's 38 names, with
-its exact parameters (presets.py:64-221, 187); ``distro`` and ``collatz``
-are not ported yet.
+the gaussian generator. Registered: all 38 of the JAX registry's names,
+with its exact parameters (presets.py:64-221, 177-221).
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Callable
 
 from .generators import Generator
@@ -67,10 +67,13 @@ def _load_pyramid_mix(name: str, **member):
                             ("PyramidGenerator", member, -0.8)))
 
 
-def _load_wavelet():
-    from .wavelet import WaveletGenerator
+def _load_late(module: str, cls_name: str):
+    """A loader of a generator class that lives in a module of its own."""
 
-    return _simple(WaveletGenerator)
+    def load():
+        return _simple(getattr(importlib.import_module(f".{module}", __package__), cls_name))
+
+    return load
 
 
 def _load_voronoi_fuzz():
@@ -140,7 +143,9 @@ _LOADERS: dict[str, Callable[[], Callable[..., Generator]]] = {
                                              upscale_mode="bislerp"),
     "voronoi_fuzz": _load_voronoi_fuzz,
     "voronoi_mix": _load_voronoi_mix,
-    "wavelet": _load_wavelet,
+    "distro": _load_late("distro", "DistroGenerator"),
+    "collatz": _load_late("collatz", "CollatzGenerator"),
+    "wavelet": _load_late("wavelet", "WaveletGenerator"),
 }
 
 

@@ -12,10 +12,9 @@
   inner noise items (py/noise.py:1521-1593).
 
 The ladders are host data computed from the ctx's shape; resizes are
-:func:`~..ops.resample.scale_samples` and the DWT is the port's own
-(:mod:`..wavelets.dwt`, exact float32). ``use_dtcwt=True`` raises, as the
-port's :class:`~..wavelets.Wavelet` does: the dual-tree transform is not
-ported yet.
+:func:`~..ops.resample.scale_samples`, and the DWT and the dual-tree
+transform (``use_dtcwt``) are the port's own (:mod:`..wavelets.dwt`,
+:mod:`..wavelets.dtcwt`, exact float32).
 """
 
 from __future__ import annotations
@@ -190,7 +189,7 @@ class WaveletFilteredGenerator(Generator):
 
     def check_dims(self, ctx):
         super().check_dims(ctx)
-        self._wavelet()  # raises for use_dtcwt (not ported) and unknown waves
+        self._wavelet()  # raises for unknown waves and banks
 
     def init_state(self, ctx, seed):
         cctx = ctx.with_shape(ctx.adjusted_shape())

@@ -1,17 +1,24 @@
-"""Small helpers (port of ``sonar_tpu.utils``): part of ``utils/misc.py``
-and the verbose channel of ``utils/profiling.py``."""
+"""Small helpers (port of ``sonar_tpu.utils``): ``utils/misc.py`` and the
+verbose channel of ``utils/profiling.py``."""
 
-from .misc import (clamp_float, fallback, filter_dict, maybe_apply, step_from_sigmas,
-                   step_from_sigmas_f32)
+from .misc import (adjust_slice, clamp_float, crop_samples, elementwise_shuffle_by_dim,
+                   fallback, filter_dict, maybe_apply, pattern_break, step_from_sigmas,
+                   step_from_sigmas_f32, step_from_sigmas_traced, trunc_decimals)
 from .profiling import set_verbose_sink, verbose_writer
 
 __all__ = [
+    "adjust_slice",
     "clamp_float",
+    "crop_samples",
+    "elementwise_shuffle_by_dim",
     "fallback",
     "filter_dict",
     "maybe_apply",
+    "pattern_break",
     "set_verbose_sink",
     "step_from_sigmas",
     "step_from_sigmas_f32",
+    "step_from_sigmas_traced",
+    "trunc_decimals",
     "verbose_writer",
 ]

@@ -228,3 +228,8 @@ def step_from_sigmas_f32(sigma, sigmas, *, decimals: int | None = 4) -> float | 
         return float(f32(idx))
     pct = f32(1.0) - (sigma - sigmas[idx_low]) / step_diff
     return float(f32(idx_high) + pct)
+
+
+# the JAX package's name: the port computes its traced arithmetic on the host
+# and returns ``None`` where JAX returns ``valid == False``
+step_from_sigmas_traced = step_from_sigmas_f32

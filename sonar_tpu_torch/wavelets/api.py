@@ -2,8 +2,9 @@
 reference py/wavelet_functions.py).
 
 :class:`Wavelet` mirrors the reference wrapper surface (forward, inverse,
-two-step inverse, separate inverse wave and mode) over the port's DWT. The
-dual-tree complex wavelet transform (``use_dtcwt``) is not ported yet.
+two-step inverse, separate inverse wave and mode) over the port's DWT and
+DTCWT. ``biort``/``qshift`` select named DTCWT banks (the published tables
+of :mod:`.kingsbury`; reference surface py/wavelet_functions.py:62-101).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from ..utils.misc import fallback
 from .coeffs import get_wavelet
 from .coeffs import wavelist as _wavelist
+from .dtcwt import _resolve_level1, _resolve_qshift, dtcwt2d, idtcwt2d
 from .dwt import dwt1d, dwt2d, idwt1d, idwt2d
 
 
@@ -40,10 +42,6 @@ class Wavelet:
         device=None,
     ):
         del device
-        if use_dtcwt:
-            raise NotImplementedError(
-                "use_dtcwt: the dual-tree complex wavelet transform (wavelets/dtcwt.py, "
-                "kingsbury.py) is not ported yet (ROADMAP.md §1 item 6)")
         self.wave = wave
         self.level = level
         self.mode = mode
@@ -55,14 +53,25 @@ class Wavelet:
         self.inv_mode = fallback(inv_mode, mode)
         self.inv_biort = fallback(inv_biort, biort)
         self.inv_qshift = fallback(inv_qshift, qshift)
-        get_wavelet(self.wave)  # validate eagerly
-        get_wavelet(self.inv_wave)
+        if not use_dtcwt:
+            get_wavelet(self.wave)  # validate eagerly
+            get_wavelet(self.inv_wave)
+        else:
+            for b in (self.biort, self.inv_biort):
+                _resolve_level1(b)  # validate eagerly
+            for q in (self.qshift, self.inv_qshift):
+                _resolve_qshift(q)
         self._fwd_shape = None
 
     def forward(self, t: torch.Tensor, *, forward_function: Callable | None = None):
         if forward_function is not None:
             return forward_function(t)
         self._fwd_shape = t.shape
+        if self.use_dtcwt:
+            yls, yhs = dtcwt2d(t, self.level, biort=self.biort, qshift=self.qshift)
+            # yl carries the 4 tree lowpasses stacked on a leading axis, so the
+            # (yl, yh) pyramid protocol (scaling, blend) applies unchanged
+            return torch.stack(yls, dim=0), yhs
         if self.use_1d_dwt:
             return dwt1d(t, self.wave, self.level, self.mode)
         return dwt2d(t, self.wave, self.level, self.mode)
@@ -79,6 +88,11 @@ class Wavelet:
         out_shape = fallback(out_shape, self._fwd_shape)
         if inverse_function is not None:
             inv = inverse_function
+        elif self.use_dtcwt:
+            inv = lambda pair: idtcwt2d(  # noqa: E731
+                tuple(pair[0][i] for i in range(4)), pair[1],
+                out_hw=None if out_shape is None else tuple(out_shape[-2:]),
+                biort=self.inv_biort, qshift=self.inv_qshift)
         elif self.use_1d_dwt:
             inv = lambda pair: idwt1d(  # noqa: E731
                 pair[0], pair[1], self.inv_wave, self.inv_mode,

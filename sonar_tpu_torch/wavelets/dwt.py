@@ -159,6 +159,27 @@ def _ideal_len(out_len: int, remaining: int, L: int, mode: str) -> int:
     return n
 
 
+def _afb2d(x: torch.Tensor, w: WaveletFilters, mode: str, w_rows: WaveletFilters | None = None):
+    """One 2D analysis level: ``(ll, bands)``, ``bands`` shaped (B, C, 3, H', W')
+    in the order (LH, HL, HH). ``w`` filters along W, ``w_rows`` (default
+    ``w``) along H, as the dual tree's mixed banks need."""
+    # along W: (B, C, H, 2, Mw) → bands first (B, C, 2, H, Mw); along H:
+    # (B, C, 2w, 2h, Mh, Mw), whose four (w, h) bands are LL, LH, HL, HH
+    out = _afb(_afb(x, w, mode, -1).movedim(-2, -3), w_rows or w, mode, -2)
+    out = out.reshape(*out.shape[:-4], 4, *out.shape[-2:])
+    return out[..., 0, :, :], out[..., 1:, :, :]
+
+
+def _sfb2d(ll: torch.Tensor, bands: torch.Tensor, w: WaveletFilters, mode: str, out_hw,
+           w_rows: WaveletFilters | None = None) -> torch.Tensor:
+    """Inverse of :func:`_afb2d` at one level, to ``out_hw``."""
+    bh, bw = bands.shape[-2:]
+    quad = torch.cat([ll.unsqueeze(-3), bands], dim=-3)
+    quad = quad.reshape(*quad.shape[:-3], 2, 2, bh, bw)
+    lo_hi = _sfb(quad, w_rows or w, mode, -2, out_hw[0]).movedim(-3, -2)
+    return _sfb(lo_hi, w, mode, -1, out_hw[1])
+
+
 def dwt1d(x: torch.Tensor, wave="db4", level: int = 3, mode: str = "symmetric"):
     """Multi-level 1D DWT over the last axis of (B, C, N)."""
     w = _resolve(wave)
@@ -192,12 +213,8 @@ def dwt2d(x: torch.Tensor, wave="db4", level: int = 3, mode: str = "symmetric"):
     w = _resolve(wave)
     yl, yh = x, []
     for _ in range(level):
-        # along W: (B, C, H, 2, Mw) → bands first (B, C, 2, H, Mw); along H:
-        # (B, C, 2w, 2h, Mh, Mw), whose four (w, h) bands are LL, LH, HL, HH
-        out = _afb(_afb(yl, w, mode, -1).movedim(-2, -3), w, mode, -2)
-        out = out.reshape(*out.shape[:-4], 4, *out.shape[-2:])
-        yl = out[..., 0, :, :]
-        yh.append(out[..., 1:, :, :])
+        yl, bands = _afb2d(yl, w, mode)
+        yh.append(bands)
     return yl, yh
 
 
@@ -217,9 +234,7 @@ def idwt2d(yl: torch.Tensor, yh, wave="db4", mode: str = "symmetric", out_hw=Non
             tw = _ideal_len(out_hw[1], remaining, L, mode)
         else:
             th, tw = bh * 2, bw * 2
-        quad = torch.cat([x.unsqueeze(-3), bands], dim=-3)
-        quad = quad.reshape(*quad.shape[:-3], 2, 2, bh, bw)
-        x = _sfb(_sfb(quad, w, mode, -2, th).movedim(-3, -2), w, mode, -1, tw)
+        x = _sfb2d(x, bands, w, mode, (th, tw))
     if out_hw is not None:
         x = x[..., : out_hw[0], : out_hw[1]]
     return x

@@ -48,6 +48,15 @@ and off (dense K 3e-6 and the factor pair 3e-5 from the FFT, the card's FFT
 1e-5 from the CPU's) and a patched UNet forward under the same sync check;
 the 17 noise names of configs 2 and 4's slice and config 5's video noise,
 one seed on the CPU and the card, 1e-5.
+
+The rest of the noise zoo: the DTCWT on the card against the CPU and its
+reconstruction, 1e-5, with the TF32 switches on and off; the distributions
+on one seed, CPU against card, the transforms 1e-5 relative to
+max(1, |cpu|) and the rejection samplers by their share of elements past
+it (under 1e-3: an accept test that lands within an ulp of its edge may
+decide otherwise where kernel B3's normals differ by an ulp); distro,
+collatz and scatternet noise 1e-5; wavelet CFG on the DTCWT 1e-5 and with no
+synchronisation, and the new noises under the sampler with none either.
 """
 
 import copy
@@ -1065,3 +1074,137 @@ def test_blur_and_ffilter_are_bit_stable_under_tf32(cuda, hw):
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
     assert _rel_err(outs[0][0].cpu(), _sep_blur(x.cpu(), 1.0)) <= 1e-5
     assert _rel_err(outs[0][1].cpu(), ffilter(x.cpu(), 0.2, 0.5, "highpass", 0.7)) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the rest of the noise zoo on the card (torch ops and kernel B3's draws):
+# the DTCWT (exact float32 whatever the TF32 switches say; reconstruction and
+# card vs CPU 1e-5 relative to max(1, |cpu|)), the distributions (one seed,
+# CPU vs card: the transforms 1e-5; the rejection samplers' accept decisions
+# may differ where B3's normals differ by an ulp, so under 1e-3 of their
+# elements may be past 1e-5), Collatz and scatternet noise (1e-5), wavelet CFG
+# on the DTCWT (1e-5), and runs under the sync check.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("banks", [("near_sym_a", "qshift_a"), ("legall", "qshift_b"),
+                                   ("antonini", "qshift_06"), ("near_sym_b", "qshift_c"),
+                                   ("native", "native")])
+def test_dtcwt_on_the_card_matches_the_cpu(cuda, banks):
+    from sonar_tpu_torch.wavelets import dtcwt2d, idtcwt2d
+
+    biort, qshift = banks
+    x = torch.randn((1, 4, 128, 128), generator=torch.Generator().manual_seed(3))
+    cl, ch = dtcwt2d(x, 3, biort=biort, qshift=qshift)
+    for tf32 in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        gl, gh = dtcwt2d(x.to(cuda), 3, biort=biort, qshift=qshift)
+        assert gh[0].dtype == torch.complex64 and gh[0].is_cuda
+        assert all(_rel_err(g.cpu(), c) <= 1e-5 for g, c in zip(gl, cl))
+        assert all(_rel_err(torch.view_as_real(g).cpu(), torch.view_as_real(c)) <= 1e-5
+                   for g, c in zip(gh, ch))
+        back = idtcwt2d(gl, gh, biort=biort, qshift=qshift)
+        assert _rel_err(back.cpu(), x) <= 1e-5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distro", ["normal", "cauchy", "gumbel", "continuous_bernoulli",
+                                    "relaxed_onehotcategorical", "studentt", "lrmvariate_normal",
+                                    "gamma", "beta", "dirichlet", "poisson", "vonmises",
+                                    "wishart", "lkjcholesky", "inverse_gamma"])
+def test_distro_draws_on_the_card_match_the_cpu(cuda, distro):
+    from sonar_tpu_torch.noise import NoiseCtx
+    from sonar_tpu_torch.noise.distro import REJECTION, DistroGenerator
+
+    gen = DistroGenerator(distro=distro, poisson_rate="30.0")
+    cpu = gen.raw(NoiseCtx((1, 4, 64, 64), device="cpu"), 11).double()
+    card = gen.raw(NoiseCtx((1, 4, 64, 64), device=cuda), 11)
+    assert card.is_cuda and card.shape == cpu.shape and bool(torch.isfinite(card).all())
+    off = ((card.cpu().double() - cpu).abs() > 1e-5 * cpu.abs().clamp(min=1.0)).double().mean()
+    assert float(off) <= (1e-3 if distro in REJECTION else 0.0), float(off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [("distro", {}), ("distro", {"distro": "laplacian"}),
+                                     ("collatz", {}),
+                                     ("collatz", {"output_mode": "noise_x_adds",
+                                                  "flatten": True, "dims": (1,)})])
+def test_new_zoo_names_draw_the_same_on_cpu_and_card(cuda, name, kw):
+    from sonar_tpu_torch.noise import get_noise_item, make_noise_sampler
+
+    out = []
+    for where in ("cpu", cuda):
+        fn, st = make_noise_sampler(get_noise_item(name, **kw), (1, 4, 64, 64), device=where,
+                                    seed=5)
+        n, st = fn(st, 14.6, 9.0)
+        out.append(n)
+    assert out[1].is_cuda and _rel_err(out[1].cpu(), out[0]) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"wavelet_backend": "dwt"}, {"scatternet_order": 2},
+                                {"scatternet_order": 2, "wavelet_backend": "dwt",
+                                 "output_mode": "flat"}])
+def test_scatternet_on_the_card_matches_the_cpu(cuda, kw):
+    from sonar_tpu_torch.noise import ScatternetFilteredNoise, get_noise_item, make_noise_sampler
+
+    out = []
+    for where in ("cpu", cuda):
+        fn, st = make_noise_sampler(ScatternetFilteredNoise(noise=get_noise_item("gaussian"), **kw),
+                                    (1, 4, 64, 64), device=where, seed=5)
+        n, st = fn(st, 14.6, 9.0)
+        out.append(n)
+    assert out[1].is_cuda and _rel_err(out[1].cpu(), out[0]) <= 1e-5
+
+
+def _dtcwt_wcfg():
+    from sonar_tpu_torch.cfg import WaveletCFG, WCFGRules
+
+    return WaveletCFG(rules=WCFGRules.build(
+        level=3, use_dtcwt=True, high_precision_mode=False,
+        diff=dict(yl_scale=8.0, yh_scales=[7.0, [6.0, 6.0, 7.0, 6.5], "fill"],
+                  scales_end=dict(yl_scale=6.0, yh_scales=6.0),
+                  schedule="half_cosine", schedule_mode="sampling")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [14.6, 2.0])
+def test_dtcwt_wavelet_cfg_on_the_card_matches_the_cpu(cuda, sigma):
+    wcfg, args = _dtcwt_wcfg(), _wcfg_args(cuda, sigma)
+    got = wcfg(args)
+    assert got.is_cuda and _rel_err(got.cpu(), wcfg(_wcfg_args("cpu", sigma))) <= 1e-5
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = wcfg(args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [("distro", {}), ("distro", {"distro": "gamma"}),
+                                     ("distro", {"distro": "poisson", "poisson_rate": "20.0"}),
+                                     ("collatz", {}), ("scatternet", {})])
+def test_new_zoo_noise_does_not_synchronise(cuda, name, kw):
+    from sonar_tpu_torch.noise import ScatternetFilteredNoise, get_noise_item
+    from sonar_tpu_torch.samplers import sample_sonar_euler_ancestral
+
+    item = (ScatternetFilteredNoise(noise=get_noise_item("gaussian")) if name == "scatternet"
+            else get_noise_item(name, **kw))
+    card_den, _ = _registry_pair(cuda)
+    sig = torch.tensor([14.6, 6.0, 2.5, 0.9, 0.3, 0.0])
+    x0 = _randn((1, 4, 32, 32), cuda, 2) * 14.6
+    first = sample_sonar_euler_ancestral(card_den, x0, sig, seed=7, noise_item=item)
+    torch.cuda.synchronize()  # the first run puts the transforms' constants on the card
+    rec = _Recorded(card_den, sync_check=True)
+    try:
+        again = sample_sonar_euler_ancestral(rec, x0, sig, seed=7, noise_item=item)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(rec.sigmas) == 5 and torch.equal(first, again)
+    assert bool(torch.isfinite(again).all())

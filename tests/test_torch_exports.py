@@ -1,0 +1,74 @@
+"""The port's subpackages export what the JAX package's export, read from
+both packages' ``__init__.py`` by AST (nothing is imported).
+
+``noise``, ``samplers``, ``ops``, ``utils`` and ``core`` define
+``__all__`` in both packages: the JAX package's names must all be in the
+port's, except the omissions made on purpose (``core``: JAX's PRNG-key
+API, ``derive_key`` and ``key_from_seed``, which the port's integer seeds
+replace). ``cfg`` and ``wavelets`` define no ``__all__`` in the JAX
+package: every name its ``__init__.py`` imports must be one the port's
+imports or lists.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+OMITTED = {"core": {"derive_key", "key_from_seed"}}
+
+
+def _init(package: str, sub: str) -> ast.Module:
+    return ast.parse((ROOT / package / sub / "__init__.py").read_text())
+
+
+def _all(tree: ast.Module):
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+            return {ast.literal_eval(e) for e in node.value.elts}
+    return None
+
+
+def _imported(tree: ast.Module) -> set:
+    return {a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+            for a in node.names}
+
+
+def _defined(tree: ast.Module) -> set:
+    """Names the module binds: imports, definitions and assignments."""
+    names = _imported(tree)
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return names
+
+
+@pytest.mark.parametrize("sub", ["noise", "samplers", "ops", "utils", "core"])
+def test_all_covers_the_jax_package(sub):
+    want, got = _all(_init("sonar_tpu", sub)), _all(_init("sonar_tpu_torch", sub))
+    assert want is not None and got is not None
+    missing = want - got
+    assert missing == OMITTED.get(sub, set()), missing
+    assert got <= _defined(_init("sonar_tpu_torch", sub))  # every listed name exists
+
+
+@pytest.mark.parametrize("sub", ["cfg", "wavelets"])
+def test_imports_cover_the_jax_package(sub):
+    jax_tree = _init("sonar_tpu", sub)
+    assert _all(jax_tree) is None
+    port = _init("sonar_tpu_torch", sub)
+    missing = _imported(jax_tree) - (_imported(port) | (_all(port) or set()))
+    assert not missing, missing
+
+
+def test_f8_names_import():
+    from sonar_tpu_torch.utils import (adjust_slice, crop_samples,  # noqa: F401
+                                       elementwise_shuffle_by_dim, pattern_break,
+                                       step_from_sigmas_f32, step_from_sigmas_traced,
+                                       trunc_decimals)
+
+    assert step_from_sigmas_traced is step_from_sigmas_f32

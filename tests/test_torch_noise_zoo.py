@@ -236,8 +236,8 @@ def test_class_constants_match_jax():
 def test_registry_names_and_parameters_match_jax():
     jnames = list(JP.noise_type_names())
     tnames = list(noise_type_names())
-    assert len(tnames) == 36
-    assert tnames == [n for n in jnames if n not in ("distro", "collatz")]
+    assert len(tnames) == 38
+    assert tnames == jnames
     assert list(noise_type_names(default=None, skip=("perlin",))) == \
         [n for n in sorted(tnames) if n != "perlin"]
     for name in NEW_NAMES:
@@ -258,8 +258,13 @@ def test_register_noise_type(monkeypatch):
     item = get_noise_item("my_noise", factor=0.5)
     assert isinstance(item, TG.PowerLawGenerator) and item.alpha == 0.25 and item.factor == 0.5
     assert "my_noise" in list(noise_type_names())
-    with pytest.raises(ValueError, match="Unknown noise type 'distro'"):
-        get_noise_item("distro")
+    with pytest.raises(ValueError, match="Unknown noise type 'no_such_noise'"):
+        get_noise_item("no_such_noise")
+    for name in ("distro", "collatz"):  # the generators of modules of their own
+        j, t = JP.get_noise_item(name, factor=0.7), get_noise_item(name, factor=0.7)
+        assert type(t).__name__ == type(j).__name__ and t.factor == 0.7
+        assert {k: v for k, v in t.params().items() if k != "noise_dtype"} == \
+            {k: v for k, v in j.params().items() if k != "noise_dtype"}
 
 
 # ---------------------------------------------------------------------------

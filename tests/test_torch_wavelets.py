@@ -152,8 +152,18 @@ def test_wavelet_facade_matches_jax(kw, two_step):
 
 
 def test_dtcwt_is_not_ported_yet():
+    """Once a pin of the refusal of ``use_dtcwt``; the dual tree is ported
+    now, so this holds its default banks against the JAX package's
+    (tests/test_torch_dtcwt.py holds every bank)."""
     assert tw.Wavelet.modelist() == jw.Wavelet.modelist()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tw.Wavelet(use_dtcwt=True)
+    x = _x((1, 2, 16, 16), seed=7)
+    jwv, twv = jw.Wavelet(use_dtcwt=True, level=2), tw.Wavelet(use_dtcwt=True, level=2)
+    jl, jh = jwv.forward(jnp.asarray(x))
+    tl, th = twv.forward(torch.from_numpy(x))
+    _close(tl, jl)
+    for a, b in zip(th, jh):
+        assert a.is_complex() and a.shape[2] == 6
+        _close(torch.view_as_real(a), np.stack([np.real(b), np.imag(b)], -1))
+    _close(twv.inverse(tl, th), jwv.inverse(jl, jh))
     with pytest.raises(ValueError):
         tw.dwt2d(torch.zeros(1, 1, 8, 8), "db4", 1, "mirror")
