@@ -181,15 +181,35 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    every biort and qshift name: reconstruction within 1e-5 with the TF32
    switches on and off, card vs CPU 1e-5, and scatternet's four layers card
    vs CPU; (d) config 3 with ``use_dtcwt`` on phase 19's SDXL-class UNet
-   (30 steps, 3 runs a side in turns with [19]'s config 3 and euler + basic
-   CFG): ms per model call, the overhead, one WCFG call's device time and
-   kernels, busy share, peak memory, one guided call under the sync check,
-   and the flagship card vs CPU at 4 steps on one injected stream, TF32 off.
+   (30 steps, 2 runs a side in turns with [19]'s config 3 and euler + basic
+   CFG; 3 before [27] needed the room): ms per model call, the overhead,
+   one WCFG call's device time and kernels, busy share, peak memory, one guided call under the sync check,
+   and the flagship card vs CPU at 4 steps on one injected stream, TF32 off;
+27. runs the node/workflow API: ComfyUI prompt graphs (widget values only,
+   no ``yaml_parameters``) through ``port_workflow`` and
+   ``pipeline_from_workflow``, and says whether PyYAML imports here. (a)
+   BASELINE config 2 as a four-node graph (perlin 0.6 chained with
+   onef_pinkish 0.4 into ``SamplerSonarEulerA`` at momentum 0.95, a host
+   ``SamplerCustom`` at cfg 7, seed 7) on [19]'s SDXL-class module at
+   1×4×128×128, 30 steps: the host time of ``port_workflow``, launches and
+   output equal to [21]'s config 2, peak memory within 0.1 GiB of it, ms per
+   model call in turns with it (2 runs a side), one guided call under the
+   sync check; (b) a pyramid (variant "pyramid") chained with Voronoi into
+   ``SamplerSonarEulerA``, wavelet CFG at its widget defaults and a
+   ``KarrasScheduler``, on the flagship at 1×4×64×64, 20 steps: launches
+   (B1, B2, B3, B4, B6), reproducibility, the run after its first model call
+   under the sync check, steps/s and busy share in turns with the headline,
+   card vs CPU at 4 steps with the noise live, TF32 off, ``StepTimer``'s
+   p50/p90 and one ``trace``; (c) all 60 node names built on the card from
+   their schema defaults: each noise drawn once at 1×4×64×64 (finite,
+   normalized), each sampler node run 2 steps on the flagship (B5 launches
+   where the sweep draws highres_pyramid).
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
-launches on the paths, their error, their device time (``ms``), the plain
-version's, the least time the card could take (``bound_ms``, from this
+launches on the paths (``launches_workflow``: [27] (a) and (b)), their
+error, their device time (``ms``), the plain version's, the least time the
+card could take (``bound_ms``, from this
 run's shapes: bytes at 3.35 TB/s against operations at 33.5 T/s, the
 67 TFLOP/s fp32 peak counted as fused multiply-adds) and, where one PyTorch
 route computes the same function, its time (``library_ms``). The last
@@ -413,9 +433,14 @@ def profile_run(torch, fn, what: str):
     the first idle gap, which no kernel then preceded): a profile in which
     the marker does not show is printed and taken again with four times the
     small launches (sixteen from the third); five such in a row fail.
-    ``profile_run.attempts`` is the number of profiles the last call took."""
+    ``profile_run.attempts`` is the number of profiles the last call took.
+
+    The kernels are read from the profiler's raw events (name, device, start
+    and duration in ns): ``prof.events()`` builds an object an event, about
+    0.2 ms each on the H100's host, 18 s for a 97,000-kernel SDXL-class run."""
     from torch.profiler import ProfilerActivity, profile
 
+    cuda = torch.autograd.DeviceType.CUDA
     for attempt in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             until = time.perf_counter() + 0.005 * 4**min(attempt, 2)
@@ -426,10 +451,10 @@ def profile_run(torch, fn, what: str):
             time.sleep(0.004)
             fn()
             torch.cuda.synchronize()
-        kernels = sorted((e for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA),
-                         key=lambda e: e.time_range.start)
-        marks = [e.time_range.end for e in kernels if "spin_kernel" in e.name]
+        kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                         for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == cuda)
+        marks = [end for _, end, name in kernels if "spin_kernel" in name]
         if marks:
             break
         print(f"profile_run: {what}: profile {attempt + 1} saw {len(kernels)} device kernels "
@@ -437,10 +462,10 @@ def profile_run(torch, fn, what: str):
     else:
         fail(f"{what}: five profiles in a row missed the marker before the run")
     profile_run.attempts = attempt + 1
-    kernels = [e for e in kernels if e.time_range.start >= max(marks)]
+    kernels = [k for k in kernels if k[0] >= max(marks)]
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    for start, end, name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1000.0  # µs
     need(sum(by_name.values()) > 0, f"{what}: device time not measured")
     return len(kernels), by_name
 
@@ -2068,7 +2093,7 @@ def main():
 
     runs19 = sdxl_pipes(bpair)
     ms19 = {"euler": [], "config3": []}
-    # 2 runs a side ([26] d times config 3 again, 3 runs a side in turns)
+    # 2 runs a side ([26] d times config 3 again, 2 runs a side in turns)
     for which in ("euler", "config3", "config3", "euler"):
         ms19[which].append(event_ms(torch, runs19[which]))
     per_call = {k: sorted(t / (SDXL_STEPS * (2 if k == "config3" else 1)) for t in v)
@@ -2537,6 +2562,7 @@ def main():
               f"(busy {100 * tot24 / (med(sorted(ms24[nm])) * 1000):.1f} %); B2 "
               f"{sum(v for n_, v in by24.items() if 'scale_noise_' in n_):.1f} us, B3 "
               f"{sum(v for n_, v in by24.items() if 'philox_fill' in n_):.1f} us [{card}]")
+    keep21 = {"out": out21["config2"], "run": runs21["config2"]}  # [27] (a) is held to them
     del bpair4, runs19, runs21, runs24, counted_runs, out3, outE, out21  # [26] d uses big
     print(f"[24] phases 1-24 took {time.perf_counter() - t_run:.0f} s (the kernels' build "
           f"{build_s:.0f} s of it)")
@@ -2945,14 +2971,14 @@ def main():
     need(len(n_guided) == fwd3 and l26d == want19,
          f"[26] SDXL config 3 on the DTCWT: {len(n_guided)} UNet forwards, launches {l26d}")
     ms26d = {k: [] for k in dt_runs}
-    for _ in range(3):
+    for _ in range(2):  # 3 before [27] needed the room
         for k in ("euler", "config3", "config3_dtcwt"):
             ms26d[k].append(event_ms(torch, dt_runs[k]))
     pc26 = {k: sorted(t / (SDXL_STEPS * (1 if k == "euler" else 2)) for t in v)
             for k, v in ms26d.items()}
     for k, v in pc26.items():
         print(f"[26] SDXL {k}: {med(v):.3f} ms per model call median (min {v[0]:.3f}, max "
-              f"{v[-1]:.3f}; 3 runs in turns, run ms {[round(t, 1) for t in ms26d[k]]}) [{card}]")
+              f"{v[-1]:.3f}; 2 runs in turns, run ms {[round(t, 1) for t in ms26d[k]]}) [{card}]")
     ov_dt = 100.0 * (med(pc26["config3_dtcwt"]) / med(pc26["euler"]) - 1.0)
     ov_dwt = 100.0 * (med(pc26["config3"]) / med(pc26["euler"]) - 1.0)
     print(f"[26] config3_dtcwt_overhead_pct {ov_dt:.2f} (config 3 on the DWT in these turns: "
@@ -3000,8 +3026,272 @@ def main():
     print(json.dumps({"noise_zoo_rest": zoo_stats, "distributions": dist_rows,
                       "config3_dtcwt_ms_per_model_call": pc26,
                       "config3_dtcwt_overhead_pct": ov_dt}))
-    del big, bpair, dt_runs, counted_dt, out_dt
     print(f"[26] took {time.perf_counter() - t26:.0f} s; phases 1-26 took "
+          f"{time.perf_counter() - t_run:.0f} s")
+
+    # -- phase 27: the node/workflow API: ComfyUI graphs through pipeline_from_workflow --
+    t27 = time.perf_counter()
+    print(f"[27] {t27 - t_run:.0f} s into the run")
+    import importlib.util
+
+    from sonar_tpu_torch.api import NODES, build, pipeline_from_workflow, port_workflow
+    from sonar_tpu_torch.api.schemas import SCHEMAS
+    from sonar_tpu_torch.api.validate import ALIASES
+    from sonar_tpu_torch.api.workflow import SAMPLER_NODE_CLASSES
+    from sonar_tpu_torch.cfg.latent_ops import SonarLatentOperation
+    from sonar_tpu_torch.utils import StepTimer, trace
+
+    has_yaml = importlib.util.find_spec("yaml") is not None
+    print(f"[27] PyYAML on this machine: {'yes' if has_yaml else 'no'} (the graphs below carry "
+          f"widget values only, no yaml_parameters)")
+
+    def widgets(node, **over):
+        """Every widget of ``node`` at its schema default, as ComfyUI stores them."""
+        return {**{f: s_["d"] for f, s_ in SCHEMAS[node].items()
+                   if s_["t"] != "x" and s_.get("d") is not None}, **over}
+
+    def graph_a():
+        """BASELINE config 2 (tools/bench_configs.py:33-49) as a ComfyUI graph."""
+        return {
+            "1": {"class_type": "SonarCustomNoise",
+                  "inputs": {"factor": 0.6, "rescale": 0.0, "noise_type": "perlin"}},
+            "2": {"class_type": "SonarCustomNoise",
+                  "inputs": {"factor": 0.4, "rescale": 0.0, "noise_type": "onef_pinkish",
+                             "sonar_custom_noise_opt": ["1", 0]}},
+            "3": {"class_type": "SamplerSonarEulerA",
+                  "inputs": widgets("SamplerSonarEulerA", momentum=0.95,
+                                    custom_noise_opt=["2", 0])},
+            "4": {"class_type": "SamplerCustom",
+                  "inputs": {"add_noise": True, "noise_seed": 7, "cfg": 7.0,
+                             "sampler": ["3", 0]}},
+        }
+
+    def graph_b(steps):
+        """Pyramid (variant "pyramid": the schema default, highres_pyramid, is
+        B5's ladder; its levels set, since at the widget's iterations -1 it
+        draws the base alone; 8, the widget's maximum, gives the variant's
+        ladder at 64x64, which ends at 1x1 after four levels) chained with
+        Voronoi into SamplerSonarEulerA; wavelet CFG at its widget defaults,
+        no YAML; Karras sigmas; host SamplerCustom."""
+        return {
+            "1": {"class_type": "CheckpointLoaderSimple", "inputs": {"ckpt_name": "model"}},
+            "2": {"class_type": "SonarAdvancedPyramidNoise",
+                  "inputs": widgets("SonarAdvancedPyramidNoise", factor=0.5, variant="pyramid",
+                                    iterations=8, discount=0.7, upscale_mode="bilinear")},
+            "3": {"class_type": "SonarAdvancedVoronoiNoise",
+                  "inputs": widgets("SonarAdvancedVoronoiNoise", factor=0.5,
+                                    sonar_custom_noise_opt=["2", 0])},
+            "4": {"class_type": "SamplerSonarEulerA",
+                  "inputs": widgets("SamplerSonarEulerA", custom_noise_opt=["3", 0])},
+            "5": {"class_type": "SonarWaveletCFG",
+                  "inputs": {k: v for k, v in widgets("SonarWaveletCFG", model=["1", 0]).items()
+                             if k != "yaml_parameters"}},
+            "6": {"class_type": "KarrasScheduler",
+                  "inputs": {"steps": steps, "sigma_max": 14.6, "sigma_min": 0.03, "rho": 7.0}},
+            "7": {"class_type": "SamplerCustom",
+                  "inputs": {"model": ["5", 0], "add_noise": True, "noise_seed": 7, "cfg": 7.0,
+                             "sampler": ["4", 0], "sigmas": ["6", 0]}},
+        }
+
+    def sync_checked(what, run):
+        try:
+            out_ = run()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            fail(f"[27] {what} synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return out_
+
+    port_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        res_a = port_workflow(graph_a(), model_sampling=ms3)
+        port_ms.append((time.perf_counter() - t0) * 1000)
+    port_ms.sort()
+    need(not res_a.failed and res_a.host_sampler == {"add_noise": True, "noise_seed": 7,
+                                                     "cfg": 7.0},
+         f"[27] graph (a) ported with {res_a.summary()}")
+    print(f"[27] port_workflow of graph (a), 4 nodes: {port_ms[2]:.3f} ms host time (median of "
+          f"5; min {port_ms[0]:.3f}, max {port_ms[-1]:.3f}); {res_a.summary()!r}")
+
+    # (a) config 2 as a workflow on [19]'s SDXL-class module, 1x4x128x128, 30 steps
+    def pipe_a(p):
+        return pipeline_from_workflow(graph_a(), model=p[0], model_uncond=p[1],
+                                      model_sampling=ms3)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_guided.clear()
+    reset_counts()
+    out_a = pipe_a(counting(bpair))(sx0, sdxl_sig)
+    l27a = read_counts()
+    peak_a = torch.cuda.max_memory_allocated()
+    need(out_a.shape == SDXL_SHAPE and out_a.is_cuda and bool(torch.isfinite(out_a).all()),
+         "[27] (a): output malformed or not finite")
+    need(len(n_guided) == 2 * SDXL_STEPS, f"[27] (a): {len(n_guided)} UNet forwards")
+    need(l27a == l21["config2"], f"[27] (a): launches {l27a}, [21]'s config 2 {l21['config2']}")
+    need(torch.equal(out_a, keep21["out"]), "[27] (a): differs from [21]'s config 2")
+    need(abs(peak_a - peak21["config2"]) <= 0.1 * 2**30,
+         f"[27] (a): peak {peak_a / 2**30:.2f} GiB, [21]'s {peak21['config2'] / 2**30:.2f}")
+    print(f"[27] (a) config 2 as a workflow, {SDXL_SHAPE}, {SDXL_STEPS} steps: "
+          f"{len(n_guided) // 2} guided calls; launches {l27a} (= [21]'s config 2); output "
+          f"bit-equal to [21]'s config 2; peak device memory {peak_a / 2**30:.2f} GiB "
+          f"([21]: {peak21['config2'] / 2**30:.2f}) [{card}]")
+    wf_a = pipe_a(bpair)
+    runs27 = {"config2": keep21["run"], "workflow_a": lambda: wf_a(sx0, sdxl_sig)}
+    ms27 = {k: [] for k in runs27}
+    for which in ("config2", "workflow_a", "workflow_a", "config2"):
+        ms27[which].append(event_ms(torch, runs27[which]))
+    per27 = {k: sorted(t / SDXL_STEPS for t in v) for k, v in ms27.items()}
+    for k, v in per27.items():
+        print(f"[27] {k}: {med(v):.3f} ms per model call median (min {v[0]:.3f}, max "
+              f"{v[-1]:.3f}; 2 runs interleaved, run ms {[round(t, 1) for t in ms27[k]]}) [{card}]")
+    guided_a = wf_a._denoiser(sdxl_np)
+    sa_in = torch.full((1,), 5.0, device=dev)
+    guided_a(sx0, sa_in, sigma_host=5.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    sync_checked("a guided call of (a)", lambda: guided_a(sx0, sa_in, sigma_host=5.0))
+    print("[27] one guided call of (a) under set_sync_debug_mode('error'): no sync")
+
+    # (b) a kernel-heavy workflow on the flagship, 1x4x64x64, 20 steps
+    def pipe_b(p, steps=STEPS):
+        return pipeline_from_workflow(graph_b(steps), model=p[0], model_uncond=p[1],
+                                      model_sampling=ms3)
+
+    wf_b, res_b = pipe_b(pair)
+    sig_b = res_b.sigmas
+    need(not res_b.failed and wf_b.wavelet_cfg is not None and sig_b.shape == (STEPS + 1,),
+         f"[27] graph (b) ported with {res_b.summary()}")
+    reset_counts()
+    out_b = wf_b(x0, sig_b)
+    l27b = read_counts()
+    need(out_b.is_cuda and out_b.shape == SHAPE and bool(torch.isfinite(out_b).all()),
+         "[27] (b): output malformed or not finite")
+    # a step: the momentum step (B1), a scale_noise for each of the two
+    # items (B2), the pyramid's three smaller levels and Voronoi's fresh
+    # feature points for its three octaves (B3: z_max_mode "reset" draws
+    # them every step and keeps them where z passed z_max), the pyramid's
+    # upscale (B4), one B6 for each octave; the points at set-up (B3, three)
+    want27b = {"B1": STEPS, "B2": 2 * STEPS, "B3": 6 * STEPS + 3, "B4": STEPS, "B5": 0,
+               "B6": 3 * STEPS}
+    need(l27b == want27b, f"[27] (b): launches {l27b}, expected {want27b}")
+    need(torch.equal(out_b, wf_b(x0, sig_b)), "[27] (b): not reproducible")
+    # [23]'s Recorded as the cond model turns the check on at its first call
+    sync_b = pipeline_from_workflow(graph_b(STEPS), model=Recorded(pair[0], sync_check=True),
+                                    model_uncond=pair[1], model_sampling=ms3)[0]
+    sync_checked("(b)'s run", lambda: sync_b(x0, sig_b))
+    print(f"[27] (b) pyramid + Voronoi + wavelet CFG as a workflow, {cfg} {SHAPE}, {STEPS} "
+          f"steps: launches {l27b}; reproducible; the run after its first model call under "
+          f"set_sync_debug_mode('error'): no sync [{card}]")
+    runs27b = {"gaussian": headline, "workflow_b": lambda: wf_b(x0, sig_b)}
+    ms27b = {k: [] for k in runs27b}
+    for _ in range(3):
+        for k, fn in runs27b.items():
+            ms27b[k].append(event_ms(torch, fn))
+    b_stats = {}
+    for k, fn in runs27b.items():
+        v = sorted(ms27b[k])
+        n27, by27 = profile_run(torch, fn, f"[27] {k}")
+        dev27 = sum(by27.values())
+        b_stats[k] = {"steps_per_s": STEPS / (v[1] / 1000.0), "run_ms": v,
+                      "device_kernels": n27, "device_us": dev27,
+                      "busy_pct": 100.0 * dev27 / (v[1] * 1000.0)}
+        print(f"[27] {k}: {b_stats[k]['steps_per_s']:.2f} steps/s (median of "
+              f"{[round(t, 2) for t in v]} ms, in turns), {n27} device kernels, "
+              f"{dev27:.1f} us device, busy {b_stats[k]['busy_pct']:.1f} % [{card}]")
+    torch.backends.cudnn.allow_tf32 = False
+    wb_card, rb_card = pipe_b(pair, CONFIG3_STEPS)
+    wb_cpu, _ = pipe_b(cpu_pair, CONFIG3_STEPS)
+    rel_b = rel_err(wb_card(x0, rb_card.sigmas), wb_cpu(x0.cpu(), rb_card.sigmas))[1]
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"[27] (b) at {CONFIG3_STEPS} steps, noise live (one Philox stream), card vs CPU, "
+          f"TF32 off: max rel diff {rel_b:.3e} (tolerance {TRAJ_TOL:g})")
+    need(rel_b <= TRAJ_TOL, f"[27] (b): card and CPU differ ({rel_b:.3e})")
+    timer = StepTimer()
+    timer.start()
+    wf_b(x0, sig_b, callback=timer)
+    st27 = timer.summary()
+    need(st27["steps"] == STEPS, f"[27] StepTimer: {st27}")
+    print(f"[27] (b) under StepTimer (synchronised every step): p50 {st27['p50_ms']:.3f} ms, "
+          f"p90 {st27['p90_ms']:.3f} ms, mean {st27['mean_ms']:.3f} ms [{card}]")
+    with trace(os.path.join(ROOT, "build", "trace27")) as trace_path:
+        wf_b(x0, sig_b[-3:])  # one step and the tail
+    need(os.path.getsize(trace_path) > 0, "[27] trace: no trace file")
+    print(f"[27] trace of one step and the tail: {os.path.relpath(trace_path, ROOT)}, "
+          f"{os.path.getsize(trace_path)} bytes")
+
+    # (c) every node name, built on the card from its schema defaults
+    gen27 = torch.Generator().manual_seed(27)
+    card_latent = torch.randn(SHAPE, generator=gen27).to(dev)
+    links = {"OCS_NOISE,SONAR_CUSTOM_NOISE": lambda: NoiseChain([get_noise_item("gaussian")]),
+             "SONAR_POWER_FILTER": PowerFilter, "LATENT": lambda: card_latent,
+             "MASK": lambda: torch.ones(SHAPE[-2:], device=dev),
+             "IMAGE": lambda: torch.full((1, 64, 64, 3), 0.5, device=dev),
+             "SIGMAS": lambda: sig_b[:3].clone(),
+             "LATENT_OPERATION": SonarLatentOperation, "SAMPLER": lambda: "sonar_euler"}
+    adapted = {"SonarScheduledNoise": {"model_sampling": ms3},
+               "FreeUExtreme": {"model_sampling": ms3, "model_channels": cfg.model_channels},
+               "NoisyLatentLike": {"model_sampling": ms3},
+               "KSamplerSelect": {"sampler_name": "euler"},
+               "SonarToComfyNOISE": {"sonar_custom_noise": links[
+                   "OCS_NOISE,SONAR_CUSTOM_NOISE"](), "seed": 3},
+               "BasicScheduler": {"model_sampling": ms3}}
+    sig2 = bench_sigmas(torch, 2)
+    kinds = {"noise": [], "sampler": [], "tensor": [], "other": []}
+    reset_counts()
+    for node in sorted(NODES):
+        schema = SCHEMAS.get(ALIASES.get(node, node), {}) if node != "SonarToComfyNOISE" else {}
+        # no upstream chain: each noise node's draw is its own item alone
+        params = {f: (links[s_["ty"]]() if s_["t"] == "x" else s_["d"])
+                  for f, s_ in schema.items() if f not in ("model", "sonar_custom_noise_opt")
+                  and (s_["ty"] in links if s_["t"] == "x" else s_.get("d") is not None)}
+        params.update(adapted.get(node, {}))
+        try:
+            obj = build(node, **params)
+        except Exception as e:  # noqa: BLE001 — name the node, then stop
+            fail(f"[27] node {node} did not build on the card: {type(e).__name__}: {e}")
+        if isinstance(obj, NoiseItem):
+            fn, st_ = make_noise_sampler(obj, SHAPE, device=dev, seed=11, sigma_min=0.03,
+                                         sigma_max=14.6)
+            n_ = fn(st_, 1.0, 0.5)[0]
+            s_ = float(n_.std())
+            need(n_.is_cuda and n_.shape == SHAPE and bool(torch.isfinite(n_).all())
+                 and abs(s_ - 1.0) < 0.05, f"[27] node {node}: draw {n_.shape} std {s_}")
+            kinds["noise"].append(node)
+        elif node in SAMPLER_NODE_CLASSES:
+            o = obj(denoiser, x0, sig2, seed=7)
+            need(o.is_cuda and o.shape == SHAPE and bool(torch.isfinite(o).all()),
+                 f"[27] node {node}: 2 steps malformed or not finite")
+            kinds["sampler"].append(node)
+        elif hasattr(obj, "generate_noise"):  # the ComfyUI NOISE adapter, both names
+            o = obj.generate_noise({"samples": card_latent, "batch_index": [1, 0]})
+            need(o.is_cuda and bool(torch.isfinite(o).all()), f"[27] {node}: malformed")
+            kinds["noise"].append(node)
+        elif isinstance(obj, (torch.Tensor, np.ndarray)):
+            o = torch.as_tensor(obj)
+            need(bool(torch.isfinite(o.float()).all()) and (o.is_cuda or isinstance(
+                obj, np.ndarray) or node.endswith("Scheduler")), f"[27] node {node}: {o.device}")
+            kinds["tensor"].append(node)
+        else:
+            kinds["other"].append(node)
+    l27c = read_counts()
+    need(sum(len(v) for v in kinds.values()) == len(NODES) == 60 and l27c["B5"] > 0,
+         f"[27] node sweep: {kinds}, launches {l27c}")
+    print(f"[27] (c) all {len(NODES)} node names built on the card from their schema defaults: "
+          f"{len(kinds['noise'])} noises drawn once at {SHAPE} (finite, std within 0.05 of 1), "
+          f"{len(kinds['sampler'])} samplers run 2 steps on the flagship, "
+          f"{len(kinds['tensor'])} tensors or images, {len(kinds['other'])} other objects "
+          f"({', '.join(kinds['other'])}); launches {l27c}")
+    print(json.dumps({"workflow": {
+        "port_workflow_ms_graph_a": port_ms[2], "a_launches": l27a,
+        "a_ms_per_model_call": {k: med(v) for k, v in per27.items()},
+        "a_peak_gib": peak_a / 2**30, "config2_peak_gib": peak21["config2"] / 2**30,
+        "b_launches": l27b, "b": b_stats, "b_card_vs_cpu_rel": rel_b,
+        "b_step_timer": st27, "c_launches": l27c, "yaml": has_yaml}}))
+    del big, bpair, dt_runs, counted_dt, out_dt, keep21, wf_a, runs27
+    print(f"[27] took {time.perf_counter() - t27:.0f} s; phases 1-27 took "
           f"{time.perf_counter() - t_run:.0f} s")
 
     src = "sonar_tpu_torch/csrc/"
@@ -3043,7 +3333,8 @@ def main():
          "launches_combinators": sum(l25[t][k] for t in "ABC"),
          "launches_config5_zwalk": lz[k],
          "launches_noise_zoo_rest": sum(l26[z][k] for z in l26),
-         "launches_dtcwt_wcfg_sdxl": l26d[k]}
+         "launches_dtcwt_wcfg_sdxl": l26d[k],
+         "launches_workflow": l27a[k] + l27b[k]}
         for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

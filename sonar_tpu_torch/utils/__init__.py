@@ -1,12 +1,13 @@
-"""Small helpers (port of ``sonar_tpu.utils``): ``utils/misc.py`` and the
-verbose channel of ``utils/profiling.py``."""
+"""Small helpers (port of ``sonar_tpu.utils``): ``utils/misc.py`` and
+``utils/profiling.py`` (``StepTimer``, ``trace``, the verbose channel)."""
 
 from .misc import (adjust_slice, clamp_float, crop_samples, elementwise_shuffle_by_dim,
                    fallback, filter_dict, maybe_apply, pattern_break, step_from_sigmas,
                    step_from_sigmas_f32, step_from_sigmas_traced, trunc_decimals)
-from .profiling import set_verbose_sink, verbose_writer
+from .profiling import StepTimer, set_verbose_sink, trace, verbose_writer
 
 __all__ = [
+    "StepTimer",
     "adjust_slice",
     "clamp_float",
     "crop_samples",
@@ -19,6 +20,7 @@ __all__ = [
     "step_from_sigmas",
     "step_from_sigmas_f32",
     "step_from_sigmas_traced",
+    "trace",
     "trunc_decimals",
     "verbose_writer",
 ]

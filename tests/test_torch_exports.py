@@ -5,8 +5,8 @@ both packages' ``__init__.py`` by AST (nothing is imported).
 ``__all__`` in both packages: the JAX package's names must all be in the
 port's, except the omissions made on purpose (``core``: JAX's PRNG-key
 API, ``derive_key`` and ``key_from_seed``, which the port's integer seeds
-replace). ``cfg`` and ``wavelets`` define no ``__all__`` in the JAX
-package: every name its ``__init__.py`` imports must be one the port's
+replace). ``cfg``, ``wavelets`` and ``api`` define no ``__all__`` in the
+JAX package: every name its ``__init__.py`` imports must be one the port's
 imports or lists.
 """
 
@@ -32,6 +32,7 @@ def _all(tree: ast.Module):
 
 
 def _imported(tree: ast.Module) -> set:
+    """Names bound by ``from ... import`` (``from . import extensions`` too)."""
     return {a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom)
             for a in node.names}
 
@@ -56,7 +57,7 @@ def test_all_covers_the_jax_package(sub):
     assert got <= _defined(_init("sonar_tpu_torch", sub))  # every listed name exists
 
 
-@pytest.mark.parametrize("sub", ["cfg", "wavelets"])
+@pytest.mark.parametrize("sub", ["cfg", "wavelets", "api"])
 def test_imports_cover_the_jax_package(sub):
     jax_tree = _init("sonar_tpu", sub)
     assert _all(jax_tree) is None
@@ -66,9 +67,9 @@ def test_imports_cover_the_jax_package(sub):
 
 
 def test_f8_names_import():
-    from sonar_tpu_torch.utils import (adjust_slice, crop_samples,  # noqa: F401
+    from sonar_tpu_torch.utils import (StepTimer, adjust_slice, crop_samples,  # noqa: F401
                                        elementwise_shuffle_by_dim, pattern_break,
-                                       step_from_sigmas_f32, step_from_sigmas_traced,
+                                       step_from_sigmas_f32, step_from_sigmas_traced, trace,
                                        trunc_decimals)
 
     assert step_from_sigmas_traced is step_from_sigmas_f32
