@@ -203,11 +203,37 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    p50/p90 and one ``trace``; (c) all 60 node names built on the card from
    their schema defaults: each noise drawn once at 1×4×64×64 (finite,
    normalized), each sampler node run 2 steps on the flagship (B5 launches
-   where the sweep draws highres_pyramid).
+   where the sweep draws highres_pyramid);
+28. runs the model tier: (a) DiT-S/2 (bench.py:174: hidden 384, depth 12,
+   6 heads, patch 2; random weights from seed 0) through
+   ``make_dit_denoiser`` and ``sample_sonar_euler_ancestral`` at the
+   headline's latent, schedule and seed: launches (B1, B2, B3 20 each),
+   reproducibility, the run after its first model call under the sync
+   check, the kernel path against the plain path on one injected stream
+   and the card against the CPU at 4 steps, TF32 off; steps/s as the median
+   of 3 runs in turns with the headline, the busy share of one profiled
+   run, peak memory, ``dit_forward_flops`` and the MFU against the H100's
+   bf16 peak; a bf16 DiT; (b) the Switch-MoE DiT at that width (4 experts):
+   one forward card vs CPU, each block on the card's input, the share of
+   routing decisions that differ and the rest within 1e-4, aux >= 1, and
+   the steps/s of one 20-step run; (c) 10 training steps at batch 16 (lr
+   2e-3, a fixed batch and step seed) at float32 with remat False, "full"
+   and "dots" and with bf16 compute: the loss falls below 0.9 of its first
+   value, the first step's gradients equal across remat within 1e-6 of
+   the largest, bf16's master weights float32 and its first loss within
+   5 % of float32's, B3 twice a step, the second step under the sync
+   check, steps/s by events and peak memory; 3 steps of the flow objective
+   served 4 steps with ``prediction="flow"`` and ``ancestral_mode="rf"``;
+   (d) a checkpoint of the float32 run after step 5: restored bit-equal
+   into a fresh module and optimizer, step 6 within 1e-6 of the
+   uninterrupted one, a partial restore of the params; (e) one training
+   step of the flagship UNet card vs CPU on injected draws, TF32 off (loss
+   1e-5, gradients 1e-4 of each tensor's largest).
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
-launches on the paths (``launches_workflow``: [27] (a) and (b)), their
+launches on the paths (``launches_workflow``: [27] (a) and (b);
+``launches_dit``: [28] (a); ``launches_train``: [28] (c)'s float32 run), their
 error, their device time (``ms``), the plain version's, the least time the
 card could take (``bound_ms``, from this
 run's shapes: bytes at 3.35 TB/s against operations at 33.5 T/s, the
@@ -284,6 +310,8 @@ FREEU_CH, FREEU_HW = 960, (16, 32, 64)
 FREEU_TOL = {"dense": 3e-6, "sep": 3e-5, "fft": 1e-5}
 FREEU_DENSE_TOL_64 = 1e-5
 CONFIG4_PATCHES = {16: 6, 32: 5, 64: 1}  # stage-1 activations filtered per cond forward
+TRAIN_STEPS, TRAIN_SEED = 10, 5  # [28] (c): DiT-S/2 steps a setting, the fixed step seed
+CKPT_STEP = 5  # [28] (d): the float32 run is saved after this step
 VIDEO_SHAPE = (1, 4, 16, 128, 128)  # tools/bench_configs.py:105, 16 frames
 VIDEO_DRAWS = 20  # tools/bench_configs.py:108
 ZWALK_DRAWS = 5  # tools/bench_configs.py:157
@@ -2893,16 +2921,16 @@ def main():
     big_ctx = NoiseCtx((1, 1, 1024, 1024), device=dev)
     dist_rows = {}
     for d in DISTRO_PARAMS:
-        gen = DistroGenerator(distro=d)
-        a = gen.raw(NoiseCtx(SHAPE, device="cpu"), 26).double()
-        b = gen.raw(NoiseCtx(SHAPE, device=dev), 26)
+        dgen = DistroGenerator(distro=d)
+        a = dgen.raw(NoiseCtx(SHAPE, device="cpu"), 26).double()
+        b = dgen.raw(NoiseCtx(SHAPE, device=dev), 26)
         need(b.is_cuda and b.shape == a.shape and bool(torch.isfinite(b).all()),
              f"[26] {d}: card draw malformed or not finite")
         diff = (b.cpu().double() - a).abs() / a.abs().clamp(min=1.0)
         past = float((diff > XDEV_TOL).double().mean())
         ok_dev = past <= (1e-3 if d in REJECTION | {"geometric"} else 0.0)
         with np.errstate(divide="ignore"):
-            ok_stat, what = dist_checks[d](gen.raw(big_ctx, 260).double().cpu().numpy())
+            ok_stat, what = dist_checks[d](dgen.raw(big_ctx, 260).double().cpu().numpy())
         dist_rows[d] = {"max_rel": float(diff.max()), "share_past": past, "stat": what}
         print(f"[26] {d:26s} card vs CPU: max rel {float(diff.max()):.2e}, share past "
               f"{XDEV_TOL:g} {past:.2e} ({'rejection' if d in REJECTION else 'transform'}); "
@@ -3294,6 +3322,422 @@ def main():
     print(f"[27] took {time.perf_counter() - t27:.0f} s; phases 1-27 took "
           f"{time.perf_counter() - t_run:.0f} s")
 
+    # -- phase 28: the model tier: DiT-S/2 serving and training, checkpoints --------------
+    print(f"[28] {time.perf_counter() - t_run:.0f} s into the run")
+    t28 = time.perf_counter()
+    import dataclasses
+    import functools
+    import shutil
+    import warnings
+
+    import torch.nn.functional as TF
+
+    import sonar_tpu_torch.models.train as TR
+    from sonar_tpu_torch.cfg import Flow
+    from sonar_tpu_torch.models import (H100_PEAK_FLOPS, DiTConfig, dit_forward_flops,
+                                        init_dit_params, init_train_state, make_dit_denoiser,
+                                        make_train_step, mfu_pct, restore_checkpoint,
+                                        save_checkpoint)
+
+    def no_sync(what, run):
+        """``run`` under ``set_sync_debug_mode("error")`` from its start (or
+        from where ``run`` turns it on), off again after it."""
+        try:
+            out_ = run()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            fail(f"[28] {what} synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return out_
+
+    def dit_model(dtype=torch.float32, seed=0, **kw):
+        return init_dit_params(torch.Generator().manual_seed(seed),
+                               dataclasses.replace(dit_cfg, dtype=dtype, **kw), device=dev)
+
+    # (a) DiT-S/2 serving the headline's sampler
+    dit_cfg = DiTConfig(hidden=384, depth=12, num_heads=6, patch_size=2)  # bench.py:174
+    dit = dit_model()
+    n_par = sum(p.numel() for p in dit.parameters())
+    dit_den = make_dit_denoiser(dit)
+
+    def dit_run(den=dit_den, sig=sigmas, **kw):
+        return sample_sonar_euler_ancestral(den, x0, sig, seed=7, **kw)
+
+    reset_counts()
+    out_d = dit_run()
+    l28a = read_counts()
+    need(out_d.is_cuda and out_d.shape == SHAPE and out_d.dtype == torch.float32
+         and bool(torch.isfinite(out_d).all()), "[28] (a): output malformed or not finite")
+    want28a = {"B1": STEPS, "B2": STEPS, "B3": STEPS, "B4": 0, "B5": 0, "B6": 0}
+    need(l28a == want28a, f"[28] (a): launches {l28a}, expected {want28a}")
+    need(torch.equal(out_d, dit_run()), "[28] (a): not reproducible for one seed")
+    no_sync("(a)'s run after its first model call",
+            lambda: dit_run(Recorded(dit_den, sync_check=True)))
+    print(f"[28] (a) {dit_cfg}, {n_par / 1e6:.2f} M parameters, {SHAPE}, {STEPS} Karras steps, "
+          f"seed 7: output std {float(out_d.std()):.4f}; launches {l28a}; reproducible; the run "
+          f"after its first model call under set_sync_debug_mode('error'): no sync [{card}]")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    raw28 = [randn(SHAPE) * 1.3 + 0.2 for _ in range(STEPS)]
+    kern = dit_run(use_fused=None, noise_sampler=lambda i, s, sn: F.fused_scale_noise(raw28[i]))
+    plain = dit_run(use_fused=False,
+                    noise_sampler=lambda i, s, sn: F.fused_scale_noise_reference(raw28[i]))
+    rel_kp = rel_err(kern, plain)[1]
+    need(rel_kp <= TRAJ_TOL, f"[28] (a): kernel and plain trajectories differ: {rel_kp:.3e}")
+    sig4 = bench_sigmas(torch, CONFIG3_STEPS)
+    g28 = torch.Generator().manual_seed(28)
+    inj = [torch.randn(SHAPE, generator=g28) for _ in range(CONFIG3_STEPS)]
+    cpu_dit = copy.deepcopy(dit).cpu()
+    on_card = dit_run(sig=sig4, noise_sampler=lambda i, s, sn: inj[i].to(dev))
+    on_cpu = sample_sonar_euler_ancestral(make_dit_denoiser(cpu_dit), x0.cpu(), sig4,
+                                          noise_sampler=lambda i, s, sn: inj[i])
+    rel_cc = rel_err(on_card, on_cpu)[1]
+    need(rel_cc <= TRAJ_TOL, f"[28] (a): card and CPU differ ({rel_cc:.3e})")
+
+    def own_rel(a, b):
+        """max |a - b| relative to max |b|, ``b`` on the CPU."""
+        return float((a.cpu().double() - b.double()).abs().max()) / float(b.double().abs().max())
+
+    # the init's 1e-2 head keeps the DiT's share of a sampler step small, so
+    # the raw forward is held too: each block on the card's input, and the
+    # whole eps, each relative to its own largest value
+    xd = torch.randn(SHAPE, generator=torch.Generator().manual_seed(280))
+    sd = torch.full((1,), 2.0)
+    seen_d = []
+    hooks = [blk.register_forward_hook(lambda mod, args, out: seen_d.append(
+        (args[0], args[1], out[0]))) for blk in dit.blocks]
+    with torch.no_grad():
+        eps_g = dit(xd.to(dev), sd.to(dev))
+        eps_c = cpu_dit(xd, sd)
+        for h_ in hooks:
+            h_.remove()
+        need(len(seen_d) == dit_cfg.depth, "[28] (a): block hooks")
+        blk_rel_d = max(own_rel(h_out, cpu_dit.blocks[i](h_in.cpu(), emb.cpu())[0])
+                        for i, (h_in, emb, h_out) in enumerate(seen_d))
+    eps_rel = own_rel(eps_g, eps_c)
+    need(blk_rel_d <= TRAJ_TOL and eps_rel <= TRAJ_TOL,
+         f"[28] (a): the raw forward, card vs CPU: blocks {blk_rel_d:.3e}, eps {eps_rel:.3e}")
+    del cpu_dit, kern, plain, raw28, seen_d
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"[28] (a) TF32 off: kernel path vs plain path on one injected stream, {STEPS} steps: "
+          f"max rel diff {rel_kp:.3e}; card vs CPU at {CONFIG3_STEPS} steps on one injected "
+          f"stream: {rel_cc:.3e} (tolerance {TRAJ_TOL:g}); one forward at sigma 2, card vs "
+          f"CPU: each block on the card's input within {blk_rel_d:.3e} of its largest output, "
+          f"eps within {eps_rel:.3e} of its largest |eps| {float(eps_c.abs().max()):.4e}")
+    runs28 = {"gaussian": headline, "dit": dit_run}
+    ms28 = {k: [] for k in runs28}
+    for _ in range(3):
+        for k, fn in runs28.items():
+            ms28[k].append(event_ms(torch, fn))
+    a_stats = {}
+    for k, fn in runs28.items():
+        v = sorted(ms28[k])
+        n_k, by_k = profile_run(torch, fn, f"[28] {k}")
+        dev_k = sum(by_k.values())
+        a_stats[k] = {"steps_per_s": STEPS / (v[1] / 1000.0), "run_ms": v, "device_kernels": n_k,
+                      "device_us": dev_k, "busy_pct": 100.0 * dev_k / (v[1] * 1000.0)}
+        print(f"[28] {k}: {a_stats[k]['steps_per_s']:.2f} steps/s (median of "
+              f"{[round(t, 2) for t in v]} ms, in turns), {n_k} device kernels, {dev_k:.1f} us "
+              f"device, busy {a_stats[k]['busy_pct']:.1f} % [{card}]")
+        if k == "dit":
+            top = sorted(by_k.items(), key=lambda kv: -kv[1])[:6]
+            print("[28] dit: device time by kernel, largest: " + "; ".join(
+                f"{nm[:60]} {us / dev_k * 100:.1f} %" for nm, us in top))
+    torch.cuda.synchronize()
+    resident_a = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dit_run()
+    torch.cuda.synchronize()
+    peak_a = torch.cuda.max_memory_allocated() - resident_a
+    flops_fwd = dit_forward_flops(dit_cfg, SHAPE)
+    call_ms = a_stats["dit"]["run_ms"][1] / STEPS
+    mfu_wall = mfu_pct(flops_fwd, call_ms)
+    mfu_dev = mfu_pct(flops_fwd, a_stats["dit"]["device_us"] / 1000.0 / STEPS)
+    print(f"[28] (a) dit_forward_flops {flops_fwd / 1e9:.2f} GFLOP a model call; "
+          f"dit_sampler_mfu_pct {mfu_wall:.3f} % ({call_ms:.3f} ms a step by events; the "
+          f"H100's dense bf16 peak {H100_PEAK_FLOPS / 1e12:.1f} TFLOP/s, float32 program), "
+          f"{mfu_dev:.3f} % on device time a step; peak memory {peak_a / 2**30:.3f} GiB above "
+          f"the resident {resident_a / 2**30:.2f} [{card}]")
+    dit_bf = dit_model(torch.bfloat16)
+    out_bf = dit_run(make_dit_denoiser(dit_bf))
+    need(out_bf.dtype == torch.float32 and out_bf.shape == SHAPE
+         and bool(torch.isfinite(out_bf).all()), "[28] (a): bf16 DiT output malformed")
+    bf_err, bf_rel = rel_err(out_bf, out_d)
+    print(f"[28] (a) dtype=torch.bfloat16 DiT, same seed: float32 output, finite; max abs diff "
+          f"from the float32 run {bf_err:.4e} (rel {bf_rel:.3e}, output max "
+          f"{float(out_d.abs().max()):.3f})")
+    del dit_bf, out_bf
+
+    # (b) Switch-MoE at DiT-S width: one forward, card against CPU block by block
+    moe = dit_model(num_experts=4)
+    moe_cpu = copy.deepcopy(moe).cpu()
+    e_n = moe.cfg.num_experts
+    xm = torch.randn(SHAPE, generator=torch.Generator().manual_seed(281))
+    sm = torch.full((1,), 2.0)
+    seen = {"blocks": [], "router": []}
+    hooks = [blk.register_forward_hook(lambda mod, args, out: seen["blocks"].append(
+        (args[0], args[1], out[0]))) for blk in moe.blocks]
+    hooks += [blk.router.register_forward_hook(lambda mod, args, out: seen["router"].append(out))
+              for blk in moe.blocks]
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        out_m, aux_m = moe(xm.to(dev), sm.to(dev), return_aux=True)
+        out_mc, aux_mc = moe_cpu(xm, sm, return_aux=True)
+    for h_ in hooks:
+        h_.remove()
+    need(len(seen["blocks"]) == len(seen["router"]) == dit_cfg.depth, "[28] (b): hooks")
+
+    def route(logits, c):
+        """Each token's expert and whether it is kept (its rank among the
+        sample's tokens routed there below the capacity)."""
+        idx = torch.softmax(logits.float(), -1).argmax(-1)
+        onehot = TF.one_hot(idx, e_n).float()
+        pos = (torch.cumsum(onehot, 1) * onehot).sum(-1) - 1.0
+        return idx, pos < c
+
+    cap = moe.cfg.expert_capacity(seen["blocks"][0][0].shape[1])
+    moved = total = 0
+    blk_rel = 0.0
+    drops = 0
+    for i, ((h_in, emb, h_out), logits) in enumerate(zip(seen["blocks"], seen["router"])):
+        cpu_logits = []
+        hk = moe_cpu.blocks[i].router.register_forward_hook(
+            lambda mod, args, out: cpu_logits.append(out))
+        with torch.no_grad():
+            h_cpu = moe_cpu.blocks[i](h_in.cpu(), emb.cpu())[0]
+        hk.remove()
+        idx_g, keep_g = (t.cpu() for t in route(logits, cap))
+        idx_c, keep_c = route(cpu_logits[0], cap)
+        same = (idx_g == idx_c) & (keep_g == keep_c)
+        moved += int((idx_g != idx_c).sum())
+        total += idx_g.numel()
+        drops += int((~keep_c).sum())
+        rows = (h_out.cpu()[same] - h_cpu[same]).abs().max()
+        blk_rel = max(blk_rel, float(rows) / max(1.0, float(h_cpu.abs().max())))
+    moe_share = moved / total
+    whole_rel = rel_err(out_m, out_mc)[1]
+    torch.backends.cudnn.allow_tf32 = True
+    need(blk_rel <= TRAJ_TOL, f"[28] (b): tokens routed alike differ by {blk_rel:.3e}")
+    need(moe_share <= 1e-3, f"[28] (b): {moved} of {total} tokens routed differently")
+    # aux counts the routed tokens: one token routed elsewhere moves it by ~E/N
+    need(min(float(aux_m), float(aux_mc)) >= 1.0 - 1e-6
+         and abs(float(aux_m) - float(aux_mc)) <= 1e-5 + moved * e_n / total,
+         f"[28] (b): aux {float(aux_m)} (CPU {float(aux_mc)})")
+    moe_den = make_dit_denoiser(moe)
+    no_sync("(b)'s run after its first model call",
+            lambda: dit_run(Recorded(moe_den, sync_check=True)))
+    moe_ms = event_ms(torch, lambda: dit_run(moe_den))
+    print(f"[28] (b) {moe.cfg}: one forward at sigma 2, card vs CPU, TF32 off, each block on "
+          f"the card's input: {moved} of {total} routing decisions differ "
+          f"({moe_share:.2e}); the rest within {blk_rel:.3e} (tolerance {TRAJ_TOL:g}); "
+          f"{drops} past the capacity {cap}; whole forward {whole_rel:.3e}; aux {float(aux_m):.6f} "
+          f"(CPU {float(aux_mc):.6f}); {STEPS} steps of serving: {STEPS / (moe_ms / 1000):.2f} "
+          f"steps/s ({moe_ms:.2f} ms, one run), a run after its first model call under the "
+          f"sync check: no sync [{card}]")
+    del moe, moe_cpu, moe_den, seen, out_m, out_mc
+
+    # (c) training DiT-S/2 at batch 16, (d) checkpoints
+    t_batch = torch.randn((16,) + SHAPE[1:], generator=torch.Generator().manual_seed(282)).to(dev)
+    adam = functools.partial(torch.optim.Adam, lr=2e-3)
+    ckpt = os.path.join(ROOT, "build", "ckpt28")
+    settings = {"float32": {}, "remat full": {"remat": "full"}, "remat dots": {"remat": "dots"},
+                "bf16": {"compute_dtype": torch.bfloat16}}
+    # B3 at the training draws' own shapes, (16,) and (16, 4, 64, 64), against
+    # its plain version (before the counts are reset: these launches compare)
+    u_k, e_k = TR.train_draws(TRAIN_SEED, t_batch)
+    u_p = H.philox_rand_reference(derive_seed(TRAIN_SEED, "train", "sigma"), (16,), device=dev)
+    e_p = H.philox_randn_reference(derive_seed(TRAIN_SEED, "train", "eps"), t_batch.shape,
+                                   device=dev)
+    train_b3_err = float((e_k - e_p).abs().max())
+    need(u_k.shape == u_p.shape and torch.equal(u_k, u_p) and e_k.shape == e_p.shape
+         and train_b3_err <= B3_TOL,
+         f"[28] (c): train_draws against B3's plain version: normals {train_b3_err:.3e}")
+    b3_err = max(b3_err, train_b3_err)
+    print(f"[28] (c) train_draws on the card: uniforms {tuple(u_k.shape)} bitwise equal to B3's "
+          f"plain version, normals {tuple(e_k.shape)} within {train_b3_err:.3e} (tolerance "
+          f"{B3_TOL:g} absolute)")
+    del u_k, e_k, u_p, e_p
+    train, grads0 = {}, {}
+    for nm, kw in settings.items():
+        m = dit_model()
+        opt = init_train_state(m, adam)
+        step = make_train_step(dit_cfg, **kw)
+        reset_counts()
+        losses = [step(m, opt, t_batch, TRAIN_SEED)]
+        if nm != "bf16":
+            grads0[nm] = [p.grad.detach().cpu() for p in m.parameters()]
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("error")
+        losses.append(no_sync(f"(c) {nm}: the second step",
+                              lambda: step(m, opt, t_batch, TRAIN_SEED)))
+        evs = []
+        for i in range(3, TRAIN_STEPS + 1):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            losses.append(step(m, opt, t_batch, TRAIN_SEED))
+            ev[1].record()
+            evs.append(ev)
+            if nm == "float32" and i == CKPT_STEP:
+                state = {"params": m.state_dict(), "opt_state": opt.state_dict(), "step": i}
+                save_checkpoint(ckpt, state, force=True)
+                # host copies (Adam's step counts are host tensors the next step bumps)
+                saved = {"params": {k: v.to("cpu", copy=True) for k, v in state["params"].items()},
+                         "state": {j: {k: v.to("cpu", copy=True) for k, v in s_.items()}
+                                   for j, s_ in state["opt_state"]["state"].items()},
+                         "param_groups": copy.deepcopy(state["opt_state"]["param_groups"])}
+                del state
+            if nm == "float32" and i == CKPT_STEP + 1:
+                after = {k: v.to("cpu", copy=True) for k, v in m.state_dict().items()}
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        step_ms = sorted(a.elapsed_time(b) for a, b in evs)
+        ls = torch.stack(losses).tolist()
+        need(all(math.isfinite(v) for v in ls) and ls[-1] < 0.9 * ls[0],
+             f"[28] (c) {nm}: losses {ls}")
+        need(all(p.dtype == torch.float32 for p in m.parameters()),
+             f"[28] (c) {nm}: master weights are not float32")
+        need(counts == {"B1": 0, "B2": 0, "B3": 2 * TRAIN_STEPS, "B4": 0, "B5": 0, "B6": 0},
+             f"[28] (c) {nm}: launches {counts}")
+        train[nm] = {"losses": ls, "steps_per_s": 1000.0 / step_ms[len(step_ms) // 2],
+                     "step_ms": step_ms, "peak_gib": peak / 2**30,
+                     "activation_peak_gib": (peak - resident) / 2**30, "launches": counts}
+        print(f"[28] (c) {nm}: loss {ls[0]:.5f} -> {ls[-1]:.5f} in {TRAIN_STEPS} steps; "
+              f"{train[nm]['steps_per_s']:.2f} steps/s (median of {len(step_ms)} steps by "
+              f"events, {step_ms[0]:.2f}-{step_ms[-1]:.2f} ms); peak memory "
+              f"{peak / 2**30:.2f} GiB, {(peak - resident) / 2**30:.2f} above the resident "
+              f"{resident / 2**30:.2f}; launches {counts}; the second step under the sync "
+              f"check: no sync [{card}]")
+        if nm == "float32":
+            l28c = counts
+        del m, opt
+    gmax = max(float(g.abs().max()) for g in grads0["float32"])
+    remat_rel = {nm: max(float((a - b).abs().max()) for a, b in zip(grads0[nm], grads0["float32"]))
+                 / gmax for nm in ("remat full", "remat dots")}
+    need(all(v <= 1e-6 for v in remat_rel.values()),
+         f"[28] (c) remat changes the first step's gradients: {remat_rel}")
+    bf_first = abs(train["bf16"]["losses"][0] - train["float32"]["losses"][0])
+    need(bf_first <= 0.05 * train["float32"]["losses"][0],
+         f"[28] (c) bf16 first loss {train['bf16']['losses'][0]} against "
+         f"{train['float32']['losses'][0]}")
+    print(f"[28] (c) first step's gradients against remat=False, relative to the largest "
+          f"({gmax:.4e}): {remat_rel}; bf16's first loss {bf_first / train['float32']['losses'][0]:.3e} "
+          f"from float32's")
+    del grads0
+
+    fresh = dit_model(seed=1)
+    fresh_opt = init_train_state(fresh, adam)
+    restored = restore_checkpoint(ckpt)
+    need(restored["step"] == CKPT_STEP and set(restored) == {"params", "opt_state", "step"},
+         f"[28] (d): restored {set(restored)}")
+    bit_equal = all(torch.equal(restored["params"][k].cpu(), v)
+                    for k, v in saved["params"].items())
+    bit_equal &= all(torch.equal(restored["opt_state"]["state"][j][k].cpu(), v)
+                     for j, s_ in saved["state"].items() for k, v in s_.items())
+    need(bit_equal and restored["opt_state"]["param_groups"] == saved["param_groups"],
+         "[28] (d): the restored state differs from the saved one")
+    fresh.load_state_dict(restored["params"])
+    fresh_opt.load_state_dict(restored["opt_state"])
+    loss_r = float(make_train_step(dit_cfg)(fresh, fresh_opt, t_batch, TRAIN_SEED))
+    loss_u = train["float32"]["losses"][CKPT_STEP]
+    resume_rel = max(float((fresh.state_dict()[k].cpu() - v).abs().max())
+                     / max(1.0, float(v.abs().max())) for k, v in after.items())
+    need(abs(loss_r - loss_u) <= 1e-6 * abs(loss_u) and resume_rel <= 1e-6,
+         f"[28] (d): step {CKPT_STEP + 1} after the restore: loss {loss_r} against {loss_u}, "
+         f"weights {resume_rel:.3e}")
+    # the restore leaves Adam's step counts on the host (F13): a later step
+    # reads nothing back
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            make_train_step(dit_cfg)(fresh, fresh_opt, t_batch, TRAIN_SEED)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    resumed_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    need(resumed_syncs == 0 and all(s_["step"].device.type == "cpu"
+                                    for s_ in fresh_opt.state.values()),
+         f"[28] (d): a step after the restore synchronised {resumed_syncs} times")
+    part = restore_checkpoint(ckpt, target={"params": fresh.state_dict()}, partial=True)
+    need(set(part) == {"params"} and all(
+        t.is_cuda and torch.equal(t.cpu(), saved["params"][k]) for k, t in part["params"].items()),
+        "[28] (d): the partial restore of the params")
+    ckpt_mb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 2**20
+    shutil.rmtree(ckpt)
+    print(f"[28] (d) checkpoint after step {CKPT_STEP} of the float32 run ({ckpt_mb:.1f} MiB): "
+          f"restored bit-equal; step {CKPT_STEP + 1} on a fresh module and optimizer: loss "
+          f"{loss_r:.7f} against {loss_u:.7f} uninterrupted, weights within {resume_rel:.3e}; "
+          f"a partial restore of the params alone; a later step under "
+          f"set_sync_debug_mode('warn'): {resumed_syncs} synchronising calls (Adam's step counts "
+          f"restored on the host)")
+    del fresh, fresh_opt, restored, saved, after, part
+
+    fm = dit_model()
+    f_opt = init_train_state(fm, adam)
+    f_step = make_train_step(dit_cfg, objective="flow")
+    f_losses = [f_step(fm, f_opt, t_batch, TRAIN_SEED) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    f_losses.append(no_sync("(c) flow: the third step", lambda: f_step(fm, f_opt, t_batch,
+                                                                       TRAIN_SEED)))
+    f_losses = torch.stack(f_losses).tolist()
+    xf = torch.randn(SHAPE, generator=torch.Generator().manual_seed(284)).to(dev)
+    flow_sig = torch.tensor([1.0, 0.75, 0.5, 0.25, 0.0])
+    out_f = sample_sonar_euler_ancestral(
+        make_dit_denoiser(fm, prediction="flow", timestep_fn=Flow().timestep), xf, flow_sig,
+        seed=7, ancestral_mode="rf")
+    need(all(math.isfinite(v) for v in f_losses) and out_f.shape == SHAPE
+         and bool(torch.isfinite(out_f).all()), f"[28] (c) flow: losses {f_losses}")
+    print(f"[28] (c) flow objective, 3 steps (the third under the sync check: no sync): losses "
+          f"{[round(v, 5) for v in f_losses]}; the "
+          f"trained weights served with prediction='flow', Flow().timestep, ancestral_mode='rf', "
+          f"4 steps 1 -> 0: finite, std {float(out_f.std()):.4f}")
+    del fm, f_opt, t_batch
+
+    # (e) one training step of the flagship UNet, card against CPU on injected draws
+    ug = torch.Generator().manual_seed(283)
+    u_batch = torch.randn((2,) + SHAPE[1:], generator=ug)
+    u_draw, e_draw = torch.rand(2, generator=ug), torch.randn(u_batch.shape, generator=ug)
+    sgd0 = functools.partial(torch.optim.SGD, lr=0.0)
+    u_step = make_train_step(cfg)
+    res_e = {}
+    torch.backends.cudnn.allow_tf32 = False
+    with patched(TR, train_draws=lambda seed, b: (u_draw.to(b.device), e_draw.to(b.device))):
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            um = copy.deepcopy(model).to(d)
+            lo = float(u_step(um, init_train_state(um, sgd0), u_batch.to(d), 0))
+            res_e[side] = (lo, {k: p.grad.detach().cpu() for k, p in um.named_parameters()})
+    torch.backends.cudnn.allow_tf32 = True
+    (lo_g, g_g), (lo_c, g_c) = res_e["card"], res_e["cpu"]
+    loss_rel_e = abs(lo_g - lo_c) / abs(lo_c)
+    grad_rel_e = max(float((g_g[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                     for k, g in g_c.items())
+    need(loss_rel_e <= 1e-5 and grad_rel_e <= 1e-4,
+         f"[28] (e): loss {lo_g} against {lo_c}; gradients {grad_rel_e:.3e}")
+    print(f"[28] (e) {cfg} one training step at {tuple(u_batch.shape)}, injected draws, TF32 off: loss "
+          f"{lo_g:.7f} card, {lo_c:.7f} CPU ({loss_rel_e:.3e}); gradients within "
+          f"{grad_rel_e:.3e} of each tensor's largest")
+    del res_e
+    print(json.dumps({"model_tier": {
+        "dit_params_m": n_par / 1e6, "a_launches": l28a, "a": a_stats,
+        "dit_forward_gflop": flops_fwd / 1e9, "dit_sampler_mfu_pct": mfu_wall,
+        "dit_device_mfu_pct": mfu_dev, "a_peak_above_resident_gib": peak_a / 2**30,
+        "a_kernel_vs_plain_rel": rel_kp, "a_card_vs_cpu_rel": rel_cc,
+        "a_forward_blocks_rel": blk_rel_d, "a_forward_eps_rel": eps_rel, "a_bf16_rel": bf_rel,
+        "b_routing_share": moe_share, "b_rest_rel": blk_rel, "b_whole_rel": whole_rel,
+        "b_aux": float(aux_m), "b_steps_per_s": STEPS / (moe_ms / 1000), "c": train,
+        "c_remat_grad_rel": remat_rel, "c_train_draws_b3_err": train_b3_err,
+        "c_flow_losses": f_losses,
+        "d_resume_loss": [loss_r, loss_u], "d_resume_rel": resume_rel,
+        "d_resumed_step_syncs": resumed_syncs,
+        "e_loss_rel": loss_rel_e, "e_grad_rel": grad_rel_e}}))
+    print(f"[28] took {time.perf_counter() - t28:.0f} s; phases 1-28 took "
+          f"{time.perf_counter() - t_run:.0f} s")
+
     src = "sonar_tpu_torch/csrc/"
     n_el = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
     rows = [
@@ -3334,7 +3778,8 @@ def main():
          "launches_config5_zwalk": lz[k],
          "launches_noise_zoo_rest": sum(l26[z][k] for z in l26),
          "launches_dtcwt_wcfg_sdxl": l26d[k],
-         "launches_workflow": l27a[k] + l27b[k]}
+         "launches_workflow": l27a[k] + l27b[k],
+         "launches_dit": l28a[k], "launches_train": l28c[k]}
         for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,14 @@ both packages' ``__init__.py`` by AST (nothing is imported).
 ``__all__`` in both packages: the JAX package's names must all be in the
 port's, except the omissions made on purpose (``core``: JAX's PRNG-key
 API, ``derive_key`` and ``key_from_seed``, which the port's integer seeds
-replace). ``cfg``, ``wavelets`` and ``api`` define no ``__all__`` in the
-JAX package: every name its ``__init__.py`` imports must be one the port's
-imports or lists.
+replace). ``cfg``, ``wavelets``, ``api`` and ``models`` define no ``__all__``
+in the JAX package: every name its ``__init__.py`` imports must be one the
+port's imports or lists, except the omissions (``models``: the TPU's peak,
+which the H100's replaces, and the DiT's sharded paths, which belong to the
+parallel tier).
+
+No module of the port, and not ``chip_smoke.py``, imports ``jax`` or the JAX
+package.
 """
 
 import ast
@@ -16,7 +21,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-OMITTED = {"core": {"derive_key", "key_from_seed"}}
+OMITTED = {"core": {"derive_key", "key_from_seed"},
+           "models": {"TPU_V5E_PEAK_FLOPS", "dit_param_shardings", "dit_pp_apply",
+                      "pp_stage_params"}}
 
 
 def _init(package: str, sub: str) -> ast.Module:
@@ -57,13 +64,34 @@ def test_all_covers_the_jax_package(sub):
     assert got <= _defined(_init("sonar_tpu_torch", sub))  # every listed name exists
 
 
-@pytest.mark.parametrize("sub", ["cfg", "wavelets", "api"])
+@pytest.mark.parametrize("sub", ["cfg", "wavelets", "api", "models"])
 def test_imports_cover_the_jax_package(sub):
     jax_tree = _init("sonar_tpu", sub)
     assert _all(jax_tree) is None
     port = _init("sonar_tpu_torch", sub)
     missing = _imported(jax_tree) - (_imported(port) | (_all(port) or set()))
-    assert not missing, missing
+    assert missing == OMITTED.get(sub, set()), missing
+
+
+def _imports(path: Path) -> set:
+    """Top-level names of every module ``path`` imports, at any depth of its
+    code (imports inside functions too)."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_the_port_imports_no_jax():
+    files = sorted((ROOT / "sonar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 50
+    bad = {str(f.relative_to(ROOT)): sorted(_imports(f) & {"jax", "jaxlib", "sonar_tpu", "optax",
+                                                            "flax", "orbax"})
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}, bad
 
 
 def test_f8_names_import():
