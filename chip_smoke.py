@@ -228,12 +228,35 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    into a fresh module and optimizer, step 6 within 1e-6 of the
    uninterrupted one, a partial restore of the params; (e) one training
    step of the flagship UNet card vs CPU on injected draws, TF32 off (loss
-   1e-5, gradients 1e-4 of each tensor's largest).
+   1e-5, gradients 1e-4 of each tensor's largest);
+29. runs the parallel tier's serving path, TF32 off, against the unsharded
+   runs on the card (1e-5 relative to max(1, |unsharded|) for trajectories,
+   to max |unsharded| for DiT outputs): (a) in a 1-rank NCCL world made in
+   this process, every sharded entry with each mesh axis of size 1: the
+   flagship ``sample_sonar_euler_ancestral`` on a 2×4×64×64 ``DTensor``
+   latent split on dp (20 steps, seed 7; B2 as its three split launches
+   and B3 at a shard's indices; from its first model call under
+   ``torch.cuda.set_sync_debug_mode("error")``, which the collectives lift
+   for their span), the pyramid path at 5 steps (B4 with a plane slice),
+   DiT-S/2 under tp, under dp × pp with 2 microbatches, its Switch-MoE
+   under ep (the forwards under the sync check); then B2 split, B3 with a
+   shard (aligned, and starting inside a Philox group) and B4 with a plane
+   slice against their plain versions on the card (B2 1e-5, B3 uniforms
+   bitwise and normals 2e-6, B4 1e-5) and against the unsharded kernel
+   draw's slice, with each new entry's device time at one rank's
+   1×4×64×64 beside its bound; (b) a 2-rank gloo world of two processes
+   on the one card (``parallel.run_world``; NCCL takes one rank a card):
+   the flagship sampler and the pyramid path on dp=2 (each rank's draws its
+   slice of the unsharded draw), DiT-S/2 under tp=2, pp=2 with 2
+   microbatches and dp=2 × pp=1, the MoE under ep=2 (eps and aux), each
+   rank's launches and the collectives' time a step (two processes
+   time-slice the card: not a speed); prints ``{"parallel": ...}``.
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
 launches on the paths (``launches_workflow``: [27] (a) and (b);
-``launches_dit``: [28] (a); ``launches_train``: [28] (c)'s float32 run), their
+``launches_dit``: [28] (a); ``launches_train``: [28] (c)'s float32 run;
+``launches_parallel``: [29]'s sharded runs, (a) and both ranks of (b)), their
 error, their device time (``ms``), the plain version's, the least time the
 card could take (``bound_ms``, from this
 run's shapes: bytes at 3.35 TB/s against operations at 33.5 T/s, the
@@ -533,6 +556,14 @@ def b2_bound(n: int, itemsize: int = 4) -> dict:
     return bound(2 * itemsize * n, B2_INSTR * n)
 
 
+def b2_split_bounds(n: int) -> dict:
+    """B2 split's three launches on one rank's n floats: the two sums read
+    the shard (and write a few doubles), the apply reads and writes it."""
+    return {"scale_noise_moments": bound(4 * n + 16, n),
+            "scale_noise_m2": bound(4 * n + 24, 3 * n),
+            "scale_noise_apply": bound(8 * n + 24, 5 * n)}
+
+
 def b3_bound(n: int, itemsize: int = 4) -> dict:
     return bound(itemsize * n, NORMAL_INSTR * n)
 
@@ -575,6 +606,142 @@ def b6_bound(shape, n_pts: int, k: int) -> dict:
     px = b * c * h * w
     return bound(4 * (3 * b * c * n_pts + h + w + k * px),
                  px * n_pts * (2 + 2 * k) + b * c * (h + w) * n_pts * 10 + px * k)
+
+
+# -- [29] (b): what each rank of the 2-rank gloo world runs ------------------------------------
+PAR_SHAPE = (2, 4, 64, 64)  # the parallel path's latent: dp=2 holds 1x4x64x64 a rank
+PAR_PYR_STEPS = 5  # the dp=2 pyramid run (B4 on the sharded path)
+PAR_TOL = 1e-5  # relative (trajectories to max(1, |unsharded|), DiT outputs to max |unsharded|)
+DIT_S2 = dict(hidden=384, depth=12, num_heads=6, patch_size=2)  # bench.py:174
+PAR_SIGMA = (2.0, 5.0)  # the forwards' sigma batch
+
+
+def par_inputs(torch):
+    """The latent of [29] and the DiT forwards' input, from seeds (CPU)."""
+    g = torch.Generator().manual_seed(29)
+    return (torch.randn(PAR_SHAPE, generator=g) * 14.6,
+            torch.randn(PAR_SHAPE, generator=g))
+
+
+def par_world():
+    """One rank of [29] (b): two ranks of a gloo world on the one card. Each
+    builds the flagship UNet, DiT-S/2 and its Switch-MoE from the seeds of
+    the main process, runs its part and returns numpy results."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import sonar_tpu_torch.kernels.fused as F
+    import sonar_tpu_torch.kernels.fused_pyramid as P
+    from sonar_tpu_torch.kernels import hwrng as H
+    from sonar_tpu_torch.models import (DiTConfig, UNetConfig, dit_apply, dit_param_shardings,
+                                        dit_pp_apply, init_dit_params, init_unet_params,
+                                        make_denoiser, shard_dit_params)
+    from sonar_tpu_torch.noise import get_noise_item, make_noise_sampler
+    from sonar_tpu_torch.parallel import LatentShard, make_mesh, shard_latent
+    from sonar_tpu_torch.samplers import sample_sonar_euler_ancestral
+    from sonar_tpu_torch.samplers.momentum import SonarConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    kernels = {"B1": [F.fused_momentum_step],
+               "B2": [F.fused_scale_noise, F.scale_noise_moments, F.scale_noise_m2,
+                      F.scale_noise_apply],
+               "B3": [H.philox_randn, H.philox_rand], "B4": [P.fused_pyramid]}
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: sum(f.launches for f in fs) for k, fs in kernels.items()}
+
+    def zero():
+        for fs in kernels.values():
+            for f in fs:
+                f.launches = 0
+
+    out = {"rank": rank}
+    x0, xd = (t.to(dev) for t in par_inputs(torch))
+    sigmas = bench_sigmas(torch)
+    mesh = make_mesh(axis_names=("dp",))
+    xs = shard_latent(x0, mesh)
+    shard = LatentShard.of(xs)
+    rows = slice(shard.offset[0], shard.offset[0] + shard.local_shape[0])
+    # the rank's draws against its slice of the unsharded draw (kernels both)
+    runs = shard.runs(64, 64)
+    full_u, full_n = (H.philox_rand(3, PAR_SHAPE, device=dev),
+                      H.philox_randn(3, PAR_SHAPE, device=dev))
+    loc_u = H.philox_rand(3, shard.local_shape, device=dev, shard=runs)
+    loc_n = H.philox_randn(3, shard.local_shape, device=dev, shard=runs)
+    plain_n = H.philox_randn_reference(3, shard.local_shape, device=dev, shard=runs)
+    fn_s, st_s = make_noise_sampler(get_noise_item("gaussian"), PAR_SHAPE, device=dev, seed=5,
+                                    shard=shard)
+    fn_f, st_f = make_noise_sampler(get_noise_item("gaussian"), PAR_SHAPE, device=dev, seed=5)
+    drawn_s, drawn_f = fn_s(st_s, 5.0, 1.0)[0], fn_f(st_f, 5.0, 1.0)[0][rows]
+    out["draws"] = {
+        "uniforms_bitwise": bool(torch.equal(loc_u, full_u[rows])),
+        "normals_vs_slice": float((loc_n - full_n[rows]).abs().max()),
+        "normals_vs_plain": float((loc_n - plain_n).abs().max()),
+        "sampler_draw_rel": float((drawn_s - drawn_f).abs().max())
+        / max(1.0, float(drawn_f.abs().max())),
+    }
+    # the flagship sampler on dp=2
+    unet = init_unet_params(torch.Generator().manual_seed(0), UNetConfig(), device=dev)
+    den = make_denoiser(unet)
+    zero()
+    t0 = time.perf_counter()
+    traj = sample_sonar_euler_ancestral(den, xs, sigmas, seed=7)
+    torch.cuda.synchronize()
+    out["dp_s"] = time.perf_counter() - t0
+    out["dp_launches"] = counts()
+    out["dp_traj"] = traj.to_local().cpu().numpy()
+    out["dp_placements"] = str(traj.placements)
+    # the collectives' time a step: each timed between two synchronisations
+    spent = {"all_reduce": [0, 0.0], "broadcast": [0, 0.0]}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name][0] += 1
+            spent[name][1] += time.perf_counter() - t
+            return r
+        return call
+
+    with patched(dist, all_reduce=timed("all_reduce", dist.all_reduce),
+                 broadcast=timed("broadcast", dist.broadcast)):
+        sample_sonar_euler_ancestral(den, xs, sigmas, seed=7)
+    out["collectives_per_step"] = {k: (n / STEPS, 1000.0 * t / STEPS)
+                                   for k, (n, t) in spent.items()}
+    zero()
+    pyr = sample_sonar_euler_ancestral(den, xs, sigmas[-PAR_PYR_STEPS - 1:], seed=7,
+                                       sonar_config=SonarConfig(noise_type="pyramid"))
+    out["pyr_launches"] = counts()
+    out["pyr_traj"] = pyr.to_local().cpu().numpy()
+    del unet, den
+    # DiT-S/2 under tp=2, pp=2 (2 microbatches) and dp=2 x pp=1; its MoE under ep=2
+    sig = torch.tensor(PAR_SIGMA, device=dev)
+    dense = init_dit_params(torch.Generator().manual_seed(0), DiTConfig(**DIT_S2), device=dev)
+    moe = init_dit_params(torch.Generator().manual_seed(0),
+                          DiTConfig(**DIT_S2, num_experts=4), device=dev)
+    with torch.no_grad():
+        m = make_mesh(axis_names=("tp",))
+        out["tp"] = dit_apply(shard_dit_params(dense, m, dit_param_shardings(dense, m)),
+                              xd, sig).cpu().numpy()
+        m = make_mesh(axis_names=("pp",))
+        st = shard_dit_params(dense, m, dit_param_shardings(dense, m, tp=None, pp="pp"))
+        out["pp"] = dit_pp_apply(st, xd, sig, m, microbatches=2, dp=None).cpu().numpy()
+        m = make_mesh(axis_names=("dp", "pp"), mesh_shape=(2, 1))
+        st = shard_dit_params(dense, m, dit_param_shardings(dense, m, tp=None, pp="pp"))
+        out["dp"] = dit_pp_apply(st, shard_latent(xd, m), sig, m,
+                                 microbatches=1).to_local().cpu().numpy()
+        m = make_mesh(axis_names=("ep",))
+        eps, aux = dit_apply(shard_dit_params(moe, m, dit_param_shardings(moe, m, tp=None)),
+                             xd, sig, return_aux=True)
+        out["ep"] = (eps.cpu().numpy(), float(aux))
+    return out
 
 
 @contextlib.contextmanager
@@ -623,7 +790,9 @@ def main():
     torch.cuda.set_device(dev)
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    counters = {"B1": [F.fused_momentum_step], "B2": [F.fused_scale_noise],
+    counters = {"B1": [F.fused_momentum_step],
+                "B2": [F.fused_scale_noise, F.scale_noise_moments, F.scale_noise_m2,
+                       F.scale_noise_apply],
                 "B3": [H.philox_randn, H.philox_rand],
                 "B4": [P.fused_pyramid, P.fused_pyramid_accumulate],
                 "B5": [P.fused_downscale_pyramid, P.fused_downscale_accumulate],
@@ -3738,6 +3907,239 @@ def main():
     print(f"[28] took {time.perf_counter() - t28:.0f} s; phases 1-28 took "
           f"{time.perf_counter() - t_run:.0f} s")
 
+    # -- phase 29: the parallel tier's serving path ----------------------------------------
+    print(f"[29] {time.perf_counter() - t_run:.0f} s into the run")
+    t29 = time.perf_counter()
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from sonar_tpu_torch.models import (dit_apply, dit_param_shardings, dit_pp_apply,
+                                        shard_dit_params)
+    from sonar_tpu_torch.parallel import LatentShard, make_mesh, run_world, shard_latent
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    px0, pxd = (t.to(dev) for t in par_inputs(torch))
+    n_loc = math.prod(SHAPE)  # one rank's shard of the parallel path's latent
+    psig = torch.tensor(PAR_SIGMA, device=dev)
+    pyr_cfg = SonarConfig(noise_type="pyramid")
+    pyr_sig = sigmas[-PAR_PYR_STEPS - 1:]
+
+    def sync_checked(what, fn, from_start=True):
+        """``fn()`` under set_sync_debug_mode("error") (or from where ``fn``
+        turns it on); the collectives lift it for their own span."""
+        torch.cuda.synchronize()
+        if from_start:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        except RuntimeError as e:
+            fail(f"[29] {what} synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def dit_rel(a, b):
+        """max |a - b| relative to max |b|: the init's 1e-2 head keeps a DiT
+        output near 0.04, where max(1, |b|) would hide a wrong block."""
+        return float((a.double() - b.double().to(a.device)).abs().max()) / float(
+            b.double().abs().max())
+
+    # the unsharded references, on the card
+    ref_traj = sample_sonar_euler_ancestral(denoiser, px0, sigmas, seed=7)
+    ref_pyr = sample_sonar_euler_ancestral(denoiser, px0, pyr_sig, seed=7, sonar_config=pyr_cfg)
+    dense29 = dit_model()
+    moe29 = dit_model(num_experts=4)
+    with torch.no_grad():
+        ref_eps = dense29(pxd, psig)
+        ref_moe, ref_aux = moe29(pxd, psig, return_aux=True)
+
+    # (a) a 1-rank NCCL world: every sharded entry with each mesh axis of size 1
+    par = {"a": {}, "b": {}}
+    launches_par = {k: 0 for k in counters}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh1 = make_mesh(axis_names=("dp",))
+            xs1 = shard_latent(px0, mesh1)
+            reset_counts()
+            sharded = sync_checked("(a) the dp=1 sampler after its first model call",
+                                   lambda: sample_sonar_euler_ancestral(
+                                       Recorded(denoiser, sync_check=True), xs1, sigmas, seed=7),
+                                   from_start=False)
+            la = read_counts()
+            need(la == {"B1": STEPS, "B2": 3 * STEPS, "B3": STEPS, "B4": 0, "B5": 0, "B6": 0},
+                 f"[29] (a) dp=1 sampler launches {la}")
+            need(type(sharded).__name__ == "DTensor" and sharded.placements == xs1.placements,
+                 f"[29] (a) the result is not laid out as the latent: {type(sharded)}")
+            par["a"]["flagship_rel"] = rel_err(sharded.to_local(), ref_traj)[1]
+            reset_counts()
+            pyr1 = sample_sonar_euler_ancestral(denoiser, xs1, pyr_sig, seed=7,
+                                                sonar_config=pyr_cfg)
+            lp = read_counts()
+            need(lp["B4"] == PAR_PYR_STEPS and lp["B2"] == 3 * PAR_PYR_STEPS,
+                 f"[29] (a) dp=1 pyramid launches {lp}")
+            par["a"]["pyramid_rel"] = rel_err(pyr1.to_local(), ref_pyr)[1]
+            for k in counters:
+                launches_par[k] += la[k] + lp[k]
+            with torch.no_grad():
+                m = make_mesh(axis_names=("tp",))
+                local = shard_dit_params(dense29, m, dit_param_shardings(dense29, m))
+                par["a"]["dit_tp_rel"] = dit_rel(sync_checked(
+                    "(a) tp=1 forward", lambda: dit_apply(local, pxd, psig)), ref_eps)
+                m = make_mesh(axis_names=("dp", "pp"))
+                local = shard_dit_params(dense29, m, dit_param_shardings(dense29, m, tp=None,
+                                                                         pp="pp"))
+                par["a"]["dit_pp_rel"] = dit_rel(sync_checked(
+                    "(a) dp=1 x pp=1 forward, 2 microbatches",
+                    lambda: dit_pp_apply(local, shard_latent(pxd, m), psig, m,
+                                         microbatches=2).to_local()), ref_eps)
+                m = make_mesh(axis_names=("ep",))
+                local = shard_dit_params(moe29, m, dit_param_shardings(moe29, m, tp=None))
+                eps1, aux1 = sync_checked("(a) ep=1 forward",
+                                          lambda: dit_apply(local, pxd, psig, return_aux=True))
+                par["a"]["dit_ep_rel"] = dit_rel(eps1, ref_moe)
+                par["a"]["dit_ep_aux"] = [float(aux1), float(ref_aux)]
+            del local
+        finally:
+            dist.destroy_process_group()
+    for key in ("flagship_rel", "pyramid_rel", "dit_tp_rel", "dit_pp_rel", "dit_ep_rel"):
+        need(par["a"][key] <= PAR_TOL, f"[29] (a) {key} {par['a'][key]:.3e}")
+    need(abs(par["a"]["dit_ep_aux"][0] - par["a"]["dit_ep_aux"][1]) <= 1e-6,
+         f"[29] (a) aux {par['a']['dit_ep_aux']}")
+    print(f"[29] (a) 1-rank NCCL world, each axis of size 1, against the unsharded runs (TF32 "
+          f"off): flagship {PAR_SHAPE} {STEPS} steps on dp=1 {par['a']['flagship_rel']:.3e} "
+          f"(launches {la}: B2 as its three split launches, B3 at a shard's indices; after its "
+          f"first model call under set_sync_debug_mode('error')), pyramid {PAR_PYR_STEPS} "
+          f"steps {par['a']['pyramid_rel']:.3e}; DiT-S/2 tp=1 {par['a']['dit_tp_rel']:.3e}, "
+          f"dp=1 x pp=1 2 microbatches {par['a']['dit_pp_rel']:.3e}, MoE ep=1 "
+          f"{par['a']['dit_ep_rel']:.3e} aux {par['a']['dit_ep_aux'][0]:.6f} (tolerance "
+          f"{PAR_TOL:g}) [{card}]")
+
+    # the new entries against their plain versions on the card, at the path's shard
+    xs_loc = randn(SHAPE) * 1.7 + 0.3  # one rank's 1x4x64x64 of the 2x4x64x64 latent
+    mo_k, mo_p = F.scale_noise_moments(xs_loc), F.scale_noise_moments_reference(xs_loc)
+    mo2 = mo_k * 2  # two ranks' worth, as after the all_reduce
+    m2_k, m2_p = F.scale_noise_m2(xs_loc, mo2), F.scale_noise_m2_reference(xs_loc, mo2)
+    m2x2 = m2_k * 2
+    ap_k = F.scale_noise_apply(xs_loc, mo2, m2x2, 1.5)
+    ap_p = F.scale_noise_apply_reference(xs_loc, mo2, m2x2, 1.5)
+    split_err = max(rel_err(mo_k, mo_p)[1], rel_err(m2_k, m2_p)[1], rel_err(ap_k, ap_p)[1])
+    need(split_err <= B2_TOL, f"[29] B2 split against its plain versions: {split_err:.3e}")
+    shard29 = (n_loc, n_loc, 2 * n_loc)  # rank 1's 1x4x64x64 of 2x4x64x64
+    odd29 = (5, 4099, 8198)  # starts inside a Philox group, runs of an odd length
+    b3s_err = 0.0
+    for sh29 in (shard29, odd29):
+        n29 = (sh29[1] * (2 if sh29 is odd29 else 1),)
+        u_k = H.philox_rand(3, n29, device=dev, shard=sh29)
+        need(torch.equal(u_k, H.philox_rand_reference(3, n29, device=dev, shard=sh29)),
+             f"[29] B3 shard {sh29}: uniforms differ from the plain version")
+        n_k = H.philox_randn(3, n29, device=dev, shard=sh29)
+        b3s_err = max(b3s_err, float((n_k - H.philox_randn_reference(
+            3, n29, device=dev, shard=sh29)).abs().max()))
+        full29 = H.philox_randn(3, (sh29[0] + sh29[2] * 2,), device=dev)
+        idx = H.shard_indices(n29[0], sh29, device=dev)
+        need(torch.equal(n_k, full29[idx]), f"[29] B3 shard {sh29}: not the unsharded draw's slice")
+    need(b3s_err <= B3_TOL, f"[29] B3 shard normals against plain: {b3s_err:.3e}")
+    b4_ladder = G._size_ladder_pyramid(64, 64, 10, 0)
+    b4s_err = 0.0
+    # a plane slice of the path, and one whose planes (67 x 61) start off a Philox group
+    for shp, planes in ((SHAPE, (4, 4, 8)), (SHAPE, (1, 1, 3)), ((1, 3, 67, 61), (1, 1, 2))):
+        lad = G._size_ladder_pyramid(shp[2], shp[3], 10, 0)
+        k4 = P.fused_pyramid(5, shp, lad, 0.7, device=dev, planes=planes)
+        p4 = P.fused_pyramid_reference(5, shp, lad, 0.7, device=dev, planes=planes)
+        b4s_err = max(b4s_err, rel_err(k4, p4)[1])
+    need(b4s_err <= PYR_TOL, f"[29] B4 with a plane slice against plain: {b4s_err:.3e}")
+    full4 = P.fused_pyramid(5, PAR_SHAPE, b4_ladder, 0.7, device=dev)
+    need(rel_err(P.fused_pyramid(5, SHAPE, b4_ladder, 0.7, device=dev, planes=(4, 4, 8)),
+                 full4[1:])[1] <= PYR_TOL, "[29] B4 rank 1's slice is not the unsharded draw's")
+    par["a"]["errors"] = {"B2_split_rel": split_err, "B3_shard_normals_abs": b3s_err,
+                          "B4_planes_rel": b4s_err}
+    # device time a call at the path's shard, with the bound
+    split_bd = b2_split_bounds(n_loc)
+    new_entries = {
+        "scale_noise_moments": (lambda: F.scale_noise_moments(xs_loc),
+                                split_bd["scale_noise_moments"]),
+        "scale_noise_m2": (lambda: F.scale_noise_m2(xs_loc, mo2), split_bd["scale_noise_m2"]),
+        "scale_noise_apply": (lambda: F.scale_noise_apply(xs_loc, mo2, m2x2, 1.5),
+                              split_bd["scale_noise_apply"]),
+        "philox_randn shard": (lambda: H.philox_randn(3, SHAPE, device=dev, shard=shard29),
+                               b3_bound(n_loc)),
+        "fused_pyramid planes": (lambda: P.fused_pyramid(5, SHAPE, b4_ladder, 0.7, device=dev,
+                                                          planes=(4, 4, 8)),
+                                 b4_bound(SHAPE, b4_ladder, "bilinear", gen=True)),
+    }
+    par["a"]["device_us"] = {}
+    for nm, (fn, bd) in new_entries.items():
+        us, by = device_us(torch, fn, 50)
+        if nm == "fused_pyramid planes":  # the B4 kernel alone, not its B3 levels
+            us = sum(v for k_, v in by.items() if "pyramid_up_kernel" in k_)
+        par["a"]["device_us"][nm] = {"us": us, "bound_us": bd["us"], "bound_by": bd["by"]}
+        print(f"[29] {nm} at the path's shard {SHAPE}: {fmt_us(us)} a call on the device, "
+              f"bound {bd['us']:.2f} us by {bd['by']} [{card}]")
+    print(f"[29] B2 split (moments, m2, apply) against its plain versions {split_err:.3e}; B3 "
+          f"at a shard's indices {shard29} and {odd29}: uniforms bitwise, normals within "
+          f"{b3s_err:.3e} of plain and bit-equal to the unsharded kernel draw's slice; B4 on a "
+          f"plane slice {b4s_err:.3e}, rank 1's slice of the 2x4x64x64 draw")
+
+    # (b) two ranks of a gloo world sharing the card
+    t_b = time.perf_counter()
+    ranks = run_world(par_world, 2, backend="gloo", device_type="cuda")
+    world_s = time.perf_counter() - t_b
+    dp_traj = torch.from_numpy(np.concatenate([r["dp_traj"] for r in ranks]))
+    pyr_traj = torch.from_numpy(np.concatenate([r["pyr_traj"] for r in ranks]))
+    par["b"] = {
+        "world_s": world_s,
+        "flagship_rel": rel_err(dp_traj, ref_traj.cpu())[1],
+        "pyramid_rel": rel_err(pyr_traj, ref_pyr.cpu())[1],
+        "dit_tp_rel": max(dit_rel(torch.from_numpy(r["tp"]), ref_eps.cpu()) for r in ranks),
+        "dit_pp_rel": max(dit_rel(torch.from_numpy(r["pp"]), ref_eps.cpu()) for r in ranks),
+        "dit_dp_rel": dit_rel(torch.from_numpy(np.concatenate([r["dp"] for r in ranks])),
+                              ref_eps.cpu()),
+        "dit_ep_rel": max(dit_rel(torch.from_numpy(r["ep"][0]), ref_moe.cpu()) for r in ranks),
+        "dit_ep_aux": [r["ep"][1] for r in ranks] + [float(ref_aux)],
+        "draws": [r["draws"] for r in ranks],
+        "launches": {r["rank"]: {"dp": r["dp_launches"], "pyramid": r["pyr_launches"]}
+                     for r in ranks},
+        "collectives_per_step": {r["rank"]: r["collectives_per_step"] for r in ranks},
+        "dp_run_s": [r["dp_s"] for r in ranks],
+    }
+    for r in ranks:
+        need(r["dp_placements"] == "(Shard(dim=0),)", f"[29] (b) placements {r['dp_placements']}")
+        need(r["draws"]["uniforms_bitwise"] and r["draws"]["normals_vs_slice"] == 0.0
+             and r["draws"]["normals_vs_plain"] <= B3_TOL
+             and r["draws"]["sampler_draw_rel"] <= PAR_TOL, f"[29] (b) draws {r['draws']}")
+        need(r["dp_launches"] == {"B1": STEPS, "B2": 3 * STEPS, "B3": STEPS, "B4": 0},
+             f"[29] (b) rank {r['rank']} dp launches {r['dp_launches']}")
+        need(r["pyr_launches"]["B4"] == PAR_PYR_STEPS,
+             f"[29] (b) rank {r['rank']} pyramid launches {r['pyr_launches']}")
+        for k in ("B1", "B2", "B3", "B4"):
+            launches_par[k] += r["dp_launches"][k] + r["pyr_launches"][k]
+    for key in ("flagship_rel", "pyramid_rel", "dit_tp_rel", "dit_pp_rel", "dit_dp_rel",
+                "dit_ep_rel"):
+        need(par["b"][key] <= PAR_TOL, f"[29] (b) {key} {par['b'][key]:.3e}")
+    need(max(abs(a - float(ref_aux)) for a in par["b"]["dit_ep_aux"][:2]) <= 1e-6,
+         f"[29] (b) aux {par['b']['dit_ep_aux']}")
+    print(f"[29] (b) 2-rank gloo world, both ranks on the one card ({world_s:.1f} s with the "
+          f"ranks' start): flagship dp=2 {par['b']['flagship_rel']:.3e} against (a)'s unsharded "
+          f"batch-2 run, pyramid dp=2 {par['b']['pyramid_rel']:.3e}; each rank's draws its slice "
+          f"of the unsharded draw (uniforms bitwise, normals bit-equal to the kernel's slice); "
+          f"DiT-S/2 tp=2 {par['b']['dit_tp_rel']:.3e}, pp=2 2 microbatches "
+          f"{par['b']['dit_pp_rel']:.3e}, dp=2 x pp=1 {par['b']['dit_dp_rel']:.3e}, MoE ep=2 "
+          f"{par['b']['dit_ep_rel']:.3e} aux {par['b']['dit_ep_aux']} (tolerance {PAR_TOL:g})")
+    for r in ranks:
+        print(f"[29] (b) rank {r['rank']}: launches dp run {r['dp_launches']}, pyramid run "
+              f"{r['pyr_launches']}; collectives a step (count, ms by host clock between "
+              f"synchronisations) {r['collectives_per_step']}; the 20-step dp run took "
+              f"{r['dp_s']:.3f} s. Two processes time-slice one card: not a speed [{card}]")
+    par["launches_parallel"] = launches_par
+    print(json.dumps({"parallel": par}, default=float))
+    del dense29, moe29
+    print(f"[29] took {time.perf_counter() - t29:.0f} s; phases 1-29 took "
+          f"{time.perf_counter() - t_run:.0f} s")
+
     src = "sonar_tpu_torch/csrc/"
     n_el = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
     rows = [
@@ -3779,7 +4181,8 @@ def main():
          "launches_noise_zoo_rest": sum(l26[z][k] for z in l26),
          "launches_dtcwt_wcfg_sdxl": l26d[k],
          "launches_workflow": l27a[k] + l27b[k],
-         "launches_dit": l28a[k], "launches_train": l28c[k]}
+         "launches_dit": l28a[k], "launches_train": l28c[k],
+         "launches_parallel": launches_par[k]}
         for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,8 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("api", "cfg", "core", "kernels", "models", "noise", "ops", "samplers", "utils",
-                "wavelets")
+_SUBPACKAGES = ("api", "cfg", "core", "kernels", "models", "noise", "ops", "parallel", "samplers",
+                "utils", "wavelets")
 
 
 def __getattr__(name):

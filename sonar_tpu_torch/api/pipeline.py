@@ -10,6 +10,10 @@ guided call receives the step's sigma from the sampler as a host number
 (``sigma_host``) beside the sigma batch on the device and hands both to the
 CFG function, so choosing a wavelet-CFG rule, its percentages and the
 latent-op gates read nothing back from the card.
+
+A dp-sharded latent (a ``DTensor`` from ``parallel.shard_latent``) goes to
+the sampler as it is: the sampler steps each rank's rows, so the guided
+denoiser, and ``model_batched``'s doubled batch, see this rank's rows only.
 """
 
 from __future__ import annotations

@@ -26,7 +26,8 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..kernels.fused import fused_scale_noise
+from ..kernels.fused import (fused_scale_noise, scale_noise_apply, scale_noise_m2,
+                             scale_noise_moments)
 
 
 def _static_one(factor) -> bool:
@@ -319,6 +320,7 @@ def scale_noise(
     normalized: bool = True,
     threshold_std_devs: float = 2.5,
     normalize_dims: tuple | None = None,
+    shard=None,
 ) -> torch.Tensor:
     """THE normalizer (py/utils.py:85-106).
 
@@ -332,13 +334,39 @@ def scale_noise(
 
     Zero-std guard in both modes: constant noise passes through instead of
     the reference's 0/0 NaN.
+
+    ``shard`` (a :class:`~sonar_tpu_torch.parallel.LatentShard`): ``noise``
+    is this rank's block of a latent that spans ranks, and the statistics
+    are the whole latent's, as GSPMD makes them for the JAX package. The
+    global mode is then kernel B2 split in three launches with the ranks'
+    sums between them (:func:`_scale_noise_sharded`); the per-dims mode is
+    exact on the shard where no normalized dimension is split, and refused
+    where one is.
     """
     if not normalized or noise.numel() == 0:
         return noise if _static_one(factor) else noise * factor
+    if shard is not None and normalize_dims is None:
+        return _scale_noise_sharded(noise, factor, shard, threshold_std_devs)
     if normalize_dims is not None:
         dims = tuple(normalize_dims)
+        if shard is not None and any(shard.local_shape[d] != shard.global_shape[d]
+                                     for d in dims):
+            raise NotImplementedError(
+                f"scale_noise: normalize_dims {dims} takes statistics across the split "
+                f"dimensions of a latent sharded as {shard.local_shape} of "
+                f"{shard.global_shape}")
         std = tstd(noise, dim=dims, keepdim=True)
         noise = noise / torch.where(std == 0, torch.ones_like(std), std)
         noise = noise - noise.mean(dim=dims, keepdim=True)
         return noise if _static_one(factor) else noise * factor
     return fused_scale_noise(noise, factor, threshold_std_devs=threshold_std_devs)
+
+
+def _scale_noise_sharded(noise, factor, shard, threshold_std_devs: float):
+    """The global mode on a shard: B2's two passes over the whole latent,
+    each pass's sums reduced over the ranks. No step reads a value back."""
+    from ..parallel.mesh import all_reduce
+
+    moments = all_reduce(scale_noise_moments(noise), shard.groups)
+    m2 = all_reduce(scale_noise_m2(noise, moments), shard.groups)
+    return scale_noise_apply(noise, moments, m2, factor, threshold_std_devs=threshold_std_devs)

@@ -486,6 +486,110 @@ int scale_noise_tier(int tier, const void* x, void* out, float* part, int64_t n,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// B2 split: scale_noise's global mode over a latent that spans ranks
+// ---------------------------------------------------------------------------
+//
+// Under data parallelism each rank holds a shard, and the mean and std are
+// those of the whole latent. The JAX package gets the cross-device sums
+// from GSPMD (sonar_tpu/parallel/mesh.py:12-15); the single launch above
+// cannot see other ranks, so the sharded path is three launches with the
+// ranks' all_reduce between them, in B2's two-pass order:
+//   moments   one block: this shard's count and sum, as two doubles;
+//   (all_reduce)
+//   m2        one block: the sum of squared deviations about the GLOBAL
+//             mean (read from the reduced moments in device memory);
+//   (all_reduce)
+//   apply     a grid: the mean, the ddof=1 std and the dead-band of the
+//             global N, read from device memory, and the affine.
+// No launch reads anything back to the host, so a step stays free of syncs.
+// The mean, std and threshold are the same expressions of the same doubles
+// as B2's: (float)(sum / N), (float)sqrt(m2 / (N - 1)), (float)(t / sqrt(N)).
+//
+// Bound: device memory, 10 bytes an element over the three launches (two
+// reads for the sums, one read and one write to apply). The two sum
+// launches are one block each, which is right and simple and cheap at a
+// shard of the sampler's latents (16,384 elements a rank at 2 x 4 x 64 x
+// 64 over dp=2); a large shard would want B2's cluster or grid tiers.
+
+template <typename T, bool kSquares>
+__global__ void __launch_bounds__(kOneThreads)
+    scale_noise_sum_kernel(const T* __restrict__ x, int64_t n, int vec,
+                           const double* __restrict__ moments, double* __restrict__ out) {
+  constexpr int V = Vec<T>::kN;
+  __shared__ double warp_d[kOneWarps];
+  const float mean = kSquares ? (float)(moments[1] / moments[0]) : 0.f;
+  const auto f = [mean](float a) {
+    if (!kSquares) return a;
+    const float d = a - mean;
+    return d * d;
+  };
+  const int64_t units = n / V;
+  float acc = 0.f;
+  for (int64_t u = threadIdx.x; u < units; u += kOneThreads)
+    acc += vec_tree_sum(load_unit(x, u, vec, false), f);
+  const int64_t tail = units * V + threadIdx.x;
+  if (tail < n) acc += f(to_f32(x[tail]));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const double w = warp_sum((double)acc);
+  if (lane == 0) warp_d[warp] = w;
+  __syncthreads();
+  if (warp == 0) {
+    const double total = warp_sum(warp_d[lane]);  // kOneWarps == 32
+    if (lane == 0) {
+      if (kSquares) {
+        out[0] = total;
+      } else {
+        out[0] = (double)n;
+        out[1] = total;
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    scale_noise_apply_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n,
+                             const double* __restrict__ moments,
+                             const double* __restrict__ m2, float threshold_std_devs,
+                             float factor) {
+  const double count = moments[0];
+  const float mean = (float)(moments[1] / count);
+  const float sd = (float)sqrt(m2[0] / (count - 1.0));
+  const float threshold = (float)((double)threshold_std_devs / sqrt(count));
+  const bool centre = fabsf(mean) > threshold;
+  const bool rescale = fabsf(1.f - sd) > threshold && sd != 0.f;
+  const float shift = centre ? mean : 0.f;
+  const float div = rescale ? sd : 1.f;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+    out[i] = from_f32<T>(((to_f32(x[i]) - shift) / div) * factor);
+}
+
+template <typename T>
+int scale_noise_split(int step, const void* x, void* out, int64_t n, const double* moments,
+                      double* stats, float threshold_std_devs, float factor, int vec,
+                      cudaStream_t s) {
+  static_assert(kOneWarps == 32, "one warp adds the warps' sums");
+  switch (step) {
+    case 0:
+      scale_noise_sum_kernel<T, false><<<1, kOneThreads, 0, s>>>((const T*)x, n, vec,
+                                                                  nullptr, stats);
+      break;
+    case 1:
+      scale_noise_sum_kernel<T, true><<<1, kOneThreads, 0, s>>>((const T*)x, n, vec,
+                                                                 moments, stats);
+      break;
+    case 2:
+      scale_noise_apply_kernel<T><<<momentum_grid(n), kThreads, 0, s>>>(
+          (const T*)x, (T*)out, n, moments, stats, threshold_std_devs, factor);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -526,6 +630,30 @@ int sonar_scale_noise(const void* x, void* out, float* part, int64_t n, int tier
                                              vec, s);
     case 2:
       return scale_noise_tier<__half>(tier, x, out, part, n, threshold, factor, vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split of sonar_scale_noise for a sharded latent (x: this rank's n
+// elements). step 0: stats[0..1] = (n, sum x); step 1: stats[0] = sum of
+// (x - mean)^2, mean = moments[1] / moments[0] (the reduced step-0 stats);
+// step 2: out = the affine, with moments the reduced step-0 stats and
+// stats the reduced step-1 sum. vec: x is 16-byte aligned (steps 0 and 1).
+int sonar_scale_noise_split(int step, const void* x, void* out, int64_t n,
+                            const double* moments, double* stats, float threshold_std_devs,
+                            float factor, int vec, int dtype, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0:
+      return scale_noise_split<float>(step, x, out, n, moments, stats, threshold_std_devs,
+                                      factor, vec, s);
+    case 1:
+      return scale_noise_split<__nv_bfloat16>(step, x, out, n, moments, stats,
+                                              threshold_std_devs, factor, vec, s);
+    case 2:
+      return scale_noise_split<__half>(step, x, out, n, moments, stats, threshold_std_devs,
+                                       factor, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -150,6 +150,10 @@ __device__ __forceinline__ void up_col_taps4(const UpLevel& lv, int x0, bool vec
   }
 }
 
+struct UpShard {
+  int64_t first, run, stride;
+};
+
 // The base pair of Philox group g: g1 + g2 * level0_discount, four values.
 __device__ __forceinline__ void up_base_pair(int64_t g, uint32_t k0, uint32_t k1,
                                              float level0_discount, float* acc) {
@@ -161,12 +165,39 @@ __device__ __forceinline__ void up_base_pair(int64_t g, uint32_t k0, uint32_t k1
   acc[3] = a.w + b.w * level0_discount;
 }
 
+// The base pair drawn for a slice of a larger draw (a rank's shard of the
+// latent; the small levels come in already sliced): local element e takes
+// the value of global element first + (e / run) * stride + e % run.
+// shard 1: first, run and stride are multiples of four, so the thread's four
+// elements are one global group; shard 2: each element finds its own group.
+__device__ __forceinline__ void up_base_pair_shard(int64_t e0, int cnt, int shard,
+                                                   const UpShard& sh, uint32_t k0,
+                                                   uint32_t k1, float level0_discount,
+                                                   float* acc) {
+  if (shard == 1) {
+    up_base_pair((sh.first + (e0 / sh.run) * sh.stride + e0 % sh.run) >> 2, k0, k1,
+                 level0_discount, acc);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc[k] = 0.f;
+    if (k < cnt) {
+      const int64_t e = e0 + k;
+      const int64_t ge = sh.first + (e / sh.run) * sh.stride + e % sh.run;
+      float v[4];
+      up_base_pair(ge >> 2, k0, k1, level0_discount, v);
+      acc[k] = v[ge & 3];
+    }
+  }
+}
+
 template <int T>
 __global__ void __launch_bounds__(kUpThreads)
     pyramid_up_kernel(const float* __restrict__ base, float* __restrict__ out,
                       int64_t n, int h, int w, const UpLevels L, int gen,
                       uint32_t k0, uint32_t k1, float level0_discount,
-                      int aligned) {
+                      int aligned, int shard, const UpShard sh) {
   const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t e0 = g << 2;
   if (e0 >= n) return;
@@ -175,7 +206,9 @@ __global__ void __launch_bounds__(kUpThreads)
   const bool narrow = n <= 0x7fffffffLL;
 
   float acc[4];
-  if (gen) {
+  if (gen && shard) {
+    up_base_pair_shard(e0, cnt, shard, sh, k0, k1, level0_discount, acc);
+  } else if (gen) {
     up_base_pair(g, k0, k1, level0_discount, acc);
   } else {
 #pragma unroll
@@ -500,13 +533,21 @@ extern "C" {
 // ptrs: 5 per level (small, ridx, rval, cidx, cval) as integers, the tap
 // tables all `taps` wide (1, 2 or 4); dims: 2 per level (sh, sw); base is
 // null when gen != 0. out: (bc, h, w), contiguous and 16-byte aligned.
+// run > 0 (with gen): the base pair is the slice (first, run, stride) of
+// the unsharded draw's flat elements, as sonar_philox_fill_shard's; run = 0:
+// the whole draw from element 0.
 int sonar_pyramid_up(const float* base, float* out, int bc, int h, int w,
                      int n_levels, int taps, const int64_t* ptrs, const int* dims,
                      const float* discounts, int gen, uint32_t k0, uint32_t k1,
-                     float level0_discount, void* stream) {
+                     float level0_discount, int64_t first, int64_t run, int64_t stride,
+                     void* stream) {
   if (n_levels < 0 || n_levels > kMaxLevels || bc <= 0 || h <= 0 || w <= 0 ||
       (taps != 1 && taps != 2 && taps != kMaxTaps))
     return (int)cudaErrorInvalidValue;
+  if (run != 0 && (first < 0 || run < 1 || stride < run || ((int64_t)bc * h * w) % run))
+    return (int)cudaErrorInvalidValue;
+  const UpShard sh = {first, run, stride};
+  const int shard = run == 0 ? 0 : (first % 4 == 0 && run % 4 == 0 && stride % 4 == 0) ? 1 : 2;
   UpLevels L;
   L.n = n_levels;
   int aligned = 1;  // the column tables take 16-byte loads
@@ -531,7 +572,7 @@ int sonar_pyramid_up(const float* base, float* out, int bc, int h, int w,
   auto fn = taps == 1 ? pyramid_up_kernel<1>
             : taps == 2 ? pyramid_up_kernel<2> : pyramid_up_kernel<kMaxTaps>;
   fn<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      base, out, n, h, w, L, gen, k0, k1, level0_discount, aligned);
+      base, out, n, h, w, L, gen, k0, k1, level0_discount, aligned, shard, sh);
   return (int)cudaGetLastError();
 }
 

@@ -149,6 +149,60 @@ int philox_fill(void* out, int64_t n, const sonar::PhiloxKeys& keys, uint32_t st
                 : launch_fill<T, false>(out, n, keys, stream, s);
 }
 
+// Value k (0..3) of a group's four.
+__device__ __forceinline__ float group_value(float4 v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// A slice of a larger draw (a rank's shard of a latent): local element i is
+// global element first + (i / run) * stride + i % run, with that element's
+// value. One thread a local group of four. Where first, run and stride are
+// multiples of four (aligned), the four are one global group: one Philox call
+// and one 16-byte store, as in the unsharded kernel. Otherwise each element
+// finds its own global group and takes its own value of it, so a slice may
+// start and end inside a group; that costs up to four Philox calls an output
+// group, which is simple and right, not fast.
+template <typename T, bool kNormal>
+__global__ void __launch_bounds__(kThreads)
+    philox_fill_shard_kernel(T* __restrict__ out, int64_t n, const sonar::PhiloxKeys keys,
+                             uint32_t stream, int64_t first, int64_t run, int64_t stride,
+                             int aligned) {
+  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t e0 = q << 2;
+  if (e0 >= n) return;
+  if (aligned) {
+    const int64_t ge = first + (e0 / run) * stride + e0 % run;
+    store_group(out, n, q, draw_group<kNormal>(ge >> 2, stream, keys));
+    return;
+  }
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int64_t e = e0 + k;
+    if (e < n) {
+      const int64_t ge = first + (e / run) * stride + e % run;
+      v[k] = group_value(draw_group<kNormal>(ge >> 2, stream, keys), (int)(ge & 3));
+    }
+  }
+  store_group(out, n, q, make_float4(v[0], v[1], v[2], v[3]));
+}
+
+template <typename T>
+int philox_fill_shard(void* out, int64_t n, const sonar::PhiloxKeys& keys, uint32_t stream,
+                      int normal, int64_t first, int64_t run, int64_t stride,
+                      cudaStream_t s) {
+  const int aligned = (first % 4 == 0) && (run % 4 == 0) && (stride % 4 == 0);
+  const int64_t blocks = (((n + 3) >> 2) + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (normal)
+    philox_fill_shard_kernel<T, true><<<(unsigned)blocks, kThreads, 0, s>>>(
+        (T*)out, n, keys, stream, first, run, stride, aligned);
+  else
+    philox_fill_shard_kernel<T, false><<<(unsigned)blocks, kThreads, 0, s>>>(
+        (T*)out, n, keys, stream, first, run, stride, aligned);
+  return (int)cudaGetLastError();
+}
+
 // The radius of every u1 and the cosine and sine of every u2: argument
 // `first + i` is the 24-bit integer both are made from.
 __global__ void box_muller_probe_kernel(float* __restrict__ radius, float* __restrict__ cosv,
@@ -179,6 +233,28 @@ int sonar_philox_fill(void* out, int64_t n, uint32_t k0, uint32_t k1, uint32_t s
       return philox_fill<__nv_bfloat16>(out, n, keys, stream, normal, s);
     case 2:
       return philox_fill<__half>(out, n, keys, stream, normal, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The slice (first, run, stride) of the draw above: out holds n elements,
+// element i being element first + (i / run) * stride + i % run of the
+// unsharded draw. run >= 1, stride >= run, n a multiple of run.
+int sonar_philox_fill_shard(void* out, int64_t n, uint32_t k0, uint32_t k1, uint32_t stream,
+                            int normal, int dtype, int64_t first, int64_t run,
+                            int64_t stride, void* cuda_stream) {
+  if (n <= 0) return 0;
+  if (first < 0 || run < 1 || stride < run || n % run) return (int)cudaErrorInvalidValue;
+  const sonar::PhiloxKeys keys = sonar::philox_keys(k0, k1);
+  cudaStream_t s = (cudaStream_t)cuda_stream;
+  switch (dtype) {
+    case 0:
+      return philox_fill_shard<float>(out, n, keys, stream, normal, first, run, stride, s);
+    case 1:
+      return philox_fill_shard<__nv_bfloat16>(out, n, keys, stream, normal, first, run,
+                                              stride, s);
+    case 2:
+      return philox_fill_shard<__half>(out, n, keys, stream, normal, first, run, stride, s);
   }
   return (int)cudaErrorInvalidValue;
 }

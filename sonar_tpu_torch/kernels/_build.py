@@ -110,13 +110,17 @@ def load_library() -> ctypes.CDLL:
     lib.sonar_momentum_step.restype = i32
     lib.sonar_scale_noise.argtypes = [p, p, p, i64, i32, f32, f32, i32, i32, p]
     lib.sonar_scale_noise.restype = i32
+    lib.sonar_scale_noise_split.argtypes = [i32, p, p, i64, p, p, f32, f32, i32, i32, p]
+    lib.sonar_scale_noise_split.restype = i32
     u32 = ctypes.c_uint32
     lib.sonar_philox_fill.argtypes = [p, i64, u32, u32, u32, i32, i32, p]
     lib.sonar_philox_fill.restype = i32
+    lib.sonar_philox_fill_shard.argtypes = [p, i64, u32, u32, u32, i32, i32, i64, i64, i64, p]
+    lib.sonar_philox_fill_shard.restype = i32
     lib.sonar_box_muller_probe.argtypes = [p, p, p, u32, i64, p]
     lib.sonar_box_muller_probe.restype = i32
     lib.sonar_pyramid_up.argtypes = [p, p, i32, i32, i32, i32, i32, p, p, p, i32, u32,
-                                     u32, f32, p]
+                                     u32, f32, i64, i64, i64, p]
     lib.sonar_pyramid_up.restype = i32
     lib.sonar_pyramid_down.argtypes = [p, p, i32, i32, i32, i32, p, p, p, i32, u32,
                                        u32, i32, p]

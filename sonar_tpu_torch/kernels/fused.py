@@ -9,6 +9,14 @@
    ``_make_scale_noise_kernel``), in one launch that keeps the latent on
    chip between its passes; :func:`scale_noise_tier` picks the launch from
    the element count and size alone.
+3. :func:`scale_noise_moments`, :func:`scale_noise_m2` and
+   :func:`scale_noise_apply` — B2 split in three launches for a latent that
+   spans ranks: the shard's count and sum, then (after the ranks'
+   all_reduce) its squared deviations about the global mean, then (after a
+   second all_reduce) the affine with the global mean, std and dead-band.
+   The statistics stay in device memory as float64 tensors between the
+   launches; ``core.normalize.scale_noise`` runs the three with the
+   collectives between them.
 
 Each wrapper sends a CUDA tensor to its kernel, or raises if the kernel
 cannot take it, and a CPU tensor to the plain PyTorch version beside it.
@@ -236,3 +244,107 @@ def fused_scale_noise(noise, factor=1.0, *, threshold_std_devs: float = 2.5):
 
 fused_scale_noise.launches = 0
 fused_scale_noise.copies = 0
+
+
+# ---------------------------------------------------------------------------
+# B2 split: the global statistics of a latent that spans ranks
+# ---------------------------------------------------------------------------
+
+
+def scale_noise_moments_reference(noise):
+    """Plain version of :func:`scale_noise_moments`: ``[N, Σx]`` in float64."""
+    return torch.stack([torch.full((), noise.numel(), dtype=torch.float64, device=noise.device),
+                        noise.float().sum(dtype=torch.float64)])
+
+
+def scale_noise_m2_reference(noise, moments):
+    """Plain version of :func:`scale_noise_m2`: ``[Σ(x − mean)²]`` in float64,
+    the mean ``float32(Σx / N)`` of the (reduced) moments."""
+    mean = (moments[1] / moments[0]).float()
+    return (noise.float() - mean).square().sum(dtype=torch.float64).reshape(1)
+
+
+def scale_noise_apply_reference(noise, moments, m2, factor=1.0, *,
+                                threshold_std_devs: float = 2.5):
+    """Plain version of :func:`scale_noise_apply`: B2's dead-band and affine
+    with the mean, std and threshold of the whole latent's statistics."""
+    count = moments[0]
+    mean = (moments[1] / count).float()
+    std = torch.sqrt(m2[0] / (count - 1.0)).float()
+    threshold = (threshold_std_devs / torch.sqrt(count)).float()
+    dt = noise.dtype
+    x = noise.float()
+    x = torch.where(mean.abs() > threshold, x - mean, x)
+    x = torch.where(((1.0 - std).abs() > threshold) & (std != 0),
+                    x / torch.where(std == 0, torch.ones_like(std), std), x)
+    return (x * factor).to(dt)
+
+
+def _split_launch(wrapper, step: int, noise, moments=None, stats=None, out=None,
+                  threshold_std_devs: float = 2.5, factor: float = 1.0):
+    if noise.is_cuda:
+        noise = _contiguous(wrapper, noise)
+    _check_cuda("noise", noise)
+    for name, t in (("moments", moments), ("stats", stats)):
+        if t is not None:
+            _check_cuda(name, t, dtypes=(torch.float64,))
+            if t.device != noise.device:
+                raise ValueError(f"{name}: device {t.device} != {noise.device}")
+    if noise.numel() == 0:
+        raise ValueError(f"{wrapper.__name__}: an empty shard")
+    from ._build import check, load_library
+
+    lib = load_library()
+    with torch.cuda.device(noise.device):
+        err = lib.sonar_scale_noise_split(
+            step, noise.data_ptr(), None if out is None else out.data_ptr(), noise.numel(),
+            None if moments is None else moments.data_ptr(), stats.data_ptr(),
+            threshold_std_devs, float(factor), _aligned16(noise), _DTYPE_CODES[noise.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, err, wrapper.__name__)
+    wrapper.launches += 1
+
+
+def scale_noise_moments(noise):
+    """This shard's ``[N, Σx]`` as a (2,) float64 tensor on its device: one
+    launch of one block (sums in float32 a thread, float64 across)."""
+    if noise.device.type == "cpu":
+        return scale_noise_moments_reference(noise)
+    stats = torch.empty(2, dtype=torch.float64, device=noise.device)
+    _split_launch(scale_noise_moments, 0, noise, stats=stats)
+    return stats
+
+
+def scale_noise_m2(noise, moments):
+    """This shard's ``[Σ(x − mean)²]`` as a (1,) float64 tensor, the mean
+    that of ``moments`` (the whole latent's, after the all_reduce), read in
+    device memory: one launch of one block."""
+    if noise.device.type == "cpu":
+        return scale_noise_m2_reference(noise, moments)
+    stats = torch.empty(1, dtype=torch.float64, device=noise.device)
+    _split_launch(scale_noise_m2, 1, noise, moments=moments, stats=stats)
+    return stats
+
+
+def scale_noise_apply(noise, moments, m2, factor=1.0, *, threshold_std_devs: float = 2.5):
+    """B2's dead-band and affine on this shard with the whole latent's
+    statistics (``moments`` and ``m2`` reduced over the ranks): the mean,
+    the ddof=1 std and the threshold ``threshold_std_devs/√N`` of the global
+    N are computed in the kernel from device memory, so the host waits for
+    nothing."""
+    if noise.device.type == "cpu":
+        return scale_noise_apply_reference(noise, moments, m2, factor,
+                                           threshold_std_devs=threshold_std_devs)
+    if m2.dtype != torch.float64 or m2.shape != (1,):
+        raise ValueError(f"m2: expected (1,) float64, got {tuple(m2.shape)} {m2.dtype}")
+    if noise.is_cuda:
+        noise = _contiguous(scale_noise_apply, noise)
+    out = torch.empty_like(noise)
+    _split_launch(scale_noise_apply, 2, noise, moments=moments, stats=m2, out=out,
+                  threshold_std_devs=threshold_std_devs, factor=factor)
+    return out
+
+
+for _f in (scale_noise_moments, scale_noise_m2, scale_noise_apply):
+    _f.launches = 0
+    _f.copies = 0

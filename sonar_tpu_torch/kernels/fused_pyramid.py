@@ -133,8 +133,14 @@ def _call_kernel(entry: str, *args):
 # ---------------------------------------------------------------------------
 
 
-def _pyramid_smalls(seed: int, bc: int, sizes, device, randn):
-    return [randn(derive_seed(seed, "draw", i), (bc, sh, sw), device=device)
+def _field_shard(planes, h: int, w: int):
+    """The element slice of a field of ``h × w`` planes, from its plane slice."""
+    return None if planes is None else tuple(v * h * w for v in planes)
+
+
+def _pyramid_smalls(seed: int, bc: int, sizes, device, randn, planes=None):
+    return [randn(derive_seed(seed, "draw", i), (bc, sh, sw), device=device,
+                  **({} if planes is None else {"shard": _field_shard(planes, sh, sw)}))
             for i, (sh, sw) in enumerate(sizes) if i >= 1]
 
 
@@ -148,14 +154,15 @@ def fused_pyramid_accumulate_reference(base, smalls, discounts, mode="bilinear")
 
 
 def fused_pyramid_reference(seed: int, shape, sizes, discount: float,
-                            mode: str = "bilinear", *, device) -> torch.Tensor:
+                            mode: str = "bilinear", *, device, planes=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_pyramid`, on the same stream."""
     b, c, h, w = shape
     bseed = derive_seed(seed, "base")
-    base = (philox_randn_reference(bseed, (b * c, h, w), device=device, stream=0)
-            + philox_randn_reference(bseed, (b * c, h, w), device=device, stream=1)
+    sh = _field_shard(planes, h, w)
+    base = (philox_randn_reference(bseed, (b * c, h, w), device=device, stream=0, shard=sh)
+            + philox_randn_reference(bseed, (b * c, h, w), device=device, stream=1, shard=sh)
             * _LEVEL0_DISCOUNT)
-    smalls = _pyramid_smalls(seed, b * c, sizes, device, philox_randn_reference)
+    smalls = _pyramid_smalls(seed, b * c, sizes, device, philox_randn_reference, planes)
     discounts = [discount**i for i in range(1, len(sizes))]
     return fused_pyramid_accumulate_reference(base, smalls, discounts,
                                               mode).reshape(b, c, h, w)
@@ -173,7 +180,7 @@ def _call_taps(sizes, h: int, w: int, mode: str) -> int:
     return 1 if widest == 1 else 2 if widest == 2 else MAX_TAPS
 
 
-def _launch_up(out, base, smalls, discounts, mode, key):
+def _launch_up(out, base, smalls, discounts, mode, key, shard=None):
     """Launch B4 on the levels' tap tables (the sparse rows of their
     interpolation matrices); the dense matrices never reach the kernel."""
     bc, h, w = out.shape
@@ -191,18 +198,25 @@ def _launch_up(out, base, smalls, discounts, mode, key):
         dims[2 * i:2 * i + 2] = [sh, sw]
         disc[i] = d
     k0, k1 = key if key is not None else (0, 0)
+    first, run, stride = shard if shard is not None else (0, 0, 0)
     with torch.cuda.device(out.device):
         _call_kernel("sonar_pyramid_up",
                      None if base is None else base.data_ptr(), out.data_ptr(),
                      bc, h, w, n, taps, ptrs, dims, disc, int(key is not None), k0, k1,
-                     _LEVEL0_DISCOUNT)
+                     _LEVEL0_DISCOUNT, first, run, stride)
 
 
 def fused_pyramid(seed: int, shape, sizes, discount: float, mode: str = "bilinear",
-                  *, device) -> torch.Tensor:
+                  *, device, planes=None) -> torch.Tensor:
     """One ``pyramid`` draw of ``shape`` (B, C, H, W): the small levels
     ``i ≥ 1`` from kernel B3, then kernel B4 with the base pair drawn
-    in-kernel. ``sizes`` is the ladder (``sizes[0] == (H, W)``)."""
+    in-kernel. ``sizes`` is the ladder (``sizes[0] == (H, W)``).
+
+    ``planes=(first, run, stride)``: the draw is the slice of a larger one
+    whose planes (the B·C leading planes, row-major) local plane ``i`` is
+    plane ``first + (i // run)·stride + i % run`` of (a rank's shard; see
+    ``parallel.LatentShard.plane_runs``); every level and the base pair are
+    drawn at the global planes' indices."""
     b, c, h, w = shape
     if not fused_pyramid_supported(sizes, h, w, mode):
         raise ValueError(f"fused_pyramid: ladder {sizes} in mode {mode!r} is not "
@@ -210,13 +224,13 @@ def fused_pyramid(seed: int, shape, sizes, discount: float, mode: str = "bilinea
     device = torch.device(device)
     if device.type == "cpu":
         return fused_pyramid_reference(seed, shape, sizes, discount, mode,
-                                       device=device)
+                                       device=device, planes=planes)
     if device.type != "cuda":
         raise ValueError(f"fused_pyramid: no kernel for device {device}")
-    smalls = _pyramid_smalls(seed, b * c, sizes, device, philox_randn)
+    smalls = _pyramid_smalls(seed, b * c, sizes, device, philox_randn, planes)
     out = torch.empty((b * c, h, w), dtype=torch.float32, device=device)
     _launch_up(out, None, smalls, [discount**i for i in range(1, len(sizes))], mode,
-               philox_key(derive_seed(seed, "base")))
+               philox_key(derive_seed(seed, "base")), _field_shard(planes, h, w))
     fused_pyramid.launches += 1
     return out.reshape(b, c, h, w)
 

@@ -52,6 +52,14 @@ even, by the kernel at its store and by the plain version's ``.to(dtype)``.
 ``stream`` separates fields drawn under one seed (kernels B4 and B5 use it
 for the base pair and for each (level, plane) field).
 
+``shard=(first, run, stride)`` draws a slice of a larger draw: element ``i``
+of the output is element ``first + (i // run) · stride + i % run`` of the
+unsharded draw's flattening, with that element's own value (a dp shard of a
+latent is one run, an sp shard of a (B, C, F, H, W) latent B·C runs; see
+``parallel.LatentShard``). The slice may start and end inside a Philox
+group. Without ``shard`` the draw is the whole stream from element 0, by the
+kernel and the plain version that drew it before sharding existed.
+
 Each wrapper runs its kernel on a CUDA device and counts the launch in
 ``launches``; on the CPU it runs the plain version and counts nothing; any
 other device raises.
@@ -91,13 +99,33 @@ def philox4x32_reference(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def philox_words(seed: int, n: int, *, device, stream: int = 0):
-    """The four Philox words of each of the ``⌈n/4⌉`` groups."""
-    g = torch.arange(-(-n // 4), dtype=torch.int64, device=device)
+def _group_words(seed: int, g, stream: int):
     k0, k1 = philox_key(seed)
     return philox4x32_reference(g & _MASK32, g >> 32,
                                 torch.full_like(g, int(stream) & _MASK32),
                                 torch.zeros_like(g), k0, k1)
+
+
+def philox_words(seed: int, n: int, *, device, stream: int = 0):
+    """The four Philox words of each of the ``⌈n/4⌉`` groups."""
+    return _group_words(seed, torch.arange(-(-n // 4), dtype=torch.int64, device=device),
+                        stream)
+
+
+def check_shard(shard, n: int) -> tuple[int, int, int]:
+    """``(first, run, stride)`` as integers, refused where it is not a slice."""
+    first, run, stride = (int(v) for v in shard)
+    if first < 0 or run < 1 or stride < run or n % run:
+        raise ValueError(f"philox: shard (first, run, stride) = {shard} does not cut "
+                         f"{n} elements into whole runs")
+    return first, run, stride
+
+
+def shard_indices(n: int, shard, *, device) -> torch.Tensor:
+    """The unsharded flat index of each of the ``n`` elements of ``shard``."""
+    first, run, stride = check_shard(shard, n)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return first + (i // run) * stride + i % run
 
 
 def box_muller_pair(a, b):
@@ -121,27 +149,38 @@ def _interleave(cols, n: int, shape, dtype):
     return torch.stack(cols, dim=1).reshape(-1)[:n].reshape(shape).to(dtype)
 
 
-def philox_randn_reference(seed: int, shape, *, device, dtype=torch.float32,
-                           stream: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of kernel B3's normals."""
+def _columns(words, normal: bool):
+    """The four values of each group, as four columns."""
+    if normal:
+        x0, x1, x2, x3 = words
+        return [*box_muller_pair(x0, x1), *box_muller_pair(x2, x3)]
+    return [(x >> 8).to(torch.float32) * 2.0**-24 for x in words]
+
+
+def _draw_reference(seed, shape, device, dtype, stream, shard, normal: bool):
     shape = tuple(shape)
     n = math.prod(shape)
-    x0, x1, x2, x3 = philox_words(seed, n, device=device, stream=stream)
-    return _interleave([*box_muller_pair(x0, x1), *box_muller_pair(x2, x3)],
-                       n, shape, dtype)
+    if shard is None:
+        return _interleave(_columns(philox_words(seed, n, device=device, stream=stream), normal),
+                           n, shape, dtype)
+    e = shard_indices(n, shard, device=device)
+    cols = torch.stack(_columns(_group_words(seed, e >> 2, stream), normal), dim=1)
+    return cols.gather(1, (e & 3)[:, None]).reshape(shape).to(dtype)
+
+
+def philox_randn_reference(seed: int, shape, *, device, dtype=torch.float32,
+                           stream: int = 0, shard=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel B3's normals."""
+    return _draw_reference(seed, shape, device, dtype, stream, shard, True)
 
 
 def philox_rand_reference(seed: int, shape, *, device, dtype=torch.float32,
-                          stream: int = 0) -> torch.Tensor:
+                          stream: int = 0, shard=None) -> torch.Tensor:
     """Plain PyTorch version of kernel B3's uniforms in [0, 1)."""
-    shape = tuple(shape)
-    n = math.prod(shape)
-    words = philox_words(seed, n, device=device, stream=stream)
-    return _interleave([(x >> 8).to(torch.float32) * 2.0**-24 for x in words],
-                       n, shape, dtype)
+    return _draw_reference(seed, shape, device, dtype, stream, shard, False)
 
 
-def _launch(wrapper, seed, shape, device, dtype, stream, normal: bool):
+def _launch(wrapper, seed, shape, device, dtype, stream, shard, normal: bool):
     from ._build import check, load_library
 
     # the kernel stores float32, bfloat16 and float16; any other type is
@@ -153,9 +192,16 @@ def _launch(wrapper, seed, shape, device, dtype, stream, normal: bool):
         k0, k1 = philox_key(seed)
         with torch.cuda.device(out.device):
             cuda_stream = torch.cuda.current_stream().cuda_stream
-            err = lib.sonar_philox_fill(out.data_ptr(), out.numel(), k0, k1,
-                                        int(stream) & _MASK32, int(normal),
-                                        _DTYPE_CODES[stored], cuda_stream)
+            if shard is None:
+                err = lib.sonar_philox_fill(out.data_ptr(), out.numel(), k0, k1,
+                                            int(stream) & _MASK32, int(normal),
+                                            _DTYPE_CODES[stored], cuda_stream)
+            else:
+                first, run, stride = check_shard(shard, out.numel())
+                err = lib.sonar_philox_fill_shard(out.data_ptr(), out.numel(), k0, k1,
+                                                  int(stream) & _MASK32, int(normal),
+                                                  _DTYPE_CODES[stored], first, run, stride,
+                                                  cuda_stream)
         check(lib, err, wrapper.__name__)
         wrapper.launches += 1
     return out if stored == dtype else out.to(dtype)
@@ -169,23 +215,25 @@ def _device(device) -> torch.device:
 
 
 def philox_randn(seed: int, shape, *, device, dtype=torch.float32,
-                 stream: int = 0) -> torch.Tensor:
-    """N(0, 1) noise of ``shape`` from the stream of ``seed``."""
+                 stream: int = 0, shard=None) -> torch.Tensor:
+    """N(0, 1) noise of ``shape`` from the stream of ``seed`` (the slice
+    ``shard`` of a larger draw, where given)."""
     device = _device(device)
     if device.type == "cpu":
         return philox_randn_reference(seed, shape, device=device, dtype=dtype,
-                                      stream=stream)
-    return _launch(philox_randn, seed, shape, device, dtype, stream, normal=True)
+                                      stream=stream, shard=shard)
+    return _launch(philox_randn, seed, shape, device, dtype, stream, shard, normal=True)
 
 
 def philox_rand(seed: int, shape, *, device, dtype=torch.float32,
-                stream: int = 0) -> torch.Tensor:
-    """U[0, 1) noise of ``shape`` from the stream of ``seed``."""
+                stream: int = 0, shard=None) -> torch.Tensor:
+    """U[0, 1) noise of ``shape`` from the stream of ``seed`` (the slice
+    ``shard`` of a larger draw, where given)."""
     device = _device(device)
     if device.type == "cpu":
         return philox_rand_reference(seed, shape, device=device, dtype=dtype,
-                                     stream=stream)
-    return _launch(philox_rand, seed, shape, device, dtype, stream, normal=False)
+                                     stream=stream, shard=shard)
+    return _launch(philox_rand, seed, shape, device, dtype, stream, shard, normal=False)
 
 
 philox_randn.launches = 0

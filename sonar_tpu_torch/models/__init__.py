@@ -1,17 +1,20 @@
 """Model families: the latent-diffusion UNet (flagship) and the DiT
-transformer (dense or Switch-MoE) as ``nn.Module``s, the prediction wrappers,
-the training step, checkpoints and the FLOP counters. The DiT's sharded
-paths (pipeline, tensor and expert parallelism) belong to the parallel tier
-and are not here."""
+transformer (dense or Switch-MoE) as ``nn.Module``s with the DiT's sharded
+serving paths (pipeline, tensor and expert parallelism), the prediction
+wrappers, the training step, checkpoints and the FLOP counters."""
 
 from .checkpoint import restore_checkpoint, save_checkpoint  # noqa: F401
 from .dit import (  # noqa: F401
     DiT,
     DiTConfig,
     dit_apply,
+    dit_param_shardings,
     dit_params_from_jax,
+    dit_pp_apply,
     init_dit_params,
     make_dit_denoiser,
+    pp_stage_params,
+    shard_dit_params,
 )
 from .flops import (  # noqa: F401
     H100_PEAK_FLOPS,

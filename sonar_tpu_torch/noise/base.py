@@ -14,12 +14,20 @@ from the state draws exactly what an uninterrupted run draws.
 Normalization contract (py/noise.py:164-196 + 249-257): parents request
 normalization of their children via ``normalized``; an item's own tri-state
 ``normalize`` field overrides the parent's request.
+
+Sharded latents: a sampler made with ``shard=`` (a
+:class:`~sonar_tpu_torch.parallel.LatentShard`) draws this rank's block of
+the draw of the whole latent, and normalizes with the whole latent's
+statistics. Only the items that say ``SHARDABLE = True`` (gaussian and
+pyramid) draw so; any other raises ``NotImplementedError`` rather than draw
+another stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
 from typing import Any, Callable
 
 import torch
@@ -42,6 +50,22 @@ class NoiseCtx:
     # The exemplar latent ``x`` the sampler was built from; excluded from
     # equality so NoiseCtx stays usable as a plain config record.
     ref: Any = dataclasses.field(default=None, compare=False, repr=False)
+    # Where ``shape`` (this rank's block) lies in the whole latent (a
+    # ``parallel.LatentShard``, which holds the global shape), or None.
+    shard: Any = None
+
+    def field_shard(self, shape) -> tuple[int, int, int] | None:
+        """The element slice (first, run, stride) of the whole latent's draw
+        that this rank draws for a field of ``shape``: the latent's planes
+        (all dimensions but the last two, possibly folded) of any H × W.
+        None when the latent is not sharded."""
+        if self.shard is None:
+            return None
+        shape = tuple(shape)
+        if len(shape) < 3 or math.prod(shape[:-2]) != math.prod(self.shape[:-2]):
+            raise NotImplementedError(f"NoiseCtx: a field of {shape} is not the planes of "
+                                      f"the sharded latent {self.shape}")
+        return self.shard.runs(shape[-2], shape[-1])
 
     @property
     def ndim(self) -> int:
@@ -180,11 +204,12 @@ class NoiseItem:
                normalized: bool = True):
         raise NotImplementedError
 
-    def apply_factor_normalize(self, noise: torch.Tensor, *, normalized: bool) -> torch.Tensor:
+    def apply_factor_normalize(self, noise: torch.Tensor, *, normalized: bool,
+                               shard=None) -> torch.Tensor:
         """The leaf-wrapper semantics of ``NoiseSampler.__call__``
         (py/noise.py:249-257): one scale_noise with this item's factor."""
         eff = self.normalize if self.normalize is not None else normalized
-        return scale_noise(noise, self.factor, normalized=bool(eff))
+        return scale_noise(noise, self.factor, normalized=bool(eff), shard=shard)
 
 
 SampleFn = Callable  # (state, sigma, sigma_next) -> (noise, state)
@@ -201,6 +226,7 @@ def make_noise_sampler(
     seed: int | None = None,
     normalized: bool = True,
     ref_latent=None,
+    shard=None,
 ) -> tuple[SampleFn, Any]:
     """Build ``(sample_fn, init_state)`` for a noise spec tree.
 
@@ -211,9 +237,25 @@ def make_noise_sampler(
     :func:`~sonar_tpu_torch.core.rng.derive_seed`; None → 0). The draws are
     made on ``device``; ``None`` means the card, never the CPU
     (:func:`~sonar_tpu_torch.utils.misc.default_device`).
+
+    ``shard`` (a :class:`~sonar_tpu_torch.parallel.LatentShard` of the
+    latent of ``shape``): each draw is this rank's block of the draw of the
+    whole latent, of the shard's local shape, normalized over the whole
+    latent (the ranks' sums between kernel B2's passes). Items that cannot
+    draw so raise ``NotImplementedError`` here.
     """
+    if shard is not None:
+        if tuple(shard.global_shape) != tuple(shape):
+            raise ValueError(f"make_noise_sampler: shard of {shard.global_shape}, "
+                             f"latent {tuple(shape)}")
+        if not getattr(item, "SHARDABLE", False):
+            raise NotImplementedError(
+                f"noise {getattr(item, 'name', type(item).__name__)!r} "
+                f"({type(item).__name__}) cannot draw a rank's shard of a sharded latent "
+                "yet: only gaussian and pyramid do")
+        shape = shard.local_shape
     ctx = NoiseCtx(shape=tuple(shape), dtype=dtype, device=default_device(device),
-                   sigma_min=sigma_min, sigma_max=sigma_max, ref=ref_latent)
+                   sigma_min=sigma_min, sigma_max=sigma_max, ref=ref_latent, shard=shard)
     item.check_dims(ctx)
     stream = seed_from(seed)
     state0 = {"seed": stream, "counter": 0,

@@ -48,6 +48,11 @@ def _device(ctx: NoiseCtx) -> torch.device:
     return default_device(ctx.device)
 
 
+def _shard_kw(ctx: NoiseCtx, shape) -> dict:
+    """B3's ``shard=`` for a field of ``shape`` under a sharded ctx, else nothing."""
+    return {} if ctx.shard is None else {"shard": ctx.field_shard(shape)}
+
+
 class Generator(NoiseItem):
     """Leaf noise generator spec.
 
@@ -86,17 +91,19 @@ class Generator(NoiseItem):
     # -- helpers -------------------------------------------------------------
     def randn(self, ctx: NoiseCtx, seed: int, shape=None, dtype=None):
         shape = tuple(shape) if shape is not None else ctx.adjusted_shape()
-        return philox_randn(seed, shape, device=_device(ctx), dtype=dtype or ctx.dtype)
+        return philox_randn(seed, shape, device=_device(ctx), dtype=dtype or ctx.dtype,
+                            **_shard_kw(ctx, shape))
 
     def rand(self, ctx: NoiseCtx, seed: int, shape=None, dtype=None):
         shape = tuple(shape) if shape is not None else ctx.adjusted_shape()
-        return philox_rand(seed, shape, device=_device(ctx), dtype=dtype or ctx.dtype)
+        return philox_rand(seed, shape, device=_device(ctx), dtype=dtype or ctx.dtype,
+                           **_shard_kw(ctx, shape))
 
     # -- protocol ------------------------------------------------------------
     def generate(self, ctx: NoiseCtx, state, seed, sigma, sigma_next):
         raise NotImplementedError
 
-    def output_hook(self, noise, *, internal_default: bool):
+    def output_hook(self, noise, *, internal_default: bool, shard=None):
         gen_norm = (
             self.gen_normalized if self.gen_normalized is not None else internal_default
         )
@@ -105,20 +112,21 @@ class Generator(NoiseItem):
             normalized=bool(gen_norm)
             and (self.force_normalize is None or self.force_normalize is True),
             normalize_dims=self.normalize_dims,
+            shard=shard,
         )
 
     def hooked(self, ctx, state, seed, sigma, sigma_next, *, internal_default=None):
         """Nested-generator entry point: class-default internal hook."""
         d = self.DEFAULT_NORMALIZED if internal_default is None else internal_default
         noise, state = self.generate(ctx, state, seed, sigma, sigma_next)
-        return self.output_hook(noise, internal_default=d), state
+        return self.output_hook(noise, internal_default=d, shard=ctx.shard), state
 
     def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
         # Item-layer path: internal hook off (py/noise.py:220-231), one
         # scale_noise with the factor at this level (py/noise.py:249-257).
         noise, state = self.hooked(ctx, state, seed, sigma, sigma_next,
                                    internal_default=False)
-        noise = self.apply_factor_normalize(noise, normalized=normalized)
+        noise = self.apply_factor_normalize(noise, normalized=normalized, shard=ctx.shard)
         return noise.to(ctx.dtype), state
 
 
@@ -127,6 +135,7 @@ class GaussianGenerator(Generator):
 
     name = "gaussian"
     DEFAULT_NORMALIZED = False
+    SHARDABLE = True  # B3 draws a shard at its global indices
 
     def generate(self, ctx, state, seed, sigma, sigma_next):
         return self.randn(ctx, seed, shape=ctx.shape), state
@@ -377,6 +386,7 @@ class PyramidGenerator(Generator):
     name = "pyramid"
     MIN_DIMS = 4
     MAX_DIMS = 5
+    SHARDABLE = True  # B4 and B3 draw a shard's planes at their global indices
 
     @classmethod
     def ng_params(cls):
@@ -391,8 +401,9 @@ class PyramidGenerator(Generator):
         b, c, h, w = ctx.adjusted_shape()
         sizes = _size_ladder_pyramid(h, w, self.iterations, self.schedule_seed)
         if fused_pyramid_supported(sizes, h, w, self.upscale_mode):
+            planes = {} if ctx.shard is None else {"planes": ctx.shard.plane_runs()}
             noise = fused_pyramid(seed, (b, c, h, w), sizes, self.discount,
-                                  self.upscale_mode, device=_device(ctx))
+                                  self.upscale_mode, device=_device(ctx), **planes)
             return fix_output_frames(ctx, noise), state
         noise = self.randn(ctx, derive_seed(seed, "base"), (b, c, h, w))
         for i, (sh, sw) in enumerate(sizes):

@@ -15,6 +15,12 @@ Noise injection: pass ``noise_item`` (a NoiseItem spec) or ``noise_sampler``
 as a plain callable ``fn(step, sigma, sigma_next) -> noise`` (e.g. a
 recorded stream for trajectory-equivalence tests).
 
+Sharded latents: a ``DTensor`` latent (``parallel.shard_latent``) is stepped
+on its local shard. The model sees the local rows, kernel B1 runs on the
+shard, the noise is this rank's block of the whole latent's draw, normalized
+with the whole latent's statistics, and the result is a ``DTensor`` with the
+input's placements.
+
 Type promotion: the per-step scalars are host floats, which follow the
 latent's type, so a bfloat16 latent is stepped in bfloat16 (the JAX
 package's float32 sigma arrays promote its step arithmetic to float32 and
@@ -28,11 +34,13 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core.rng import derive_seed, seed_from
 from ..kernels.fused import fused_momentum_step, pack_momentum_scalars
 from ..noise.base import NoiseItem, make_noise_sampler
 from ..noise.presets import get_noise_item
+from ..parallel.mesh import LatentShard
 from .ancestral import get_ancestral_step, get_ancestral_step_rf
 from .guidance import guidance_step, prepare_ref_latent
 from .momentum import (
@@ -57,13 +65,32 @@ class _Setup:
     ref_latent: torch.Tensor | None
 
 
+def _unshard(x):
+    """``(local latent, shard, wrap)``: a DTensor latent's local block, where
+    it lies (a ``parallel.LatentShard``) and a function that turns a result
+    (or a ``(result, carry)`` pair) back into a DTensor laid out as ``x``;
+    any other latent as it is, None and the identity."""
+    if not isinstance(x, DTensor):
+        return x, None, lambda out: out
+    shard = LatentShard.of(x)
+
+    def wrap(out):
+        if isinstance(out, tuple):
+            return (shard.rewrap(out[0], x), *out[1:])
+        return shard.rewrap(out, x)
+
+    # a latent replicated on every axis is whole on each rank: unsharded noise
+    return x.to_local(), (shard if shard.groups else None), wrap
+
+
 def _host_sigmas(sigmas) -> torch.Tensor:
     """The schedule as a float32 CPU tensor (one copy per run)."""
     return torch.as_tensor(sigmas).detach().to("cpu", torch.float32).reshape(-1)
 
 
 def _setup(model, x, sigmas, *, cfg: SonarConfig, default_noise_type: str,
-           noise_item, noise_sampler, seed, extra_args, need_noise: bool) -> _Setup:
+           noise_item, noise_sampler, seed, extra_args, need_noise: bool,
+           shard=None) -> _Setup:
     extra_args = dict(extra_args or {})
     seed = seed_from(extra_args.pop("seed", seed))
     s = _host_sigmas(sigmas)
@@ -86,7 +113,8 @@ def _setup(model, x, sigmas, *, cfg: SonarConfig, default_noise_type: str,
         return model(xi, s_in, **extra_args, **kw)
 
     # Noise precedence: custom_noise > explicit sampler > typed default
-    # (py/sonar.py:133-167).
+    # (py/sonar.py:133-167). A shard draws its block of the whole latent's noise.
+    shape = tuple(x.shape) if shard is None else tuple(shard.global_shape)
     noise_fn = noise_state = None
     if need_noise:
         item = cfg.custom_noise if cfg.custom_noise is not None else noise_item
@@ -94,9 +122,10 @@ def _setup(model, x, sigmas, *, cfg: SonarConfig, default_noise_type: str,
             item = get_noise_item(cfg.noise_type or default_noise_type)
         if item is not None:
             fn, noise_state = make_noise_sampler(
-                item, tuple(x.shape), dtype=x.dtype, device=x.device,
+                item, shape, dtype=x.dtype, device=x.device,
                 sigma_min=sigma_min, sigma_max=sigma_max,
                 seed=derive_seed(seed, "noise"), normalized=True, ref_latent=x,
+                shard=shard,
             )
 
             def noise_fn(nstate, step, sigma, sigma_next):
@@ -112,9 +141,9 @@ def _setup(model, x, sigmas, *, cfg: SonarConfig, default_noise_type: str,
     rand_init = None
     if cfg.init == HistoryType.RAND:
         ri_fn, ri_state = make_noise_sampler(
-            get_noise_item(cfg.rand_init_noise_type), tuple(x.shape), dtype=x.dtype,
+            get_noise_item(cfg.rand_init_noise_type), shape, dtype=x.dtype,
             device=x.device, seed=derive_seed(seed, "rand_init"), normalized=True,
-            ref_latent=x,
+            ref_latent=x, shard=shard,
         )
         rand_init, _ = ri_fn(ri_state, None, None)
 
@@ -178,11 +207,13 @@ def sample_sonar_euler(
     stop_step: int | None = None,
     return_state: bool = False,
 ) -> torch.Tensor:
-    """Deterministic momentum Euler (py/sonar.py:452-526)."""
+    """Deterministic momentum Euler (py/sonar.py:452-526). A DTensor latent
+    is stepped on its shard (module docstring)."""
     cfg = (sonar_config or SonarConfig()).updated(sonar_params)
+    x, shard, wrap = _unshard(x)
     st = _setup(model, x, sigmas, cfg=cfg, default_noise_type="gaussian",
                 noise_item=None, noise_sampler=noise_sampler, seed=seed,
-                extra_args=extra_args, need_noise=False)
+                extra_args=extra_args, need_noise=False, shard=shard)
     sig = st.sigmas
 
     def step_fn(carry, i):
@@ -196,10 +227,10 @@ def sample_sonar_euler(
         return (out, mom, nstate), {"x": out, "sigma": sigma, "sigma_hat": sigma,
                                     "denoised": denoised}
 
-    return _run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x), (),
-                     callback=callback, method=method, resume_from=resume_from,
-                     start_step=start_step, stop_step=stop_step,
-                     return_state=return_state)
+    return wrap(_run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x), (),
+                          callback=callback, method=method, resume_from=resume_from,
+                          start_step=start_step, stop_step=stop_step,
+                          return_state=return_state))
 
 
 def _fused_eligible(cfg: SonarConfig) -> bool:
@@ -295,6 +326,9 @@ def sample_sonar_euler_ancestral(
     ``ancestral_mode="rf"`` uses the rectified-flow noise split for
     CONST/flow models (see :func:`get_ancestral_step_rf`); it always takes
     the composed path.
+
+    A DTensor latent is stepped on its shard (module docstring); the kernel
+    B1 tables stay one per run.
     """
     if ancestral_mode not in ("vp", "rf"):
         raise ValueError(f"ancestral_mode must be 'vp' or 'rf', "
@@ -306,9 +340,10 @@ def sample_sonar_euler_ancestral(
             "(the fused momentum kernel bakes the VP noise injection); "
             "leave use_fused=None to auto-select the unfused path")
     cfg = (sonar_config or SonarConfig()).updated(sonar_params)
+    x, shard, wrap = _unshard(x)
     st = _setup(model, x, sigmas, cfg=cfg, default_noise_type="gaussian",
                 noise_item=noise_item, noise_sampler=noise_sampler, seed=seed,
-                extra_args=extra_args, need_noise=True)
+                extra_args=extra_args, need_noise=True, shard=shard)
     sig = st.sigmas
     sched = _ancestral_schedule(sig, eta, s_noise, rf)
     fused = (use_fused is None or use_fused) and _fused_eligible(cfg) and not rf
@@ -342,10 +377,10 @@ def sample_sonar_euler_ancestral(
             out = out + noise * noise_scale[i]
         return (out, mom, nstate), {"x": out, **info}
 
-    return _run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x),
-                     st.noise_state, callback=callback, method=method,
-                     resume_from=resume_from, start_step=start_step,
-                     stop_step=stop_step, return_state=return_state)
+    return wrap(_run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x),
+                          st.noise_state, callback=callback, method=method,
+                          resume_from=resume_from, start_step=start_step,
+                          stop_step=stop_step, return_state=return_state))
 
 
 def _dpmpp_sde_schedule(sigmas: list[float], eta: float, s_noise: float, r: float):

@@ -1208,3 +1208,58 @@ def test_new_zoo_noise_does_not_synchronise(cuda, name, kw):
         torch.cuda.set_sync_debug_mode(0)
     assert len(rec.sigmas) == 5 and torch.equal(first, again)
     assert bool(torch.isfinite(again).all())
+
+
+# -- the sharded entries (the parallel tier): B3 and B4 at a shard's indices, B2 split --
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shard", [(16384, 16384, 32768), (5, 4099, 8198), (3, 7, 9)])
+def test_philox_shard_is_the_unsharded_slice(cuda, shard, dtype):
+    """A shard's draw: uniforms bit for bit against the plain version and the
+    unsharded kernel draw's slice; normals 2e-6 against plain, bit-equal to
+    the unsharded kernel's (the same device functions on the same words).
+    Aligned slices and slices that start and end inside a Philox group."""
+    first, run, stride = shard
+    n = 2 * run
+    idx = H.shard_indices(n, shard, device=cuda)
+    full = first + stride + run
+    u = H.philox_rand(3, (n,), device=cuda, dtype=dtype, shard=shard)
+    assert torch.equal(u, H.philox_rand_reference(3, (n,), device=cuda, dtype=dtype,
+                                                  shard=shard))
+    assert torch.equal(u, H.philox_rand(3, (full,), device=cuda, dtype=dtype)[idx])
+    z = H.philox_randn(3, (n,), device=cuda, shard=shard)
+    zr = H.philox_randn_reference(3, (n,), device=cuda, shard=shard)
+    assert float((z - zr).abs().max()) <= 2e-6
+    assert torch.equal(z, H.philox_randn(3, (full,), device=cuda)[idx])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,planes", [((1, 4, 64, 64), (4, 4, 8)),
+                                          ((1, 3, 67, 61), (1, 1, 2))])
+def test_pyramid_plane_slice_matches_plain(cuda, shape, planes):
+    """B4 with its base pair drawn at a plane slice's global indices (whole
+    Philox groups, and planes of 67 × 61 that start inside one)."""
+    ladder = _size_ladder_pyramid(shape[2], shape[3], 10, 0)
+    k = P.fused_pyramid(5, shape, ladder, 0.7, device=cuda, planes=planes)
+    p = P.fused_pyramid_reference(5, shape, ladder, 0.7, device=cuda, planes=planes)
+    assert _rel_err(k, p) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 4, 64, 64), (1, 3, 67, 61)])
+def test_scale_noise_split_matches_plain(cuda, shape, dtype):
+    """B2 split: the moments, the squared deviations about the (reduced)
+    mean and the affine against their plain versions, 1e-5 (bf16: one ulp);
+    on one shard standing for the whole latent it is B2's result."""
+    x = (_randn(shape, cuda) * 1.7 + 0.3).to(dtype)
+    mo = F.scale_noise_moments(x)
+    assert _rel_err(mo, F.scale_noise_moments_reference(x)) <= 1e-5
+    m2 = F.scale_noise_m2(x, mo)
+    assert _rel_err(m2, F.scale_noise_m2_reference(x, mo)) <= 1e-5
+    out = F.scale_noise_apply(x, mo, m2, 1.5)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    assert _rel_err(out.float(), F.scale_noise_apply_reference(x, mo, m2, 1.5).float()) <= tol
+    assert _rel_err(out.float(), F.fused_scale_noise(x, 1.5).float()) <= tol
