@@ -250,13 +250,33 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    slice of the unsharded draw), DiT-S/2 under tp=2, pp=2 with 2
    microbatches and dp=2 × pp=1, the MoE under ep=2 (eps and aux), each
    rank's launches and the collectives' time a step (two processes
-   time-slice the card: not a speed); prints ``{"parallel": ...}``.
+   time-slice the card: not a speed); prints ``{"parallel": ...}``;
+30. runs the parallel tier's training half, TF32 off, against the unsharded
+   training steps on the card (the flagship UNet and DiT-S/2, global batch
+   8×4×64×64, Adam 2e-3, step seed 5): (a) in a 1-rank NCCL world, every
+   axis of size 1, the UNet's tp and FSDP layouts (``shard_unet_params``)
+   and DiT-S/2 under tp and under pp with 2 microbatches: one step's loss
+   (1e-5 relative), gradients (1e-4 of each leaf's largest) and weights
+   (within Adam's first-step bound), B3 twice a step and no other kernel, a
+   second step under ``torch.cuda.set_sync_debug_mode("error")``; (b) in a
+   2-rank gloo world on the one card, the UNet at dp=2, tp=2 and FSDP over
+   dp=2 and DiT-S/2 through pp=2 with 2 microbatches, each held so against
+   (a)'s unsharded step, with each rank's bytes of parameters and Adam state
+   and the collectives a step (count, ms between synchronisations; not a
+   speed), and each rank's B3 draws against its slice of the unsharded
+   draw; (c) the unsharded state a step in, saved and restored onto the
+   FSDP layout in (b)'s world: every block bit-equal to its slice, the
+   resumed step's loss and gradients against the resumed unsharded step,
+   its update Adam's on the gathered gradients bit for bit; prints
+   ``{"parallel_train": ...}``.
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
 launches on the paths (``launches_workflow``: [27] (a) and (b);
 ``launches_dit``: [28] (a); ``launches_train``: [28] (c)'s float32 run;
-``launches_parallel``: [29]'s sharded runs, (a) and both ranks of (b)), their
+``launches_parallel``: [29]'s sharded runs, (a) and both ranks of (b);
+``launches_parallel_train``: [30]'s sharded first steps, (a) and both ranks
+of (b)), their
 error, their device time (``ms``), the plain version's, the least time the
 card could take (``bound_ms``, from this
 run's shapes: bytes at 3.35 TB/s against operations at 33.5 T/s, the
@@ -274,6 +294,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -644,6 +665,7 @@ def par_world():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    warnings.filterwarnings("error", message=NO_AUTOGRAD)
     dev = torch.device("cuda", torch.cuda.current_device())
     rank = dist.get_rank()
     kernels = {"B1": [F.fused_momentum_step],
@@ -741,6 +763,291 @@ def par_world():
         eps, aux = dit_apply(shard_dit_params(moe, m, dit_param_shardings(moe, m, tp=None)),
                              xd, sig, return_aux=True)
         out["ep"] = (eps.cpu().numpy(), float(aux))
+    return out
+
+
+# -- [30]: the parallel tier's training half ------------------------------------------------
+TRAIN30_BATCH = (8, 4, 64, 64)  # the global batch; dp=2 holds 4x4x64x64 a rank
+TRAIN30_SEED, TRAIN30_RESUME_SEED = 5, 6  # [28]'s step seed; the resumed step's
+TRAIN30_LR = 2e-3
+ADAM_EPS = 1e-8  # torch.optim.Adam's default, optax.adam's
+# the sharded step against the unsharded one on the card, TF32 off: the loss
+# relative (the gathers, partial products and the dp mean sum in another
+# order); each gradient block within 1e-4 of its whole leaf's largest (the
+# CPU tests' limit against JAX); each weight after the first Adam step
+# within lr·|Δg|/(min(|g|, |g'|) + eps) of the unsharded one (how far
+# lr·g/(|g| + eps) moves with g), plus 8 ulps of lr (each side forms the
+# update in about eight float32 roundings of at most half an ulp) and one
+# ulp of the weight a side
+TRAIN30_LOSS_TOL, TRAIN30_GRAD_TOL = 1e-5, 1e-4
+# torch's warning when a backward crosses an op with no autograd formula (a
+# forward-only collective), which it then passes through unchanged: [30]
+# makes it an error
+NO_AUTOGRAD = ".*an autograd kernel was not registered"
+
+
+def t30_batch(torch):
+    return torch.randn(TRAIN30_BATCH, generator=torch.Generator().manual_seed(30))
+
+
+def block_of(t, plc, mesh):
+    """This rank's block of the whole tensor ``t`` under the placements
+    ``plc`` (one per axis of ``mesh``), cut with ``narrow`` at the rank's
+    coordinates."""
+    from torch.distributed.tensor import Shard
+
+    for i, pl in enumerate(plc):
+        if isinstance(pl, Shard):
+            n = t.shape[pl.dim] // mesh.size(i)
+            t = t.narrow(pl.dim, mesh.get_coordinate()[i] * n, n)
+    return t
+
+
+def t30_check(torch, local, whole_of, ref):
+    """A sharded first step of ``local`` against the unsharded reference
+    ``ref`` ({"grads", "params1"}: whole CPU tensors): ``whole_of(name, t)``
+    maps a local parameter's name and a whole tensor of the reference to the
+    block the rank holds. Returns the largest gradient error relative to its
+    leaf's largest value, the Adam bound's worst ratio (<= 1 holds) and the
+    largest weight difference in units of the learning rate."""
+    import numpy as np
+
+    grad_rel = bound_ratio = step_lr = 0.0
+    for name, p in local.named_parameters():
+        g_s = p.grad.detach().double().cpu().numpy()
+        g_whole = whole_of(name, ref["grads"])
+        g_u = g_whole.double().numpy()
+        grad_rel = max(grad_rel, float(np.abs(g_s - g_u).max())
+                       / max(float(ref["grads_max"][whole_of.key(name)]), 1e-30))
+        want = whole_of(name, ref["params1"]).double().numpy()
+        diff = np.abs(p.detach().double().cpu().numpy() - want)
+        bound = (TRAIN30_LR * np.abs(g_s - g_u) / (np.minimum(np.abs(g_s), np.abs(g_u)) + ADAM_EPS)
+                 + 8 * np.spacing(np.float32(TRAIN30_LR))
+                 + 2 * np.spacing(np.abs(want).astype(np.float32)))
+        bound_ratio = max(bound_ratio, float((diff / bound).max()))
+        step_lr = max(step_lr, float(diff.max()) / TRAIN30_LR)
+    return {"grad_rel": grad_rel, "adam_bound_ratio": bound_ratio, "max_dp_over_lr": step_lr}
+
+
+class WholeOf:
+    """``whole_of`` for :func:`t30_check`: the block of a reference tensor
+    that a local parameter holds (``key`` its name in the reference)."""
+
+    def __init__(self, mesh=None, plc=None, stage_blocks=None):
+        self.mesh, self.plc, self.stage_blocks = mesh, plc, stage_blocks
+
+    def key(self, name):
+        if self.stage_blocks is None or not name.startswith("blocks."):
+            return name
+        parts = name.split(".")
+        return ".".join(["blocks", str(self.stage_blocks + int(parts[1])), *parts[2:]])
+
+    def __call__(self, name, tree):
+        t = tree[self.key(name)]
+        return t if self.plc is None else block_of(t, self.plc[name], self.mesh)
+
+
+def state_bytes(model, opt) -> int:
+    """Bytes of the rank's parameters and its optimizer's tensors."""
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    return n + sum(v.numel() * v.element_size() for s in opt.state.values() for v in s.values()
+                   if hasattr(v, "numel") and v.dim() > 0)
+
+
+def par_train_world(ref_path, ckpt_path):
+    """One rank of [30] (b) and (c): two ranks of a gloo world on the one card.
+    Each builds the flagship UNet and DiT-S/2 from the main process's seeds,
+    steps its sharded layouts, checks them against the unsharded reference
+    that the main process saved (``ref_path``), restores the checkpoint at
+    ``ckpt_path`` onto the FSDP layout and resumes; it returns numbers."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    import sonar_tpu_torch.kernels.fused as F
+    import sonar_tpu_torch.kernels.fused_pyramid as P
+    import sonar_tpu_torch.kernels.voronoi as V
+    import sonar_tpu_torch.models.train as TR
+    from sonar_tpu_torch.core.rng import derive_seed
+    from sonar_tpu_torch.kernels import hwrng as H
+    from sonar_tpu_torch.models import (DiTConfig, UNetConfig, dit_param_shardings,
+                                        init_dit_params, init_train_state, init_unet_params,
+                                        make_train_step, restore_checkpoint, shard_dit_params)
+    from sonar_tpu_torch.parallel import (LatentShard, make_mesh, shard_latent, shard_target,
+                                          shard_unet_params, unet_param_shardings)
+    from sonar_tpu_torch.parallel.grad import gather
+    from torch.distributed.tensor import Shard
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    warnings.filterwarnings("error", message=NO_AUTOGRAD)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    kernels = {"B1": [F.fused_momentum_step],
+               "B2": [F.fused_scale_noise, F.scale_noise_moments, F.scale_noise_m2,
+                      F.scale_noise_apply],
+               "B3": [H.philox_randn, H.philox_rand],
+               "B4": [P.fused_pyramid, P.fused_pyramid_accumulate],
+               "B5": [P.fused_downscale_pyramid, P.fused_downscale_accumulate],
+               "B6": [V.voronoi_ksmallest]}
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: sum(f.launches for f in fs) for k, fs in kernels.items()}
+
+    def zero():
+        for fs in kernels.values():
+            for f in fs:
+                f.launches = 0
+
+    spent = {"all_reduce": [0, 0.0], "broadcast": [0, 0.0]}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name][0] += 1
+            spent[name][1] += time.perf_counter() - t
+            return r
+        return call
+
+    def sync_checked(key, step):
+        """One more step under set_sync_debug_mode("error"): the collectives
+        lift the check for their own span (gloo copies through the host)."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        except RuntimeError as e:
+            raise RuntimeError(f"[30] (b) {key}: a step synchronised with the host: {e}") from None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return True
+
+    def collectives(step):
+        """One more step with each collective timed between two synchronisations."""
+        for v in spent.values():
+            v[:] = [0, 0.0]
+        with patched(dist, all_reduce=timed("all_reduce", dist.all_reduce),
+                     broadcast=timed("broadcast", dist.broadcast)):
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        return {"step_s": wall,
+                **{k: {"count": n, "ms": 1000.0 * t_} for k, (n, t_) in spent.items()}}
+
+    ref = torch.load(ref_path, map_location="cpu", weights_only=True, mmap=True)
+    batch = t30_batch(torch).to(dev)
+    adam = functools.partial(torch.optim.Adam, lr=TRAIN30_LR)
+    out = {"rank": rank, "launches": {k: 0 for k in kernels}}
+    ucfg = UNetConfig()
+    step_u = make_train_step(ucfg)
+    for key, shape, fsdp in (("dp2", (2, 1), False), ("tp2", (1, 2), False),
+                             ("fsdp_dp2", (2, 1), True)):
+        mesh = make_mesh(axis_names=("dp", "tp"), mesh_shape=shape)
+        unet = init_unet_params(torch.Generator().manual_seed(0), ucfg, device=dev)
+        plc = unet_param_shardings(unet, mesh, fsdp=fsdp)
+        local = shard_unet_params(unet, mesh, fsdp=fsdp)
+        del unet
+        opt = init_train_state(local, adam)
+        xb = shard_latent(batch, mesh)
+        zero()
+        loss = float(step_u(local, opt, xb, TRAIN30_SEED))
+        launched = counts()
+        for k in kernels:
+            out["launches"][k] += launched[k]
+        res = {"loss": loss, "launches": launched, "state_bytes": state_bytes(local, opt),
+               **t30_check(torch, local, WholeOf(mesh, plc), ref["unet"])}
+        res["sync_checked"] = sync_checked(key, lambda: step_u(local, opt, xb, TRAIN30_SEED))
+        res["collectives"] = collectives(lambda: step_u(local, opt, xb, TRAIN30_SEED))
+        if key == "dp2":  # the rank's draws against its slice of the unsharded draw
+            sh = LatentShard.of(xb)
+            rows = slice(sh.offset[0], sh.offset[0] + sh.local_shape[0])
+            u_s, e_s = TR.train_draws(TRAIN30_SEED, xb.to_local(), sh)
+            u_f, e_f = TR.train_draws(TRAIN30_SEED, batch)
+            e_p = H.philox_randn_reference(derive_seed(TRAIN30_SEED, "train", "eps"),
+                                           TRAIN30_BATCH, device=dev)[rows]
+            res["draws"] = {"uniforms_bitwise": bool(torch.equal(u_s, u_f[rows])),
+                            "normals_vs_slice": float((e_s - e_f[rows]).abs().max()),
+                            "normals_vs_plain_slice": float((e_s - e_p).abs().max())}
+        out[key] = res
+        del local, opt
+    # DiT-S/2's gradients through pp=2 with 2 microbatches
+    dcfg = DiTConfig(**DIT_S2)
+    mesh = make_mesh(axis_names=("pp",))
+    dit = init_dit_params(torch.Generator().manual_seed(0), dcfg, device=dev)
+    local = shard_dit_params(dit, mesh, dit_param_shardings(dit, mesh, tp=None, pp="pp"))
+    del dit
+    opt = init_train_state(local, adam)
+    step_d = make_train_step(dcfg, pp_mesh=mesh, microbatches=2)
+    zero()
+    loss = float(step_d(local, opt, batch, TRAIN30_SEED))
+    launched = counts()
+    for k in kernels:
+        out["launches"][k] += launched[k]
+    stage_blocks = mesh.get_local_rank("pp") * len(local.blocks)
+    out["dit_pp2"] = {"loss": loss, "launches": launched, "state_bytes": state_bytes(local, opt),
+                      **t30_check(torch, local, WholeOf(stage_blocks=stage_blocks), ref["dit"])}
+    out["dit_pp2"]["sync_checked"] = sync_checked(
+        "dit_pp2", lambda: step_d(local, opt, batch, TRAIN30_SEED))
+    out["dit_pp2"]["collectives"] = collectives(lambda: step_d(local, opt, batch, TRAIN30_SEED))
+    del local, opt
+    # (c) the unsharded checkpoint restored onto the FSDP layout over dp=2, and resumed
+    mesh = make_mesh(axis_names=("dp", "tp"), mesh_shape=(2, 1))
+    unet = init_unet_params(torch.Generator().manual_seed(1), ucfg, device=dev)
+    plc = unet_param_shardings(unet, mesh, fsdp=True)
+    local = shard_unet_params(unet, mesh, fsdp=True)
+    del unet
+    order = [k for k, _ in local.named_parameters()]
+    target = shard_target({k: p.detach() for k, p in local.named_parameters()}, mesh, plc)
+    t_r = time.perf_counter()
+    got = restore_checkpoint(ckpt_path, target={"params": target, "opt_state": {
+        "state": {i: {"step": None, "exp_avg": target[k], "exp_avg_sq": target[k]}
+                  for i, k in enumerate(order)}, "param_groups": None}}, partial=True)
+    restore_s = time.perf_counter() - t_r
+    saved = torch.load(os.path.join(ckpt_path, "state.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)
+    bit_equal = all(torch.equal(got["params"][k].to_local().cpu(),
+                                block_of(saved["params"][k], plc[k], mesh)) for k in order)
+    bit_equal &= all(torch.equal(got["opt_state"]["state"][i][m].to_local().cpu(),
+                                 block_of(saved["opt_state"]["state"][i][m], plc[k], mesh))
+                     for i, k in enumerate(order) for m in ("exp_avg", "exp_avg_sq"))
+    with torch.no_grad():
+        for k, p in local.named_parameters():
+            p.copy_(got["params"][k].to_local())
+    opt = init_train_state(local, adam)
+    opt.load_state_dict({"state": {i: {m: (v.to_local() if hasattr(v, "to_local") else v)
+                                       for m, v in s_.items()}
+                                   for i, s_ in got["opt_state"]["state"].items()},
+                         "param_groups": got["opt_state"]["param_groups"]})
+    loss_r = float(step_u(local, opt, shard_latent(batch, mesh), TRAIN30_RESUME_SEED))
+    grad_rel = max(float((p.grad.cpu() - block_of(ref["resumed"]["grads"][k], plc[k], mesh))
+                         .abs().max()) / max(float(ref["resumed"]["grads_max"][k]), 1e-30)
+                   for k, p in local.named_parameters())
+    # the update is Adam's on the whole tensors from the saved state, with the
+    # ranks' gradient blocks put together: bit for bit on each block
+    whole = init_unet_params(torch.Generator().manual_seed(1), ucfg, device=dev)
+    w_opt = init_train_state(whole, adam)
+    state = restore_checkpoint(ckpt_path, target={"params": whole.state_dict(),
+                                                  "opt_state": None, "step": None})
+    whole.load_state_dict(state["params"])
+    w_opt.load_state_dict(state["opt_state"])
+    for (k, p), (_, w) in zip(local.named_parameters(), whole.named_parameters()):
+        g = p.grad
+        for i, pl in enumerate(plc[k]):
+            if isinstance(pl, Shard):
+                g = gather(g, mesh, mesh.mesh_dim_names[i], pl.dim)
+        w.grad = g.detach().clone()
+    w_opt.step()
+    mismatched = sum(int((p.detach() != block_of(w.detach(), plc[k], mesh)).sum())
+                     for (k, p), (_, w) in zip(local.named_parameters(), whole.named_parameters()))
+    out["restore"] = {"bit_equal": bool(bit_equal), "restore_s": restore_s, "loss": loss_r,
+                      "grad_rel": grad_rel, "update_mismatched": mismatched,
+                      "elements": sum(p.numel() for p in local.parameters())}
     return out
 
 
@@ -4140,6 +4447,165 @@ def main():
     print(f"[29] took {time.perf_counter() - t29:.0f} s; phases 1-29 took "
           f"{time.perf_counter() - t_run:.0f} s")
 
+    # -- phase 30: the parallel tier's training half ---------------------------------------
+    print(f"[30] {time.perf_counter() - t_run:.0f} s into the run")
+    t30 = time.perf_counter()
+    from sonar_tpu_torch.parallel import shard_unet_params, unet_param_shardings
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ucfg30 = UNetConfig()
+    step_u30 = make_train_step(ucfg30)
+    batch30 = t30_batch(torch).to(dev)
+
+    def cpu_tree(named):
+        return {k: v.detach().to("cpu", copy=True) for k, v in named}
+
+    def unsharded(model, step, seed=TRAIN30_SEED, opt=None):
+        opt = opt or init_train_state(model, adam)
+        reset_counts()
+        loss = float(step(model, opt, batch30, seed))
+        got = read_counts()
+        grads = cpu_tree((k, p.grad) for k, p in model.named_parameters())
+        return opt, got, {"loss": loss, "grads": grads,
+                          "grads_max": {k: float(g.abs().max()) for k, g in grads.items()},
+                          "params1": cpu_tree(model.named_parameters())}
+
+    # the unsharded steps on the card: the flagship UNet and DiT-S/2 at 8x4x64x64
+    unet30 = init_unet_params(torch.Generator().manual_seed(0), ucfg30, device=dev)
+    opt30, l_ref, ref_unet = unsharded(unet30, step_u30)
+    need(l_ref == {"B1": 0, "B2": 0, "B3": 2, "B4": 0, "B5": 0, "B6": 0},
+         f"[30] the unsharded step's launches {l_ref}")
+    ckpt30 = os.path.join(ROOT, "build", "ckpt30")
+    save_checkpoint(ckpt30, {"params": unet30.state_dict(), "opt_state": opt30.state_dict(),
+                             "step": 1}, force=True)
+    _, _, ref_resumed = unsharded(unet30, step_u30, TRAIN30_RESUME_SEED, opt30)
+    del unet30, opt30
+    dit30 = dit_model()
+    step_d30 = make_train_step(dit_cfg)
+    _, _, ref_dit = unsharded(dit30, step_d30)
+    del dit30
+    ref_path = os.path.join(ROOT, "build", "ref30.pt")
+    torch.save({"unet": ref_unet, "dit": ref_dit,
+                "resumed": {k: ref_resumed[k] for k in ("loss", "grads", "grads_max")}}, ref_path)
+
+    # (a) a 1-rank NCCL world: each sharded step with every axis of size 1
+    pt = {"a": {}, "b": {}}
+    launches_pt = {k: 0 for k in counters}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("error", message=NO_AUTOGRAD)
+                for key in ("unet_tp1", "unet_fsdp_dp1", "dit_tp1", "dit_pp1"):
+                    if key.startswith("unet"):
+                        m = make_mesh(axis_names=("dp", "tp"), mesh_shape=(1, 1))
+                        fs = key == "unet_fsdp_dp1"
+                        model = init_unet_params(torch.Generator().manual_seed(0), ucfg30,
+                                                 device=dev)
+                        local = shard_unet_params(model, m, fsdp=fs)
+                        whole_of = WholeOf(m, unet_param_shardings(model, m, fsdp=fs))
+                        step, xb, ref = step_u30, shard_latent(batch30, m), ref_unet
+                    else:
+                        pp = key == "dit_pp1"
+                        m = make_mesh(axis_names=("pp",) if pp else ("tp",))
+                        model = dit_model()
+                        local = shard_dit_params(model, m, dit_param_shardings(
+                            model, m, tp=None if pp else "tp", pp="pp" if pp else None))
+                        whole_of = WholeOf(stage_blocks=0)
+                        step = (make_train_step(dit_cfg, pp_mesh=m, microbatches=2) if pp
+                                else step_d30)
+                        xb, ref = batch30, ref_dit
+                    del model
+                    opt = init_train_state(local, adam)
+                    reset_counts()
+                    loss = float(step(local, opt, xb, TRAIN30_SEED))
+                    got = read_counts()
+                    need(got == l_ref, f"[30] (a) {key}: launches {got}, expected {l_ref}")
+                    for k in counters:
+                        launches_pt[k] += got[k]
+                    res = {"loss": loss, "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                           **t30_check(torch, local, whole_of, ref)}
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:  # the collectives lift the check for their own span
+                        step(local, opt, xb, TRAIN30_SEED)
+                    except RuntimeError as e:
+                        fail(f"[30] (a) {key}: a second step synchronised with the host: {e}")
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    pt["a"][key] = res
+                    del local, opt
+        finally:
+            dist.destroy_process_group()
+    for key, res in pt["a"].items():
+        need(res["loss_rel"] <= TRAIN30_LOSS_TOL and res["grad_rel"] <= TRAIN30_GRAD_TOL
+             and res["adam_bound_ratio"] <= 1.0, f"[30] (a) {key}: {res}")
+    print(f"[30] (a) 1-rank NCCL world, each axis of size 1, one step against the unsharded "
+          f"step on the card (flagship UNet and DiT-S/2, {TRAIN30_BATCH}, Adam {TRAIN30_LR:g}, "
+          f"seed {TRAIN30_SEED}, TF32 off): "
+          + "; ".join(f"{k} loss {v['loss_rel']:.3e}, gradients {v['grad_rel']:.3e}, weights "
+                      f"{v['max_dp_over_lr']:.3e} lr (Adam bound ratio {v['adam_bound_ratio']:.3f})"
+                      for k, v in pt["a"].items())
+          + f"; launches a step {l_ref}; a second step of each under "
+          f"set_sync_debug_mode('error'): no sync outside the collectives [{card}]")
+
+    # (b) and (c): two gloo ranks sharing the card
+    t_b = time.perf_counter()
+    ranks = run_world(par_train_world, 2, backend="gloo", device_type="cuda",
+                      args=(ref_path, ckpt30))
+    pt["b"]["world_s"] = time.perf_counter() - t_b
+    for r in ranks:
+        for key in ("dp2", "tp2", "fsdp_dp2", "dit_pp2"):
+            res = r[key]
+            ref = ref_dit if key == "dit_pp2" else ref_unet
+            res["loss_rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+            need(res["loss_rel"] <= TRAIN30_LOSS_TOL and res["grad_rel"] <= TRAIN30_GRAD_TOL
+                 and res["adam_bound_ratio"] <= 1.0, f"[30] (b) rank {r['rank']} {key}: {res}")
+            need(res["launches"] == l_ref, f"[30] (b) rank {r['rank']} {key}: launches "
+                 f"{res['launches']}")
+            need(res["sync_checked"], f"[30] (b) rank {r['rank']} {key}: no sync-checked step")
+        d = r["dp2"]["draws"]
+        need(d["uniforms_bitwise"] and d["normals_vs_slice"] <= B3_TOL
+             and d["normals_vs_plain_slice"] <= B3_TOL, f"[30] (b) rank {r['rank']} draws {d}")
+        c = r["restore"]
+        c["loss_rel"] = abs(c["loss"] - ref_resumed["loss"]) / abs(ref_resumed["loss"])
+        need(c["bit_equal"] and c["loss_rel"] <= TRAIN30_LOSS_TOL
+             and c["grad_rel"] <= TRAIN30_GRAD_TOL and c["update_mismatched"] == 0,
+             f"[30] (c) rank {r['rank']}: {c}")
+        for k in counters:
+            launches_pt[k] += r["launches"][k]
+    rep_bytes = ranks[0]["dp2"]["state_bytes"]
+    pt["b"]["ranks"] = ranks
+    pt["b"]["bytes_vs_replicated"] = {k: [r[k]["state_bytes"] / rep_bytes for r in ranks]
+                                      for k in ("tp2", "fsdp_dp2")}
+    for r in ranks:
+        print(f"[30] (b) rank {r['rank']} of a 2-rank gloo world on the one card "
+              f"({pt['b']['world_s']:.1f} s with the ranks' start): "
+              + "; ".join(f"{k} loss {r[k]['loss_rel']:.3e}, gradients {r[k]['grad_rel']:.3e}, "
+                          f"weights {r[k]['max_dp_over_lr']:.3e} lr (bound ratio "
+                          f"{r[k]['adam_bound_ratio']:.3f}), params + Adam "
+                          f"{r[k]['state_bytes'] / 2**20:.1f} MiB, collectives a step "
+                          f"{r[k]['collectives']}"
+                          for k in ("dp2", "tp2", "fsdp_dp2", "dit_pp2"))
+              + f"; draws {r['dp2']['draws']}; a step of each under "
+              f"set_sync_debug_mode('error'): no sync outside the collectives. Two processes "
+              f"time-slice one card: not a speed [{card}]")
+        print(f"[30] (c) rank {r['rank']}: the unsharded checkpoint restored onto the FSDP "
+              f"layout (dp=2) in {r['restore']['restore_s']:.2f} s, every block bit-equal to "
+              f"its slice: {r['restore']['bit_equal']}; the resumed step: loss "
+              f"{r['restore']['loss_rel']:.3e}, gradients {r['restore']['grad_rel']:.3e} from "
+              f"the resumed unsharded step, its update Adam's on the gathered gradients "
+              f"({r['restore']['update_mismatched']} of {r['restore']['elements']} weights "
+              f"differ)")
+    shutil.rmtree(ckpt30)
+    os.remove(ref_path)
+    pt["launches_parallel_train"] = launches_pt
+    print(json.dumps({"parallel_train": pt}, default=float))
+    print(f"[30] took {time.perf_counter() - t30:.0f} s; phases 1-30 took "
+          f"{time.perf_counter() - t_run:.0f} s")
+
     src = "sonar_tpu_torch/csrc/"
     n_el = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
     rows = [
@@ -4182,7 +4648,7 @@ def main():
          "launches_dtcwt_wcfg_sdxl": l26d[k],
          "launches_workflow": l27a[k] + l27b[k],
          "launches_dit": l28a[k], "launches_train": l28c[k],
-         "launches_parallel": launches_par[k]}
+         "launches_parallel": launches_par[k], "launches_parallel_train": launches_pt[k]}
         for kname, f, rep, n_launch, e, k, bd in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

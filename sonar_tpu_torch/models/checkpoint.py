@@ -20,7 +20,9 @@ from collections.abc import Mapping
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..parallel.mesh import _chunk
 from ..utils.misc import default_device
 
 _STATE_FILE = "state.pt"
@@ -72,8 +74,22 @@ def _onto(target: Any, loaded: Any, partial: bool, where: str) -> Any:
         if not isinstance(loaded, torch.Tensor) or loaded.shape != target.shape:
             raise ValueError(f"checkpoint{where}: shape {getattr(loaded, 'shape', None)}, "
                              f"the target's {tuple(target.shape)}")
+        if isinstance(target, DTensor):  # this rank's block, read from the mapped file
+            local = target.to_local()
+            block = _chunk(loaded, target.device_mesh, target.placements)
+            return DTensor.from_local(block.to(device=local.device, dtype=local.dtype, copy=True),
+                                      target.device_mesh, target.placements, run_check=False,
+                                      shape=target.shape, stride=target.stride())
         return loaded.to(device=target.device, dtype=target.dtype)
     return loaded
+
+
+def _has_dtensor(tree: Any) -> bool:
+    if isinstance(tree, Mapping):
+        return any(_has_dtensor(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_dtensor(v) for v in tree)
+    return isinstance(tree, DTensor)
 
 
 def _is_optimizer_state(tree: Any) -> bool:
@@ -113,9 +129,20 @@ def restore_checkpoint(path: str | os.PathLike, *, target: Any = None,
     tensor comes back on the target tensor's device and in its dtype, and a
     structure or shape that differs raises. ``partial=True`` lets ``target``
     name a subtree (e.g. ``{"params": ...}`` out of a full train state);
-    only the named entries come back."""
+    only the named entries come back.
+
+    A sharded target: a ``DTensor`` leaf (a rank's block with its mesh and
+    placements, :func:`~sonar_tpu_torch.parallel.shard_target`; replicated,
+    or the FSDP layout of ``unet_param_shardings(..., fsdp=True)``) comes
+    back as a DTensor laid out alike, its local tensor this rank's block of
+    the saved tensor, bit for bit. The file is then read memory-mapped, so a
+    rank reads only its blocks' pages and nothing is gathered. For an
+    optimizer's state the target may name the moments alone: a leaf whose
+    target is not a tensor (e.g. None for Adam's ``step``) comes back as
+    saved, on the host."""
     file = os.path.join(os.path.abspath(os.fspath(path)), _STATE_FILE)
-    loaded = torch.load(file, map_location="cpu", weights_only=True)
+    loaded = torch.load(file, map_location="cpu", weights_only=True,
+                        mmap=_has_dtensor(target))
     if target is None:
         return _to_device(loaded, default_device())
     return _onto(target, loaded, partial, "")

@@ -42,6 +42,12 @@ process a rank with the collectives of ``parallel.mesh``:
   :func:`dit_pp_apply` runs the GPipe schedule, the activations handed
   stage to stage by ``ppermute``;
 - dp: a DTensor latent is run on its local rows.
+
+The collectives carry gradients (:mod:`sonar_tpu_torch.parallel.grad`), so
+``torch.autograd`` through :func:`dit_apply` under tp or ep and through
+:func:`dit_pp_apply` is the sharded backward: pipeline backprop hands each
+microbatch's gradient back stage to stage, and the embedding's and head's
+gradients come out whole on every stage, as ``jax.grad`` gives them.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..parallel.mesh import LatentShard, all_reduce, pmean, ppermute, psum
+from ..parallel.grad import copy_to, join, ppermute_grad, reduce_from, reduce_from_groups
+from ..parallel.mesh import LatentShard
 from ..utils.misc import default_device
 from .unet import Dense, _sigma_embedding
 
@@ -166,20 +173,24 @@ class Block(nn.Module):
 
     def _column(self, dense, x):
         """A column-parallel product: under tp the weight holds this rank's
-        output features and the (whole) bias gives their slice."""
-        bias = dense.bias
-        if self.tp is not None and bias.shape[0] != dense.weight.shape[0]:
-            mesh, axis = self.tp
+        output features and the (whole) bias gives their slice. The input and
+        the bias are whole on every rank, so their gradients are summed over
+        tp."""
+        if self.tp is None:
+            return dense(x)
+        mesh, axis = self.tp
+        bias = copy_to(dense.bias, mesh, axis)
+        if bias.shape[0] != dense.weight.shape[0]:
             bias = bias.chunk(mesh.size(mesh.mesh_dim_names.index(axis)))[
                 mesh.get_local_rank(axis)]
-        return F.linear(x, dense.weight, bias)
+        return F.linear(copy_to(x, mesh, axis), dense.weight, bias)
 
     def _row(self, dense, x):
         """A row-parallel product: under tp the rank's partial product is
         summed over tp, then the bias is added once."""
         if self.tp is None:
             return dense(x)
-        return psum(F.linear(x, dense.weight), *self.tp) + dense.bias
+        return reduce_from(F.linear(x, dense.weight), *self.tp) + dense.bias
 
     def attention(self, x):
         b, n, d = x.shape
@@ -214,9 +225,11 @@ class Block(nn.Module):
         if dp is None:
             f_e, p_e = onehot.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
         else:
+            # every rank computes the whole batch's aux; its gradient on a
+            # rank is its own tokens' share, summed over dp with the rest
             groups, rows = dp
-            sums = all_reduce(torch.stack([onehot.sum(dim=(0, 1)), probs.sum(dim=(0, 1))]),
-                              groups) / (rows * n)
+            sums = reduce_from_groups(
+                torch.stack([onehot.sum(dim=(0, 1)), probs.sum(dim=(0, 1))]), groups) / (rows * n)
             f_e, p_e = sums[0], sums[1]
         aux = e * torch.sum(f_e * p_e)
         pos = torch.cumsum(onehot, dim=1) * onehot - 1.0
@@ -228,6 +241,8 @@ class Block(nn.Module):
             mesh, axis = self.ep
             lo = mesh.get_local_rank(axis) * w_in.weight.shape[0]
             dispatch = dispatch[:, :, lo:lo + w_in.weight.shape[0]]
+            # whole on every rank, each rank's experts take their share
+            x, gate = copy_to(x, mesh, axis), copy_to(gate, mesh, axis)
         combine = dispatch * gate[..., None, None].to(x.dtype)
         xin = torch.einsum("bnec,bnd->ebcd", dispatch, x)              # (E,B,C,D)
         hmid = _gelu(torch.einsum("ebcd,edf->ebcf", xin, w_in.weight)
@@ -235,7 +250,7 @@ class Block(nn.Module):
         yout = (torch.einsum("ebcf,efd->ebcd", hmid, w_out.weight)
                 + w_out.bias[:, None, None, :])
         y = torch.einsum("bnec,ebcd->bnd", combine, yout)
-        return (y if self.ep is None else psum(y, *self.ep)), aux
+        return (y if self.ep is None else reduce_from(y, *self.ep)), aux
 
     def forward(self, h, emb, dp=None):
         mod = self.ada(F.silu(emb))
@@ -595,11 +610,19 @@ def dit_pp_apply(model: DiT, x: torch.Tensor, sigma: torch.Tensor, mesh, *,
             f"per-shard batch {b} (global {b * n_dp}"
             + (f" over {n_dp} '{dp_ok}' shards" if dp_ok else "")
             + f") not divisible into {microbatches} microbatches")
+    # the stages' blocks use the (whole) embedding and conditioning alike:
+    # their gradients are summed over pp; the head's share is every stage's
+    # own (it runs on the summed output everywhere)
+    hb, eb = copy_to(h, mesh, pp), copy_to(emb, mesh, pp)
+    # a stage with nothing to send on a tick sends zeros that carry a
+    # gradient, so that every stage records every tick's handoff
+    anchor = torch.zeros((), dtype=h.dtype, device=h.device, requires_grad=True)
     mb = b // microbatches
-    h_mb = h.reshape(microbatches, mb, *h.shape[1:])
-    e_mb = emb.reshape(microbatches, mb, emb.shape[-1])
+    h_mb = hb.reshape(microbatches, mb, *h.shape[1:])
+    e_mb = eb.reshape(microbatches, mb, emb.shape[-1])
     out = torch.zeros_like(h_mb)
     buf = torch.zeros_like(h_mb[0])
+    bufs = []
     aux_acc = torch.zeros((), dtype=torch.float32, device=h.device)
     fwd = [(i, i + 1) for i in range(s - 1)]
     for t in range(microbatches + s - 1):
@@ -611,15 +634,20 @@ def dit_pp_apply(model: DiT, x: torch.Tensor, sigma: torch.Tensor, mesh, *,
             if stage == s - 1:
                 out[m] = res
         else:
-            res = torch.zeros_like(buf)
-        buf = ppermute(res, mesh, pp, fwd)
-    out = psum(out if stage == s - 1 else torch.zeros_like(out), mesh, pp)
-    eps = wrap(model.head(out.reshape(b, *h.shape[1:]), emb, hp, wp, xl.dtype))
+            res = torch.zeros_like(buf) + anchor
+        buf = ppermute_grad(res, mesh, pp, fwd)
+        bufs.append(buf)
+    out = reduce_from(out if stage == s - 1 else torch.zeros_like(out), mesh, pp)
+    eps = model.head(out.reshape(b, *h.shape[1:]), emb, hp, wp, xl.dtype)
+    # the backward of every handoff and of the embedding's sum over pp must
+    # run on every stage, also where this stage does not use them
+    eps = join(eps, hb, *bufs)
+    eps = wrap(eps)
     if not return_aux:
         return eps
-    aux = psum(aux_acc, mesh, pp) / (s * microbatches)
-    if dp_ok:
-        aux = pmean(aux, mesh, dp_ok)
+    aux = reduce_from(aux_acc, mesh, pp) / (s * microbatches)
+    if dp_ok:  # the mean over dp; a rank's gradient is its own share
+        aux = reduce_from(aux, mesh, dp_ok) / mesh.size(names.index(dp_ok))
     return eps, aux
 
 

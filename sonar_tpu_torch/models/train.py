@@ -25,12 +25,16 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..cfg.model_sampling import time_snr_shift
 from ..core.rng import derive_seed
 from ..kernels.hwrng import philox_rand, philox_randn
+from ..parallel.grad import reduce_from_groups
+from ..parallel.mesh import LatentShard, all_reduce
+from .dit import dit_pp_apply
 
 # the products "dots" keeps: matmuls with no batch dimension (the dense
 # layers), as jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps
@@ -60,14 +64,28 @@ def _remat_apply(remat: bool | str, apply_fn: Callable) -> Callable:
         f"unknown remat policy {remat!r}; valid: False, True, 'full', 'dots'")
 
 
-def train_draws(seed: int, batch: torch.Tensor):
+def train_draws(seed: int, batch: torch.Tensor, shard=None):
     """The step's random draws: ``(u, eps)``, ``u`` (B,) uniform in [0, 1)
     for the noise level and ``eps`` standard normal like ``batch``, each on
-    its own seed derived from ``seed``."""
+    its own seed derived from ``seed``.
+
+    ``shard`` (a :class:`~sonar_tpu_torch.parallel.LatentShard`, ``batch``
+    its local block, split on the batch dimension): the rank's slice of the
+    whole batch's draws, B3 at their global indices: ``u`` the rows
+    ``(first, b, B)`` of the global (B,) draw, ``eps`` the block's elements."""
+    kw = {}
+    if shard is not None:
+        first, b, big = shard.offset[0], shard.local_shape[0], shard.global_shape[0]
+        if tuple(shard.local_shape[1:]) != tuple(shard.global_shape[1:]):
+            raise NotImplementedError(f"train_draws: a batch split on more than its batch "
+                                      f"dimension ({shard.local_shape} of {shard.global_shape})")
+        kw = {"shard": (first, b, big)}
     u = philox_rand(derive_seed(seed, "train", "sigma"), (batch.shape[0],),
-                    device=batch.device, dtype=batch.dtype)
+                    device=batch.device, dtype=batch.dtype, **kw)
+    if shard is not None:
+        kw = {"shard": shard.runs(batch.shape[-2], batch.shape[-1])}
     eps = philox_randn(derive_seed(seed, "train", "eps"), batch.shape,
-                       device=batch.device, dtype=batch.dtype)
+                       device=batch.device, dtype=batch.dtype, **kw)
     return u, eps
 
 
@@ -98,6 +116,8 @@ def make_train_step(
     flow_shift: float = 1.0,
     timestep_multiplier: float = 1000.0,
     aux_weight: float = 0.01,
+    pp_mesh=None,
+    microbatches: int = 1,
 ) -> Callable:
     """Returns ``train_step(model, opt_state, batch, seed) -> loss``: one
     optimizer step on the module in place; ``opt_state`` is the optimizer
@@ -105,6 +125,24 @@ def make_train_step(
     ``seed`` an integer, and ``loss`` a float32 0-dim tensor on the batch's
     device. ``cfg`` is the model's config: a :class:`DiTConfig` with
     ``num_experts > 0`` adds ``aux_weight`` × the Switch load-balance loss.
+
+    Sharded training (one process a rank, every rank calls the step):
+
+    - ``model`` may be this rank's part of a sharded module: the UNet from
+      :func:`~sonar_tpu_torch.parallel.shard_unet_params` (tp, FSDP) or the
+      DiT from :func:`~sonar_tpu_torch.models.shard_dit_params` (tp, ep;
+      with ``pp_mesh``, a mesh with a ``"pp"`` axis, its pipeline stage, run
+      by :func:`dit_pp_apply` with ``microbatches``, and tp inside a stage
+      where its blocks are split on it). Its layers run their collectives,
+      and gradients flow back through them.
+    - ``batch`` may be a ``DTensor`` split on its batch dimension (dp): the
+      rank's draws are its slice of the whole batch's (:func:`train_draws`),
+      the loss is the whole batch's mean (the MoE aux the whole batch's),
+      the gradients of the parameters whole on every dp rank are summed over
+      dp in one ``all_reduce``, and an FSDP weight's gradient arrives summed
+      by its gather's backward. FSDP needs the batch split on its axis.
+    - The optimizer steps this rank's blocks: Adam is elementwise, so a
+      block's update is the slice of the whole tensor's.
 
     ``objective`` picks the parametrization the trained weights expect at
     sampling time:
@@ -132,6 +170,9 @@ def make_train_step(
     through the casts; the loss reduces in float32."""
     if objective not in ("eps", "flow"):
         raise ValueError(f"objective must be 'eps' or 'flow', got {objective!r}")
+    if pp_mesh is not None and compute_dtype is not None:
+        raise NotImplementedError("make_train_step: compute_dtype with pp_mesh (the pipeline "
+                                  "runs the stage's own float32 weights)")
     moe_aux = getattr(cfg, "num_experts", 0) > 0
     # the constants as float32 host scalars, as JAX takes them
     log_lo = np.log(np.float32(sigma_min))
@@ -139,9 +180,13 @@ def make_train_step(
     log_lo = float(log_lo)
     t_span = -float(np.float32(1.0 - 1e-4))
 
-    kwargs = {"return_aux": True} if moe_aux else {}
-
-    def forward(model, x, cond):
+    def forward(model, x, cond, dp):
+        if pp_mesh is not None:
+            dp_axis = "dp" if "dp" in pp_mesh.mesh_dim_names else None
+            tp = next((blk.tp[1] for blk in model.blocks if blk.tp is not None), None)
+            return dit_pp_apply(model, x, cond, pp_mesh, microbatches=microbatches,
+                                dp=dp_axis, tp=tp, return_aux=moe_aux)
+        kwargs = {} if not moe_aux else {"return_aux": True, "dp": dp}
         if compute_dtype is None:
             return model(x, cond, **kwargs)
         cast = {k: p.to(compute_dtype) for k, p in model.named_parameters()}
@@ -150,8 +195,8 @@ def make_train_step(
 
     apply = _remat_apply(remat, forward)
 
-    def loss_fn(model, batch, seed):
-        u, eps = train_draws(seed, batch)
+    def loss_fn(model, batch, seed, shard):
+        u, eps = train_draws(seed, batch) if shard is None else train_draws(seed, batch, shard)
         if objective == "flow":
             # t in (0, 1] (t = 0 is degenerate: no noise, no signal to match)
             t = time_snr_shift(flow_shift, _fma(1.0, u, t_span))
@@ -165,20 +210,52 @@ def make_train_step(
             net_in = (batch + s4 * eps) / torch.sqrt(1.0 + s4**2)
             cond = sigma
             target = eps
-        out = apply(model, net_in, cond)
+        dp = None if shard is None else (shard.groups, shard.global_shape[0])
+        out = apply(model, net_in, cond, dp)
         if moe_aux:
             out, aux = out
         loss = torch.mean((out.float() - target.float()) ** 2)
+        if shard is not None:  # the whole batch's mean (the aux is already the whole batch's)
+            loss = reduce_from_groups(loss, shard.groups) * (
+                shard.local_shape[0] / shard.global_shape[0])
         return loss + aux_weight * aux if moe_aux else loss
 
     def train_step(model, opt_state, batch, seed):
+        shard = None
+        if isinstance(batch, DTensor):
+            shard = LatentShard.of(batch)
+            batch = batch.to_local()
+            if not shard.groups:
+                shard = None  # replicated on every axis: each rank steps the whole batch
+        fsdp = getattr(model, "fsdp_params", frozenset())
+        if fsdp and (shard is None or model.fsdp_group not in shard.groups):
+            raise ValueError("make_train_step: the model's FSDP layout sums its gradients "
+                             "over its axis, and the batch is not split on that axis")
         opt_state.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch, seed)
+        loss = loss_fn(model, batch, seed, shard)
         loss.backward()
+        if shard is not None:
+            _sum_grads(model, shard.groups, skip=fsdp)
         opt_state.step()
         return loss.detach()
 
     return train_step
+
+
+def _sum_grads(model: torch.nn.Module, groups, skip=frozenset()) -> None:
+    """Sum the gradients of ``model``'s parameters (but ``skip``) over
+    ``groups`` in one flat ``all_reduce`` (a missing gradient counts as
+    zeros, so every rank sends the same layout)."""
+    params = [p for n, p in model.named_parameters() if p.requires_grad and n not in skip]
+    if not params:
+        return
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    flat = all_reduce(flat, groups)
+    i = 0
+    for p in params:
+        p.grad = flat[i:i + p.numel()].view_as(p)
+        i += p.numel()
 
 
 def init_train_state(model: torch.nn.Module,

@@ -21,6 +21,18 @@ XLA and needs care in PyTorch:
 The UNet holds no hand-written kernel: its convolutions, norms and
 attention are PyTorch operators.
 
+Sharded training: :func:`sonar_tpu_torch.parallel.shard_unet_params` gives
+each conv and dense layer a :class:`LayerLayout`. Under tp a layer holds its
+share of the weight (the JAX package's ``unet_param_shardings``): a
+column-parallel layer (every conv, ``qkv``, ``emb``, ``time_mlp.fc1``)
+computes its output features and gathers them, then adds the whole bias; a
+row-parallel one (``proj``, ``time_mlp.fc2``) multiplies its slice of the
+input features and sums the partial products over tp. Everything between
+(group norms, attention, the skips) runs on whole activations, so the
+attention's head split of ``qkv`` is the JAX layout's whatever tp is. An
+FSDP weight is gathered before each use. The collectives carry gradients
+(:mod:`sonar_tpu_torch.parallel.grad`).
+
 ``block_patches`` is the hook surface FreeU-Extreme installs into
 (:func:`sonar_tpu_torch.cfg.freeu.make_freeu_patches`), as in the JAX
 package: ``input`` patches run after ``conv_in``, after every down block and
@@ -43,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.grad import copy_to, fsdp_gather, gather, reduce_from
 from ..utils.misc import default_device
 
 
@@ -73,9 +86,37 @@ def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+@dataclasses.dataclass(frozen=True)
+class LayerLayout:
+    """How a rank of a sharded UNet holds one conv or dense layer (set by
+    :func:`sonar_tpu_torch.parallel.shard_unet_params`): ``tp`` the mesh axis
+    its weight is split on (``kind`` "column": output features, "row": input
+    features; a 1-rank axis runs the same collectives), ``fsdp`` the axis
+    one more dimension, ``fsdp_dim``, is split on (the block is gathered
+    before each use), None where whole."""
+
+    mesh: Any
+    tp: str
+    kind: str
+    fsdp: str | None = None
+    fsdp_dim: int | None = None
+
+    def weight(self, w: torch.Tensor) -> torch.Tensor:
+        """The rank's tp block of the weight, its FSDP blocks gathered."""
+        return w if self.fsdp is None else fsdp_gather(w, self.mesh, self.fsdp, self.fsdp_dim)
+
+    def column(self, product, x, bias, dim: int):
+        """A column-parallel layer: this rank's output features of
+        ``product(x)``, gathered over tp, then the (whole) bias."""
+        y = gather(product(copy_to(x, self.mesh, self.tp)), self.mesh, self.tp, dim)
+        return y + (bias if dim == -1 else bias.view(-1, 1, 1))
+
+
 class Conv(nn.Conv2d):
     """Square conv with XLA "SAME" padding. ``init_scale`` multiplies the
-    init std (1e-2 for the zero-ish output convs, as in the JAX init)."""
+    init std (1e-2 for the zero-ish output convs, as in the JAX init).
+    ``layout`` (a :class:`LayerLayout`) makes it a rank's part of a sharded
+    conv: column-parallel under tp."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  init_scale: float = 1.0):
@@ -84,18 +125,40 @@ class Conv(nn.Conv2d):
         super().__init__(cin, cout, k, stride=stride,
                          padding=k // 2 if stride == 1 else 0)
         self.init_scale = init_scale
+        self.layout = None
 
     def forward(self, x):
         if self.stride[0] != 1:
             k, s = self.kernel_size[0], self.stride[0]
             x = F.pad(x, (*_same_pad(x.shape[-1], k, s), *_same_pad(x.shape[-2], k, s)))
-        return super().forward(x)
+        lay = self.layout
+        if lay is None:
+            return super().forward(x)
+        w = lay.weight(self.weight)
+        return lay.column(lambda v: self._conv_forward(v, w, None), x, self.bias, 1)
 
 
 class Dense(nn.Linear):
+    """``nn.Linear`` with the init's scale; ``layout`` as :class:`Conv`'s,
+    column- or row-parallel under tp (a row-parallel rank multiplies its
+    slice of the input features and the partial products are summed)."""
+
     def __init__(self, din: int, dout: int, init_scale: float = 1.0):
         super().__init__(din, dout)
         self.init_scale = init_scale
+        self.layout = None
+
+    def forward(self, x):
+        lay = self.layout
+        if lay is None:
+            return super().forward(x)
+        w = lay.weight(self.weight)
+        if lay.kind == "column":
+            return lay.column(lambda v: F.linear(v, w), x, self.bias, -1)
+        k = w.shape[1]
+        me = lay.mesh.get_local_rank(lay.tp)
+        xs = copy_to(x, lay.mesh, lay.tp).narrow(-1, me * k, k)
+        return reduce_from(F.linear(xs, w), lay.mesh, lay.tp) + self.bias
 
 
 def _group_norm(c: int, groups: int) -> nn.GroupNorm:

@@ -19,8 +19,8 @@ Sharded latents: a sampler made with ``shard=`` (a
 :class:`~sonar_tpu_torch.parallel.LatentShard`) draws this rank's block of
 the draw of the whole latent, and normalizes with the whole latent's
 statistics. Only the items that say ``SHARDABLE = True`` (gaussian and
-pyramid) draw so; any other raises ``NotImplementedError`` rather than draw
-another stream.
+pyramid, and a ``NoiseChain`` of such items) draw so; any other raises
+``NotImplementedError`` rather than draw another stream.
 """
 
 from __future__ import annotations
@@ -252,7 +252,7 @@ def make_noise_sampler(
             raise NotImplementedError(
                 f"noise {getattr(item, 'name', type(item).__name__)!r} "
                 f"({type(item).__name__}) cannot draw a rank's shard of a sharded latent "
-                "yet: only gaussian and pyramid do")
+                "yet: only gaussian and pyramid do, and chains of them")
         shape = shard.local_shape
     ctx = NoiseCtx(shape=tuple(shape), dtype=dtype, device=default_device(device),
                    sigma_min=sigma_min, sigma_max=sigma_max, ref=ref_latent, shard=shard)

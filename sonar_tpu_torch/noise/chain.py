@@ -1,6 +1,7 @@
 """Noise chain (port of ``sonar_tpu.noise.chain``): sums its items drawn
 unnormalized, then normalizes once at the chain's factor
-(py/noise.py:137-196)."""
+(py/noise.py:137-196). Under a sharded latent it draws a rank's block when
+each of its items can."""
 
 from __future__ import annotations
 
@@ -21,6 +22,13 @@ class NoiseChain(NoiseItem):
             raise ValueError("Attempt to add nil item")
         self.items.append(item)
         return self
+
+    @property
+    def SHARDABLE(self) -> bool:  # noqa: N802 (the generators' class attribute)
+        """A chain draws a rank's shard when every item can: each item draws
+        its block and the sum is normalized with the whole latent's
+        statistics."""
+        return bool(self.items) and all(getattr(i, "SHARDABLE", False) for i in self.items)
 
     @property
     def chain_factor(self) -> float:
@@ -55,5 +63,5 @@ class NoiseChain(NoiseItem):
             new_states.append(st)
             result = noise if result is None else result + noise
         eff = self.normalize if self.normalize is not None else normalized
-        result = scale_noise(result, self.chain_factor, normalized=bool(eff))
+        result = scale_noise(result, self.chain_factor, normalized=bool(eff), shard=ctx.shard)
         return result, tuple(new_states)

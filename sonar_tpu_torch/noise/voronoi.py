@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from ..core.normalize import normalize_to_scale, tmedian
 from ..core.rng import derive_seed
 from ..kernels.hwrng import philox_rand
-from ..kernels.voronoi import voronoi_kernel_supported, voronoi_ksmallest
+from ..kernels.voronoi import sqrt_rn, voronoi_kernel_supported, voronoi_ksmallest
 from ..utils.misc import fallback
 from .generators import Generator, _device
 
@@ -499,7 +499,7 @@ class VoronoiGenerator(Generator):
             return d * weights[a] if weights is not None else d
 
         if dist == "euclidean":
-            d = torch.sqrt(axis(0) ** 2 + axis(1) ** 2 + axis(2) ** 2)
+            d = sqrt_rn(axis(0) ** 2 + axis(1) ** 2 + axis(2) ** 2)
         elif dist == "quadratic":
             d = axis(0) ** 2 + axis(1) ** 2 + axis(2) ** 2
         elif dist == "chebyshev":

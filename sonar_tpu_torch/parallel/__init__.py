@@ -1,7 +1,7 @@
-"""Mesh and sharding layer: dp-sharded sampling and the DiT's parallel
-serving paths, one process a rank (port of ``sonar_tpu.parallel``; the
-UNet's tensor- and FSDP-parallel parameter layouts, which only its training
-steps use, are not here yet)."""
+"""Mesh and sharding layer: dp-sharded sampling, the DiT's parallel serving
+paths, and sharded training (the UNet's tensor- and FSDP-parallel parameter
+layouts, collectives with gradients in ``grad``), one process a rank (port
+of ``sonar_tpu.parallel``)."""
 
 from .launch import run_world  # noqa: F401
 from .mesh import (  # noqa: F401
@@ -14,4 +14,7 @@ from .mesh import (  # noqa: F401
     ppermute,
     psum,
     shard_latent,
+    shard_target,
+    shard_unet_params,
+    unet_param_shardings,
 )

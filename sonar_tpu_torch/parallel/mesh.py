@@ -30,12 +30,14 @@ that a caller can check the rest of a sharded step for host reads.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import math
 from typing import Sequence
 
 import torch
 import torch.distributed as dist
+from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -234,8 +236,13 @@ def ppermute(t: torch.Tensor, mesh: DeviceMesh, axis: str, perm) -> torch.Tensor
     sends to gets zeros. One broadcast over the axis a pair, in the order
     given, which every rank of the axis must share."""
     group = mesh.get_group(axis)
-    ranks = dist.get_process_group_ranks(group)
-    me = mesh.get_local_rank(axis)
+    return _permute(t, group, dist.get_process_group_ranks(group), mesh.get_local_rank(axis),
+                    perm)
+
+
+def _permute(t, group, ranks, me, perm):
+    """:func:`ppermute` on ``group`` (global ``ranks``, this rank's axis
+    position ``me``)."""
     out = torch.zeros_like(t)
     src_t = t.contiguous()
     with _collective(src_t):
@@ -245,3 +252,114 @@ def ppermute(t: torch.Tensor, mesh: DeviceMesh, axis: str, perm) -> torch.Tensor
             if me == dst:
                 out = buf
     return out
+
+
+# -- the UNet's parameter layouts: tensor parallelism on tp, FSDP on dp --------------------
+
+# the row-parallel layers (attention's output projection, the time MLP's
+# second layer): their input features are split; every other weight splits
+# its output features (column-parallel)
+_ROW_PARALLEL = ("proj", "fc2")
+# the port's dimension of each dimension of the JAX package's weight: a dense
+# (din, dout) is the port's (dout, din), a conv HWIO the port's OIHW
+_JAX_DIMS = {2: (1, 0), 4: (2, 3, 1, 0)}
+
+
+def unet_param_shardings(model, mesh: DeviceMesh, *, fsdp: bool = False,
+                         fsdp_axis: str = "dp") -> dict:
+    """Each UNet parameter's DTensor placements (one per mesh axis) on
+    ``mesh``, keyed by its ``named_parameters`` name: the JAX package's
+    ``unet_param_shardings`` in the port's weight layouts.
+
+    Tensor parallelism on ``tp``: conv kernels and the dense layers split
+    their output features (column-parallel), ``proj`` and ``fc2`` their input
+    features (row-parallel); biases and norm leaves stay whole. ``fsdp=True``
+    also splits each weight's largest other dimension that the ``fsdp_axis``
+    size divides over that axis (ties go to the first in the JAX weight's
+    dimension order, as ``max`` picks there; 1-D leaves stay whole), when the
+    axis has more than one rank. The JAX spec always names ``tp``: a mesh
+    without a ``tp`` axis raises, as does ``fsdp=True`` on a mesh without
+    ``fsdp_axis``."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if fsdp and fsdp_axis not in names:
+        # a silent no-op here means the expected ~dp× memory reduction
+        # quietly doesn't happen
+        raise ValueError(f"fsdp=True but mesh has no {fsdp_axis!r} axis (axes: {names}) "
+                         "— pass fsdp_axis=")
+    if "tp" not in names:
+        raise ValueError(f"unet_param_shardings: the UNet's layout splits weights on 'tp', "
+                         f"and the mesh's axes are {names}")
+    dp_size = mesh.size(names.index(fsdp_axis)) if fsdp else 0
+    out = {}
+    for name, p in model.named_parameters():
+        split = {}
+        if p.ndim in _JAX_DIMS:
+            perm = _JAX_DIMS[p.ndim]
+            if p.ndim == 2:
+                jax_tp = 0 if any(n in _ROW_PARALLEL for n in name.split(".")) else 1
+            else:
+                jax_tp = 3
+            split["tp"] = perm[jax_tp]
+            if dp_size > 1:
+                jshape = [p.shape[perm[j]] for j in range(p.ndim)]
+                cands = [j for j in range(p.ndim) if j != jax_tp
+                         and jshape[j] % dp_size == 0 and jshape[j] >= dp_size]
+                if cands:
+                    split[fsdp_axis] = perm[max(cands, key=lambda j: jshape[j])]
+        out[name] = tuple(Shard(split[a]) if a in split else Replicate() for a in names)
+    return out
+
+
+def shard_unet_params(model, mesh: DeviceMesh, *, fsdp: bool = False, fsdp_axis: str = "dp"):
+    """This rank's part of the UNet ``model`` under
+    :func:`unet_param_shardings`: a new module that holds, of every
+    parameter, the block its mesh coordinates select (the JAX package's
+    ``device_put`` of the tree), its layers set to run their collectives
+    (:class:`~sonar_tpu_torch.models.unet.LayerLayout`): a column-parallel
+    layer gathers its output features over tp, a row-parallel one sums its
+    partial products, an FSDP weight is gathered over ``fsdp_axis`` before
+    each use and its gradient reduce-scattered. Group norms, attention and
+    the skips run on whole activations. ``fsdp_params`` on the result names
+    the parameters split on ``fsdp_axis`` (``fsdp_group`` its process group).
+    A dimension the axis size does not divide raises, naming the layout."""
+    from ..models.unet import Conv, Dense, LayerLayout
+
+    shardings = unet_param_shardings(model, mesh, fsdp=fsdp, fsdp_axis=fsdp_axis)
+    names = tuple(mesh.mesh_dim_names)
+    layout = "tp" + (f" + FSDP on {fsdp_axis!r}" if fsdp else "")
+    local = copy.deepcopy(model)
+    split_on = {}
+    for name, p in list(local.named_parameters()):
+        t = p.detach()
+        for i, pl in enumerate(shardings[name]):
+            if not isinstance(pl, Shard):
+                continue
+            size, axis = mesh.size(i), names[i]
+            if t.shape[pl.dim] % size:
+                raise ValueError(f"shard_unet_params ({layout}): {name} {tuple(p.shape)} "
+                                 f"dimension {pl.dim} does not split over {size} {axis!r} ranks")
+            t = t.chunk(size, dim=pl.dim)[mesh.get_local_rank(axis)]
+            split_on[(name, axis)] = pl.dim
+        owner, leaf = name.rsplit(".", 1)
+        setattr(local.get_submodule(owner), leaf,
+                nn.Parameter(t.contiguous(), requires_grad=p.requires_grad))
+    for mod_name, mod in local.named_modules():
+        if isinstance(mod, (Conv, Dense)):
+            w = f"{mod_name}.weight"
+            tp_dim = split_on.get((w, "tp"))
+            mod.layout = LayerLayout(
+                mesh, tp="tp", kind="column" if tp_dim == 0 else "row",
+                fsdp=fsdp_axis if (w, fsdp_axis) in split_on else None,
+                fsdp_dim=split_on.get((w, fsdp_axis)))
+    local.fsdp_params = frozenset(n for n, a in split_on if a == fsdp_axis and fsdp)
+    local.fsdp_group = mesh.get_group(fsdp_axis) if local.fsdp_params else None
+    return local
+
+
+def shard_target(tensors: dict, mesh: DeviceMesh, shardings: dict) -> dict:
+    """``tensors`` (this rank's blocks, keyed as ``shardings``) as DTensors
+    with their placements: a restore target that lands each saved tensor's
+    block on this rank (:func:`~sonar_tpu_torch.models.restore_checkpoint`).
+    Nothing is sent."""
+    return {k: DTensor.from_local(v, mesh, shardings[k], run_check=False)
+            for k, v in tensors.items()}

@@ -131,8 +131,10 @@ _JAX_RESULTS = {}
 
 def jax_loss_grads(kind, cfg_kw, kw, batch, seed):
     """JAX's loss and gradients (mapped to the port's names) of one step on
-    the randomized weights, computed once per case in a worker."""
-    key = (kind, repr(sorted(cfg_kw.items())), repr(sorted(kw.items())), seed)
+    the randomized weights, computed once per case and batch in a worker."""
+    batch = np.ascontiguousarray(batch)
+    key = (kind, repr(sorted(cfg_kw.items())), repr(sorted(kw.items())), seed,
+           batch.shape, batch.dtype.str, batch.tobytes())
     if key not in _JAX_RESULTS:
         jcfg, params, _, to_port = family(kind, cfg_kw)
         jkw = dict(kw, compute_dtype=jnp.bfloat16) if kw.get("compute_dtype") else kw

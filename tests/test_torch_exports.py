@@ -8,9 +8,7 @@ API, ``derive_key`` and ``key_from_seed``, which the port's integer seeds
 replace). ``cfg``, ``wavelets``, ``api``, ``models`` and ``parallel`` define
 no ``__all__`` in the JAX package: every name its ``__init__.py`` imports
 must be one the port's imports or lists, except the omissions (``models``:
-the TPU's peak, which the H100's replaces; ``parallel``: the UNet's tp and
-FSDP parameter layouts, which only its sharded training steps use, not
-ported yet).
+the TPU's peak, which the H100's replaces).
 
 No module of the port, and not ``chip_smoke.py``, imports ``jax`` or the JAX
 package.
@@ -23,8 +21,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 OMITTED = {"core": {"derive_key", "key_from_seed"},
-           "models": {"TPU_V5E_PEAK_FLOPS"},
-           "parallel": {"unet_param_shardings", "shard_unet_params"}}
+           "models": {"TPU_V5E_PEAK_FLOPS"}}
 
 
 def _init(package: str, sub: str) -> ast.Module:

@@ -6,11 +6,14 @@ Tolerances:
 - B6's plain version against the JAX Pallas kernel in interpret mode (and
   against the JAX composition on a ragged shape the TPU kernel cannot
   tile): bit for bit for quadratic and chebyshev; within 2 float32 ulps
-  for euclidean and minkowski (XLA's CPU sqrt and pow round differently
-  from torch's by an ulp, and by one more on hosts whose vector units
-  XLA's code takes another path on; the k-th smallest toroidal distance
-  reaches 0.87 at k = 3, where an ulp is 5.96e-8, so no absolute margin
-  below 1.2e-7 holds);
+  for euclidean and minkowski (XLA's CPU pow rounds differently from
+  torch's by an ulp, and by one more on hosts whose vector units XLA's code
+  takes another path on; the k-th smallest toroidal distance reaches 0.87
+  at k = 3, where an ulp is 5.96e-8, so no absolute margin below 1.2e-7
+  holds). Against the Pallas kernel each side is also held to the float32
+  arithmetic itself, computed with numpy (three rounded squares, a rounded
+  sum, a correctly rounded root): the port's plain version bit for bit for
+  euclidean, quadratic and chebyshev, so a failure says which side moved;
 - generator draws on shared numpy feature points (and shared gaussian
   draws where a gaussian is mixed in): 2e-5 relative to max(1, |JAX|),
   since the draws pass through scale_noise, whose mean and std are summed
@@ -96,6 +99,53 @@ def _assert_b6(got, want, dist):
         np.testing.assert_array_max_ulp(got, want, maxulp=2)
 
 
+def _ulps(a, b):
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+
+
+def _numpy_b6(fp, ys, xs, z, *, scale, k, dist, p, weights):
+    """The float32 arithmetic of B6 in numpy (its sqrt is correctly rounded):
+    ``(k smallest, the squared sums)`` of the euclidean and quadratic cases'
+    distances, ``(k smallest, None)`` otherwise."""
+    f = np.float32
+    b, c, n, _ = fp.shape
+    wy, wx, wz = (f(v) for v in weights)
+    fm = (fp * f(scale)) % f(1.0)
+    gy, gx = (ys.astype(f) * f(scale)) % f(1.0), (xs.astype(f) * f(scale)) % f(1.0)
+    dzw = (((f(z) * f(scale)) % f(1.0) - fm[..., 2] + f(0.5)) % f(1.0) - f(0.5)) * wz
+    fy, fx = fm[..., 0].reshape(b * c, 1, 1, n), fm[..., 1].reshape(b * c, 1, 1, n)
+    dy = ((gy.reshape(1, -1, 1, 1) - fy + f(0.5)) % f(1.0) - f(0.5)) * wy
+    dx = ((gx.reshape(1, 1, -1, 1) - fx + f(0.5)) % f(1.0) - f(0.5)) * wx
+    sq = None
+    if dist in ("euclidean", "quadratic"):
+        sq = dy * dy + dx * dx + (dzw * dzw).reshape(b * c, 1, 1, n)
+        d = np.sqrt(sq) if dist == "euclidean" else sq
+    elif dist == "chebyshev":
+        d = np.maximum(np.maximum(np.abs(dy), np.abs(dx)), np.abs(dzw).reshape(b * c, 1, 1, n))
+    else:
+        d = (np.abs(dy) ** f(p) + np.abs(dx) ** f(p)
+             + (np.abs(dzw) ** f(p)).reshape(b * c, 1, 1, n)) ** f(1.0 / p)
+    out = np.sort(d, axis=-1)[..., :k].reshape(b, c, len(ys), len(xs), k)
+    return out, sq
+
+
+def _assert_b6_sides(got, want, dist, fp, ys, xs, z, kw):
+    """``_assert_b6``, with each side first held to the numpy arithmetic: a
+    failure names the side that left it, its worst element, the ulps and the
+    squared sums there."""
+    arith, sq = _numpy_b6(fp, ys, xs, z, **kw)
+    for side, val in (("the port's plain version", got), ("JAX's interpret kernel", want)):
+        u = _ulps(val, arith)
+        if dist == "minkowski" or not u.any():
+            continue
+        i = np.unravel_index(int(u.argmax()), u.shape)
+        sums = None if sq is None else np.sort(sq.reshape(*val.shape[:-1], -1), axis=-1)[i[:-1]]
+        assert side == "JAX's interpret kernel" and u.max() <= 2, (
+            f"{side} left the float32 arithmetic: {int(u.max())} ulps at {i}, "
+            f"{val[i]!r} against {arith[i]!r}; the pixel's smallest squared sums {sums}")
+    _assert_b6(got, want, dist)
+
+
 def _port_b6(fp, ys, xs, z, **kw):
     return TKV.voronoi_ksmallest(torch.from_numpy(fp), torch.from_numpy(ys.copy()),
                                  torch.from_numpy(xs.copy()), torch.tensor(z), **kw).numpy()
@@ -109,7 +159,7 @@ def test_ksmallest_plain_matches_pallas_interpret(dist, p, weights, scale, k):
                                             jnp.float32(0.37), interpret=True, **kw))
     got = _port_b6(fp, ys, xs, 0.37, **kw)
     assert got.shape == (1, 2, 16, 24, k) and got.dtype == np.float32
-    _assert_b6(got, want, dist)
+    _assert_b6_sides(got, want, dist, fp, ys, xs, 0.37, kw)
     # the grid vectors are arange(L) / L in the port, bit for bit
     np.testing.assert_array_equal(ys, (torch.arange(16) / 16).numpy())
 
