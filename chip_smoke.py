@@ -268,7 +268,25 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    FSDP layout in (b)'s world: every block bit-equal to its slice, the
    resumed step's loss and gradients against the resumed unsharded step,
    its update Adam's on the gathered gradients bit for bit; prints
-   ``{"parallel_train": ...}``.
+   ``{"parallel_train": ...}``;
+31. runs every sampler and every noise type on a sharded latent, TF32 off,
+   against the unsharded runs on the card (1e-5 relative to max(1,
+   |unsharded|)): (a) in a 1-rank NCCL world, all 31 registry names on a
+   dp=1 shard of the flagship's 1×4×64×64 at 3 steps (each from its first
+   model call under ``set_sync_debug_mode("error")``, dpm_adaptive's one
+   host read an attempt exempt; no ``dist.all_reduce`` call, the groups
+   having one rank) and all 38 noise names, two draws each (a third under
+   the sync check: the shard adds no host read to a name); B5 with
+   ``planes=`` (both kernels) against its plain version and bit-equal to
+   the unsharded kernel draw's planes, with its device time at one rank's
+   1×4×64×64 and 4×4×512×512; (b) in [29] (b)'s 2-rank gloo world
+   (``par31``), on 2×4×64×64 split on dp at 5 steps: dpmpp_2s_ancestral
+   with pyramid noise, uni_pc, dpm_adaptive (the ranks' model calls
+   equal), sonar_dpmpp_sde on Brownian noise and the guided flagship path
+   (wavelet CFG + FreeU-Extreme + a latent-op CFG guiding sonar_euler),
+   every noise name's block, and config 5's video noise on
+   1×4×16×128×128 with its frames on sp=2, each rank's launches and
+   collectives a step; prints ``{"sharded_all": ...}``.
 
 Every phase passes or the script exits non-zero without a result. Before
 the last line it prints one JSON object listing the six kernels with their
@@ -276,7 +294,10 @@ launches on the paths (``launches_workflow``: [27] (a) and (b);
 ``launches_dit``: [28] (a); ``launches_train``: [28] (c)'s float32 run;
 ``launches_parallel``: [29]'s sharded runs, (a) and both ranks of (b);
 ``launches_parallel_train``: [30]'s sharded first steps, (a) and both ranks
-of (b)), their
+of (b); ``launches_sharded_all``: [31]'s sharded runs and draws, also in
+``launches_parallel``), and a seventh row for B5 with a shard's planes
+(its launches on [31]'s sharded draws, its device time at one rank's
+1×4×64×64 and 4×4×512×512), their
 error, their device time (``ms``), the plain version's, the least time the
 card could take (``bound_ms``, from this
 run's shapes: bytes at 3.35 TB/s against operations at 33.5 T/s, the
@@ -301,7 +322,7 @@ sys.path.insert(0, ROOT)
 
 STEPS = 20
 SHORT_STEPS = 5
-REG_STEPS = 10  # [23]'s registry sweep (20 until PR 9; cut for [25]'s room)
+REG_STEPS = 3  # [23]'s registry sweep (20 until PR 9, 10 until PR 15; cut for [25]'s and [31]'s room)
 # [10]'s timings of the plain B3-B5 (200 calls by events and 50 profiled
 # until PR 9; cut in PR 10, where a loaded host took [10] from 124 to 234 s)
 PLAIN_CALLS, PLAIN_PROFILED = 20, 5
@@ -654,6 +675,7 @@ def par_world():
 
     import sonar_tpu_torch.kernels.fused as F
     import sonar_tpu_torch.kernels.fused_pyramid as P
+    import sonar_tpu_torch.kernels.voronoi as V
     from sonar_tpu_torch.kernels import hwrng as H
     from sonar_tpu_torch.models import (DiTConfig, UNetConfig, dit_apply, dit_param_shardings,
                                         dit_pp_apply, init_dit_params, init_unet_params,
@@ -742,6 +764,8 @@ def par_world():
                                        sonar_config=SonarConfig(noise_type="pyramid"))
     out["pyr_launches"] = counts()
     out["pyr_traj"] = pyr.to_local().cpu().numpy()
+    kernels31 = {**kernels, "B5": [P.fused_downscale_pyramid], "B6": [V.voronoi_ksmallest]}
+    out["p31"] = par31(torch, dev, unet, den, x0, kernels31)
     del unet, den
     # DiT-S/2 under tp=2, pp=2 (2 microbatches) and dp=2 x pp=1; its MoE under ep=2
     sig = torch.tensor(PAR_SIGMA, device=dev)
@@ -1048,6 +1072,196 @@ def par_train_world(ref_path, ckpt_path):
     out["restore"] = {"bit_equal": bool(bit_equal), "restore_s": restore_s, "loss": loss_r,
                       "grad_rel": grad_rel, "update_mismatched": mismatched,
                       "elements": sum(p.numel() for p in local.parameters())}
+    return out
+
+
+# -- [31]: every sampler and every noise type on a sharded latent ------------------------------
+P31_STEPS = 3  # (a): each registry name on the flagship on a dp=1 shard
+P31_B_STEPS = SHORT_STEPS  # (b): the dp=2 samplers and the guided path
+P31_B_SAMPLERS = ("dpmpp_2s_ancestral", "uni_pc", "dpm_adaptive", "sonar_dpmpp_sde")
+P31_SIGMAS = ((5.0, 1.0), (1.0, 0.5))  # two draws: the second reads the first's state
+P31_VIDEO_SIGMAS = ((1.0, 0.9), (0.9, 0.8))
+P31_B5_BIG = (4, 4, 512, 512)  # B5 planes= timed at one rank's 4x4x512x512 of 8x4x512x512
+P31_NAMES = 38
+# a noise name's draw that synchronises with the host unsharded as well
+# (a device tensor made from host numbers): the shard must add no such read
+P31_SYNC_MSG = "synchroniz"
+
+
+class SyncFrom:
+    """The denoiser ``fn``, counting its calls; with ``check`` it turns on
+    ``torch.cuda.set_sync_debug_mode("error")`` at its first call (after the
+    sampler's set-up), which the collectives lift for their own span."""
+
+    def __init__(self, torch, fn, check=True):
+        self.torch, self.fn, self.check, self.calls = torch, fn, check, 0
+
+    def __call__(self, x, s, **kw):
+        if self.check and not self.calls:
+            self.torch.cuda.set_sync_debug_mode("error")
+        self.calls += 1
+        return self.fn(x, s, **kw)
+
+
+def p31_checked(torch, what, run):
+    """``run()`` with the sync check off again after it (a ``SyncFrom`` in
+    ``run`` turns it on); a host read fails the phase."""
+    try:
+        out = run()
+        torch.cuda.synchronize()
+        return out
+    except RuntimeError as e:  # raised, not fail(): in a rank it reaches run_world's caller
+        raise RuntimeError(f"[31] {what}: {e}") from None
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def p31_sampler_kw(nm):
+    """(b)'s samplers: dpmpp_2s_ancestral on pyramid noise, the rest on their own."""
+    from sonar_tpu_torch.noise import get_noise_item
+
+    return {"noise_item": get_noise_item("pyramid")} if nm == "dpmpp_2s_ancestral" else {}
+
+
+def p31_noise(torch, item, shape, dev, shard=None, sigmas=P31_SIGMAS):
+    """Two draws of ``item`` for a latent of ``shape`` on the card (``shard``:
+    this rank's block), and whether a third under
+    ``set_sync_debug_mode("error")`` read the card back."""
+    from sonar_tpu_torch.noise import make_noise_sampler
+
+    fn, st = make_noise_sampler(item, shape, device=dev, seed=4, sigma_min=0.03,
+                                sigma_max=14.6, shard=shard)
+    got = []
+    for s, sn in sigmas:
+        n, st = fn(st, s, sn)
+        got.append(n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(st, sigmas[-1][1], sigmas[-1][1] * 0.5)
+        synced = False
+    except RuntimeError as e:
+        if P31_SYNC_MSG not in str(e):
+            raise
+        synced = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return got, synced
+
+
+def p31_video_item():
+    """Config 5's video noise (tools/bench_configs.py:129-140), as [22] draws it."""
+    from sonar_tpu_torch.noise import CustomNoiseParametersNoise, PowerNoiseItem
+
+    return CustomNoiseParametersNoise(
+        noise=PowerNoiseItem(alpha=0.5, min_freq=0.05, time_brownian=True),
+        frames_to_channels=True)
+
+
+def p31_guided(torch, unet):
+    """The JAX package's dryrun guided path (__graft_entry__.py:259-304) on
+    the flagship: wavelet CFG (db4, level 2, per-band scales), FreeU-Extreme
+    (backbone, stage 1, hidden mean, a power filter) and a latent-op CFG
+    guiding sonar_euler, CFG 6. ``cond`` wraps the patched denoiser (a
+    ``SyncFrom`` goes there)."""
+    from sonar_tpu_torch.api import SonarPipeline
+    from sonar_tpu_torch.api.guider import make_latent_op_cfg_function
+    from sonar_tpu_torch.cfg import (DiscreteSampling, FreeUExtremeConfig, WaveletCFG,
+                                     WCFGRules, make_freeu_patches)
+    from sonar_tpu_torch.models import make_denoiser
+    from sonar_tpu_torch.noise import PowerFilter
+
+    ms = DiscreteSampling()
+    frux = FreeUExtremeConfig(target="backbone", stage_1=True, scale=1.1, hidden_mean=True,
+                              sonar_power_filter=PowerFilter(max_freq=0.3))
+    patches = make_freeu_patches(model_sampling=ms, model_channels=unet.cfg.model_channels,
+                                 output_config=frux)
+    rules = WCFGRules.build(wave="db4", level=2, padding_mode="periodization",
+                            high_precision_mode=False,
+                            diff=dict(yl_scale=6.0, yh_scales=[5.0, "fill"]))
+    lo_cfg = make_latent_op_cfg_function(
+        operations=(lambda latent=None, **kw: latent * 1.05,), mode="denoised",
+        blend_scale_mode="reverse_sampling", blend_strength=0.5, model_sampling=ms)
+
+    def pipe(cond=lambda f: f):
+        return SonarPipeline(model=cond(make_denoiser(unet, block_patches=patches)),
+                             model_uncond=make_denoiser(unet), sampler="sonar_euler",
+                             cfg_scale=6.0, wavelet_cfg=WaveletCFG(rules=rules),
+                             latent_op_cfg=lo_cfg, model_sampling=ms, seed=11)
+
+    return pipe
+
+
+def par31(torch, dev, unet, den, x0, kernels):
+    """[31] (b) in one rank of [29] (b)'s 2-rank gloo world: the dp=2
+    samplers (each from its first model call under the sync check, but
+    dpm_adaptive's one host read an attempt), the guided path, every noise
+    name's block of the 2x4x64x64 latent and config 5's video noise with its
+    frames on sp. Returns numpy blocks, launches and collectives a step."""
+    import torch.distributed as dist
+
+    from sonar_tpu_torch.api.functions import SAMPLERS
+    from sonar_tpu_torch.noise import get_noise_item
+    from sonar_tpu_torch.noise.presets import noise_type_names
+    from sonar_tpu_torch.parallel import LatentShard, make_mesh, shard_latent
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: sum(f.launches for f in fs) for k, fs in kernels.items()}
+
+    def zero():
+        for fs in kernels.values():
+            for f in fs:
+                f.launches = 0
+
+    calls = [0]
+    real = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    mesh = make_mesh(axis_names=("dp",))
+    xs = shard_latent(x0, mesh)
+    sh = LatentShard.of(xs)
+    sig = bench_sigmas(torch, P31_B_STEPS)
+    out = {"box": (sh.offset, sh.local_shape), "samplers": {}, "launches": {},
+           "collectives_per_step": {}, "noise": {}, "noise_synced": []}
+    for nm in P31_B_SAMPLERS:
+        rec = SyncFrom(torch, den, check=nm != "dpm_adaptive")
+        zero()
+        calls[0] = 0
+        with patched(dist, all_reduce=counted):
+            res = p31_checked(torch, f"(b) {nm} on dp=2", lambda: SAMPLERS[nm](
+                rec, xs, sig, seed=7, **p31_sampler_kw(nm)))
+        out["launches"][nm] = counts()
+        out["collectives_per_step"][nm] = calls[0] / P31_B_STEPS
+        out["samplers"][nm] = (res.to_local().cpu().numpy(), str(res.placements), rec.calls)
+    pipe = p31_guided(torch, unet)
+    pipe()(xs, sig)  # a first call puts the DWT's filters and FreeU's tables on the card
+    rec = []
+    zero()
+    calls[0] = 0
+    with patched(dist, all_reduce=counted):
+        res = p31_checked(torch, "(b) the guided path on dp=2", lambda: pipe(
+            lambda f: rec.append(SyncFrom(torch, f)) or rec[-1])(xs, sig))
+    out["launches"]["guided"] = counts()
+    out["collectives_per_step"]["guided"] = calls[0] / P31_B_STEPS
+    out["samplers"]["guided"] = (res.to_local().cpu().numpy(), str(res.placements), rec[0].calls)
+    zero()
+    for name in noise_type_names():
+        got, synced = p31_noise(torch, get_noise_item(name), tuple(x0.shape), dev, sh)
+        out["noise"][name] = [g.cpu().numpy() for g in got]
+        if synced:
+            out["noise_synced"].append(name)
+    out["launches"]["noise"] = counts()
+    vmesh = make_mesh(axis_names=("dp", "sp"), mesh_shape=(1, 2))
+    vsh = LatentShard.of(shard_latent(torch.zeros(VIDEO_SHAPE, device=dev), vmesh, sp="sp"))
+    zero()
+    got, synced = p31_noise(torch, p31_video_item(), VIDEO_SHAPE, dev, vsh, P31_VIDEO_SIGMAS)
+    out["launches"]["video"] = counts()
+    out["video"] = {"box": (vsh.offset, vsh.local_shape), "draws": [g.cpu().numpy() for g in got],
+                    "synced": synced}
     return out
 
 
@@ -2876,7 +3090,7 @@ def main():
     from sonar_tpu_torch.api import get_sampler, sampler_config_override
     from sonar_tpu_torch.api.functions import SAMPLERS as REGISTRY
 
-    # at REG_STEPS steps since PR 10, to leave room for [25] (depth, not width)
+    # at REG_STEPS steps, to leave room for [25] and [31] (depth, not width)
     reg_sig = bench_sigmas(torch, REG_STEPS)
     need(len(REGISTRY) == 31, f"the registry holds {len(REGISTRY)} names, not 31")
     first_name = {}
@@ -4395,6 +4609,7 @@ def main():
     t_b = time.perf_counter()
     ranks = run_world(par_world, 2, backend="gloo", device_type="cuda")
     world_s = time.perf_counter() - t_b
+    ranks31 = [r.pop("p31") for r in ranks]  # [31] (b), read in phase 31
     dp_traj = torch.from_numpy(np.concatenate([r["dp_traj"] for r in ranks]))
     pyr_traj = torch.from_numpy(np.concatenate([r["pyr_traj"] for r in ranks]))
     par["b"] = {
@@ -4606,6 +4821,207 @@ def main():
     print(f"[30] took {time.perf_counter() - t30:.0f} s; phases 1-30 took "
           f"{time.perf_counter() - t_run:.0f} s")
 
+    # -- phase 31: every sampler and every noise type on a sharded latent ------------------
+    print(f"[31] {time.perf_counter() - t_run:.0f} s into the run")
+    t31 = time.perf_counter()
+    from torch.distributed.tensor import DTensor
+
+    from sonar_tpu_torch.noise.presets import noise_type_names
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names31 = list(noise_type_names())
+    need(len(names31) == P31_NAMES, f"[31] {len(names31)} noise names, not {P31_NAMES}")
+    p31 = {"a": {}, "b": {}}
+    launches31 = {k: 0 for k in counters}
+    b5_planes_launches = 0
+    a_sig = bench_sigmas(torch, P31_STEPS)
+
+    # (a) a 1-rank NCCL world: every registry name and every noise name on a dp=1 shard
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh31 = make_mesh(axis_names=("dp",))
+            xs31 = shard_latent(x0, mesh31)
+            sh31 = LatentShard.of(xs31)
+            samp_rel, collectives31 = {}, {}
+            real_ar = dist.all_reduce
+            n_ar = [0]
+
+            def count_ar(*a, **kw):
+                n_ar[0] += 1
+                return real_ar(*a, **kw)
+
+            for nm in sorted(REGISTRY):
+                fn = REGISTRY[nm]
+                ref = fn(denoiser, x0, a_sig, seed=7)
+                rec = SyncFrom(torch, denoiser, check=nm != "dpm_adaptive")
+                reset_counts()
+                n_ar[0] = 0
+                with patched(dist, all_reduce=count_ar):
+                    got = p31_checked(torch, f"(a) {nm} on dp=1",
+                                      lambda: fn(rec, xs31, a_sig, seed=7))
+                lc = read_counts()
+                for k in counters:
+                    launches31[k] += lc[k]
+                need(isinstance(got, DTensor) and got.placements == xs31.placements,
+                     f"[31] (a) {nm}: the result is not laid out as the latent")
+                samp_rel[nm] = rel_err(got.to_local(), ref)[1]
+                collectives31[nm] = n_ar[0]
+            p31["a"]["samplers_rel"] = samp_rel
+            need(max(samp_rel.values()) <= PAR_TOL, f"[31] (a) samplers on dp=1 {samp_rel}")
+            need(not any(collectives31.values()),
+                 f"[31] (a) a 1-rank world made collectives {collectives31}")
+            noise_rel, synced_s, synced_u = {}, [], []
+            for nm in names31:
+                reset_counts()
+                got, syn = p31_noise(torch, get_noise_item(nm), SHAPE, dev, sh31)
+                lc = read_counts()
+                for k in counters:
+                    launches31[k] += lc[k]
+                b5_planes_launches += lc["B5"]
+                ref, syn_u = p31_noise(torch, get_noise_item(nm), SHAPE, dev)
+                noise_rel[nm] = max(rel_err(g, r)[1] for g, r in zip(got, ref))
+                synced_s += [nm] if syn else []
+                synced_u += [nm] if syn_u else []
+            p31["a"]["noise_rel"] = noise_rel
+            p31["a"]["noise_synced"] = {"sharded": synced_s, "unsharded": synced_u}
+            need(max(noise_rel.values()) <= PAR_TOL, f"[31] (a) noise on dp=1 {noise_rel}")
+            need(set(synced_s) <= set(synced_u),
+                 f"[31] (a) the shard adds a host read to {sorted(set(synced_s) - set(synced_u))}")
+        finally:
+            dist.destroy_process_group()
+    worst_s = max(samp_rel, key=samp_rel.get)
+    worst_n = max(noise_rel, key=noise_rel.get)
+    print(f"[31] (a) 1-rank NCCL world: all {len(REGISTRY)} registry names on a dp=1 shard of "
+          f"{cfg} {SHAPE}, {P31_STEPS} steps, against their unsharded runs (TF32 off): max rel "
+          f"{samp_rel[worst_s]:.3e} ({worst_s}; each from its first model call under "
+          f"set_sync_debug_mode('error'), dpm_adaptive's host read exempt; no collective call); "
+          f"all {len(names31)} noise names, two draws each: max rel {noise_rel[worst_n]:.3e} "
+          f"({worst_n}; tolerance {PAR_TOL:g}); a third draw read the card back for "
+          f"{synced_u or 'none'} unsharded and {synced_s or 'none'} sharded [{card}]")
+
+    # B5 with planes= against its plain version and the unsharded kernel draw's slice
+    hl512 = G._size_ladder_highres(*P31_B5_BIG[2:], 4, 0)
+    hc512 = [0.7**i for i in range(len(hl512))]
+    ol64 = [(SHAPE[2] * 2 ** (i + 1), SHAPE[3] * 2 ** (i + 1)) for i in range(5)]
+    b5p_err = 0.0
+    cases31 = (  # shape, planes, ladder, mode, base: rank 1's planes of 2x4x64x64, and
+        # every other plane of a 67 x 61 field (its slices start inside Philox groups)
+        (SHAPE, (4, 4, 8), hl64, "bilinear", True),
+        (SHAPE, (4, 4, 8), ol64, "nearest-exact", False),
+        ((1, 3, 67, 61), (1, 1, 2), G._size_ladder_highres(67, 61, 4, 0), "bilinear", True))
+    for shp, planes, lad, mode, with_base in cases31:
+        need(P.fused_downscale_supported(lad, shp[2], shp[3], mode),
+             f"[31] B5 ladder {lad} in mode {mode} is not B5's")
+        cf = [0.7**i for i in range(len(lad))]
+        i5 = torch.arange(shp[1], device=dev)
+        idx = planes[0] + (i5 // planes[1]) * planes[2] + i5 % planes[1]
+        full_shape = (1, int(idx.max()) + 1, shp[2], shp[3])
+        base = randn(shp) if with_base else None
+        full_base = None
+        if with_base:
+            full_base = randn(full_shape)
+            full_base[:, idx] = base
+        for variant in (1, 2):
+            with P._forced_down_variant(variant):
+                k5 = P.fused_downscale_pyramid(5, shp, lad, cf, mode, base=base, device=dev,
+                                               planes=planes)
+                full5 = P.fused_downscale_pyramid(5, full_shape, lad, cf, mode,
+                                                  base=full_base, device=dev)
+            p5 = P.fused_downscale_pyramid_reference(5, shp, lad, cf, mode, base, device=dev,
+                                                     planes=planes)
+            b5p_err = max(b5p_err, rel_err(k5, p5)[1])
+            need(torch.equal(k5, full5[:, idx]),
+                 f"[31] B5 planes {planes} (kernel {variant}): not the unsharded draw's slice")
+    need(b5p_err <= PAR_TOL, f"[31] B5 with planes= against plain: {b5p_err:.3e}")
+    big_base = randn(P31_B5_BIG)
+    big_planes = (16, 16, 32)  # rank 1's 4x4x512x512 of 8x4x512x512
+    b5p_us = {}
+    for key, fn, bd in (
+            ("1x4x64x64", lambda: P.fused_downscale_pyramid(5, SHAPE, hl64, hc64, base=pbase,
+                                                            device=dev, planes=(4, 4, 8)),
+             b5_bound(P, SHAPE, hl64, hc64, "bilinear", base=True)),
+            ("1x4x64x64 plain", lambda: P.fused_downscale_pyramid_reference(
+                5, SHAPE, hl64, hc64, "bilinear", pbase, device=dev, planes=(4, 4, 8)), None),
+            ("4x4x512x512", lambda: P.fused_downscale_pyramid(
+                5, P31_B5_BIG, hl512, hc512, base=big_base, device=dev, planes=big_planes),
+             b5_bound(P, P31_B5_BIG, hl512, hc512, "bilinear", base=True))):
+        us, _ = device_us(torch, fn, 50 if "512" not in key else 10)
+        b5p_us[key] = {"us": us, **({} if bd is None else {"bound_us": bd["us"],
+                                                           "bound_by": bd["by"]})}
+        print(f"[31] B5 planes= at {key}: {fmt_us(us)} a call on the device"
+              + ("" if bd is None else f", bound {bd['us']:.2f} us by {bd['by']}") + f" [{card}]")
+    p31["a"]["b5_planes"] = {"err_rel": b5p_err, "device_us": b5p_us}
+    print(f"[31] B5 with planes= (both kernels; rank 1's planes and a slice starting inside a "
+          f"Philox group) against its plain version {b5p_err:.3e} (tolerance {PAR_TOL:g}) and "
+          f"bit-equal to the unsharded kernel draw's slice")
+
+    # (b) [29]'s 2-rank gloo world: each rank's block against the unsharded run on the card
+    b_sig = bench_sigmas(torch, P31_B_STEPS)
+    b_rel = {}
+    for nm in P31_B_SAMPLERS:
+        ref = REGISTRY[nm](denoiser, px0, b_sig, seed=7, **p31_sampler_kw(nm))
+        got = torch.from_numpy(np.concatenate([r["samplers"][nm][0] for r in ranks31]))
+        b_rel[nm] = rel_err(got, ref.cpu())[1]
+    unet31 = init_unet_params(torch.Generator().manual_seed(0), cfg, device=dev)  # [4]'s
+    with torch.no_grad():
+        gref = p31_guided(torch, unet31)()(px0, b_sig)
+    del unet31
+    b_rel["guided"] = rel_err(torch.from_numpy(np.concatenate(
+        [r["samplers"]["guided"][0] for r in ranks31])), gref.cpu())[1]
+    calls_dpm = [r["samplers"]["dpm_adaptive"][2] for r in ranks31]
+    need(len(set(calls_dpm)) == 1, f"[31] (b) dpm_adaptive's ranks made {calls_dpm} model calls")
+    for r in ranks31:
+        need(all(v[1] == "(Shard(dim=0),)" for v in r["samplers"].values()),
+             f"[31] (b) placements {[v[1] for v in r['samplers'].values()]}")
+    need(max(b_rel.values()) <= PAR_TOL, f"[31] (b) samplers on dp=2 {b_rel}")
+    nb_rel = {}
+    for nm in names31:
+        ref, _ = p31_noise(torch, get_noise_item(nm), PAR_SHAPE, dev)
+        nb_rel[nm] = max(
+            rel_err(torch.from_numpy(r["noise"][nm][i]),
+                    ref[i][tuple(slice(o, o + n) for o, n in zip(*r["box"]))].cpu())[1]
+            for r in ranks31 for i in range(len(ref)))
+    need(max(nb_rel.values()) <= PAR_TOL, f"[31] (b) noise blocks on dp=2 {nb_rel}")
+    vref, _ = p31_noise(torch, p31_video_item(), VIDEO_SHAPE, dev, sigmas=P31_VIDEO_SIGMAS)
+    v_rel = max(rel_err(torch.from_numpy(r["video"]["draws"][i]),
+                        vref[i][tuple(slice(o, o + n) for o, n in zip(*r["video"]["box"]))]
+                        .cpu())[1] for r in ranks31 for i in range(len(vref)))
+    need(v_rel <= PAR_TOL, f"[31] (b) video noise with frames on sp: {v_rel:.3e}")
+    for r in ranks31:
+        need(set(r["noise_synced"]) <= set(synced_u),
+             f"[31] (b) the shard adds a host read to {r['noise_synced']}")
+        for k in launches31:
+            launches31[k] += sum(v.get(k, 0) for v in r["launches"].values())
+        b5_planes_launches += r["launches"]["noise"].get("B5", 0)
+    p31["b"] = {"samplers_rel": b_rel, "noise_rel": nb_rel, "video_rel": v_rel,
+                "launches": [r["launches"] for r in ranks31],
+                "collectives_per_step": [r["collectives_per_step"] for r in ranks31],
+                "model_calls": [{k: v[2] for k, v in r["samplers"].items()} for r in ranks31],
+                "noise_synced": [r["noise_synced"] for r in ranks31]}
+    worst_b = max(nb_rel, key=nb_rel.get)
+    print(f"[31] (b) 2-rank gloo world on the one card, {PAR_SHAPE} on dp=2, {P31_B_STEPS} "
+          f"steps against the unsharded runs (TF32 off): "
+          f"{ {k: float(f'{v:.2e}') for k, v in b_rel.items()} } (each from its first model "
+          f"call under set_sync_debug_mode('error'), dpm_adaptive exempt; dpm_adaptive's "
+          f"ranks made {calls_dpm} model calls); every noise name's block, max rel "
+          f"{nb_rel[worst_b]:.3e} ({worst_b}); config 5's video noise {VIDEO_SHAPE} with its "
+          f"frames on sp=2 {v_rel:.3e} (tolerance {PAR_TOL:g})")
+    for i, r in enumerate(ranks31):
+        print(f"[31] (b) rank {i}: launches {r['launches']}; collectives a step "
+              f"{r['collectives_per_step']}. Two processes time-slice one card: not a speed "
+              f"[{card}]")
+    p31["launches_parallel_noise"] = launches31
+    p31["b5_planes_launches"] = b5_planes_launches
+    need(b5_planes_launches > 0, "[31] B5 with planes= was not launched on a sharded path")
+    for k in counters:
+        launches_par[k] += launches31[k]
+    print(json.dumps({"sharded_all": p31}, default=float))
+    print(f"[31] took {time.perf_counter() - t31:.0f} s; phases 1-31 took "
+          f"{time.perf_counter() - t_run:.0f} s")
+
     src = "sonar_tpu_torch/csrc/"
     n_el = SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3]
     rows = [
@@ -4628,6 +5044,20 @@ def main():
         need(n_launch > 0, f"{kname} was not launched on its path")
         need(all(v is not None and v > 0 for v in dev_timing[k]),
              f"{kname}: device time not measured")
+    # B5 with a shard's planes: its launches on [31]'s sharded paths, its
+    # device time at one rank's 1x4x64x64 (and 4x4x512x512) beside its bound
+    b5p_bd = b5_bound(P, SHAPE, hl64, hc64, "bilinear", base=True)
+    b5p_row = {"name": "fused_downscale_pyramid planes", "route": "cuda",
+               "source": src + "fused_pyramid.cu",
+               "replaces": "sonar_tpu/kernels/fused_pyramid.py:264",
+               "launches": b5_planes_launches, "max_abs_err": b5p_err,
+               "ms": b5p_us["1x4x64x64"]["us"] / 1000,
+               "plain_ms": b5p_us["1x4x64x64 plain"]["us"] / 1000,
+               "bound_ms": b5p_bd["us"] / 1000, "bound_by": b5p_bd["by"], "library_ms": None,
+               "ms_4x4x512x512": b5p_us["4x4x512x512"]["us"] / 1000,
+               "bound_ms_4x4x512x512": b5p_us["4x4x512x512"]["bound_us"] / 1000}
+    need(all(b5p_row[k] is not None and b5p_row[k] > 0 for k in ("ms", "plain_ms")),
+         "fused_downscale_pyramid planes: device time not measured")
     # ms, plain_ms, library_ms: device time per call at the path's shape
     # (torch.profiler); call_ms, plain_call_ms: CUDA events, host cost included
     print(json.dumps({"kernels": [
@@ -4648,8 +5078,9 @@ def main():
          "launches_dtcwt_wcfg_sdxl": l26d[k],
          "launches_workflow": l27a[k] + l27b[k],
          "launches_dit": l28a[k], "launches_train": l28c[k],
-         "launches_parallel": launches_par[k], "launches_parallel_train": launches_pt[k]}
-        for kname, f, rep, n_launch, e, k, bd in rows]}))
+         "launches_parallel": launches_par[k], "launches_parallel_train": launches_pt[k],
+         "launches_sharded_all": launches31[k]}
+        for kname, f, rep, n_launch, e, k, bd in rows] + [b5p_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

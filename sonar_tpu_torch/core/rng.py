@@ -61,7 +61,8 @@ def derive_seed(seed: int, *path: int | str) -> int:
     return s
 
 
-def studentt_polar(seed: int, df, shape, dtype=torch.float32, *, device) -> torch.Tensor:
+def studentt_polar(seed: int, df, shape, dtype=torch.float32, *, device,
+                   shard=None) -> torch.Tensor:
     """Exact Student-t draws by the spherical polar construction, with no
     rejection: for a 2D spherically symmetric Student-t with ``df`` degrees
     of freedom the radius has the closed-form tail ``P(R > r) = (1 +
@@ -70,10 +71,11 @@ def studentt_polar(seed: int, df, shape, dtype=torch.float32, *, device) -> torc
     V ~ Uniform`` is exactly t_df (Bailey's 1994 polar method without its
     rejection step). ``U`` and ``V`` are the Philox uniforms of
     ``derive_seed(seed, 0)`` and ``(seed, 1)``, as the JAX package splits
-    its key in two."""
+    its key in two. ``shard`` draws a slice of the draw (kernel B3's)."""
     cdt = work_dtype(dtype)
-    u = 1.0 - philox_rand(derive_seed(seed, 0), shape, device=device, dtype=cdt)  # (0, 1]
-    v = philox_rand(derive_seed(seed, 1), shape, device=device, dtype=cdt)
+    kw = {} if shard is None else {"shard": shard}
+    u = 1.0 - philox_rand(derive_seed(seed, 0), shape, device=device, dtype=cdt, **kw)  # (0, 1]
+    v = philox_rand(derive_seed(seed, 1), shape, device=device, dtype=cdt, **kw)
     # the scalars as the JAX package computes them, in float32 (host numbers:
     # a device tensor made from them would be a copy to the card per draw)
     df32 = np.float32(df)
@@ -81,17 +83,20 @@ def studentt_polar(seed: int, df, shape, dtype=torch.float32, *, device) -> torc
     return (r * torch.cos(float(np.float32(2.0 * math.pi)) * v)).to(dtype)
 
 
-def draw_t(seed: int, df, shape, dtype=torch.float32, *, device) -> torch.Tensor:
+def draw_t(seed: int, df, shape, dtype=torch.float32, *, device, shard=None) -> torch.Tensor:
     """Student-t draw: the polar construction (the JAX package's default;
     its gamma-rejection alternative is not ported)."""
-    return studentt_polar(seed, df, shape, dtype, device=device)
+    return studentt_polar(seed, df, shape, dtype, device=device,
+                          **({} if shard is None else {"shard": shard}))
 
 
-def draw_laplace(seed: int, shape, dtype=torch.float32, *, device) -> torch.Tensor:
+def draw_laplace(seed: int, shape, dtype=torch.float32, *, device,
+                 shard=None) -> torch.Tensor:
     """Standard Laplace draws by ``jax.random.laplace``'s inverse-CDF
     transform of one uniform: ``u`` in ``[-1 + 2⁻²⁴, 1)``, then
     ``sign(u)·log1p(-|u|)``."""
     lo = -1.0 + 2.0**-24  # exact in float32; 1 - lo rounds to 2 there, as in JAX
-    u = philox_rand(seed, shape, device=device, dtype=work_dtype(dtype))
+    u = philox_rand(seed, shape, device=device, dtype=work_dtype(dtype),
+                    **({} if shard is None else {"shard": shard}))
     u = torch.clamp(u * 2.0 + lo, min=lo)
     return (torch.sign(u) * torch.log1p(-torch.abs(u))).to(dtype)

@@ -340,11 +340,36 @@ __device__ __forceinline__ float down_bilinear(float2 wr, float2 wc, float g00,
   return wr.x * (wc.x * g00 + wc.y * g01) + wr.y * (wc.x * g10 + wc.y * g11);
 }
 
+// The four values of local group g of one field (stream), drawn at their
+// global indices. shard 0: the whole draw, local is global; shard 1: first,
+// run and stride are multiples of four, so the group is one global group;
+// shard 2: each element finds its own global group (a run may start or end
+// inside one), those past the end repeat the last element.
+__device__ __forceinline__ float4 down_draw4(int64_t g, uint32_t stream,
+                                             const sonar::PhiloxKeys& keys, int shard,
+                                             const UpShard& sh, int64_t n) {
+  if (shard == 0) return sonar::normal4(sonar::philox_group((uint64_t)g, stream, keys));
+  const int64_t e0 = g << 2;
+  if (shard == 1)
+    return sonar::normal4(sonar::philox_group(
+        (uint64_t)((sh.first + (e0 / sh.run) * sh.stride + e0 % sh.run) >> 2), stream, keys));
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int64_t e = e0 + k < n ? e0 + k : n - 1;
+    const int64_t ge = sh.first + (e / sh.run) * sh.stride + e % sh.run;
+    const float4 q = sonar::normal4(sonar::philox_group((uint64_t)(ge >> 2), stream, keys));
+    const int c = (int)(ge & 3);
+    v[k] = c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.w;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
 template <bool GEN, bool BASE, bool BILINEAR>
 __global__ void __launch_bounds__(32 * kSpreadMaxWarps)
     pyramid_down_spread_kernel(const float* __restrict__ base, float* __restrict__ out,
                                unsigned n, unsigned hw, unsigned w, const DownLevels L,
-                               uint32_t k0, uint32_t k1) {
+                               uint32_t k0, uint32_t k1, int shard, const UpShard sh) {
   extern __shared__ float4 down_fields4[];  // [field][group of the block]
   const unsigned lane = threadIdx.x & 31u;
   const unsigned warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
@@ -353,9 +378,14 @@ __global__ void __launch_bounds__(32 * kSpreadMaxWarps)
   if (e0 < n) {
     if (GEN) {
       const sonar::PhiloxKeys keys = sonar::philox_keys(k0, k1);
+      // shard 1: the group is one global group, located once for every field
+      const int64_t gd = shard == 1
+          ? (sh.first + ((int64_t)e0 / sh.run) * sh.stride + (int64_t)e0 % sh.run) >> 2
+          : (int64_t)g;
+      const int sd = shard == 1 ? 0 : shard;
       for (unsigned f = warp; f < (unsigned)L.fields; f += warps)
         down_fields4[f * kSpreadGroups + lane] =
-            sonar::normal4(sonar::philox_group((uint64_t)g, (uint32_t)L.stream[f], keys));
+            down_draw4(gd, (uint32_t)L.stream[f], keys, sd, sh, (int64_t)n);
     } else {
       // plane and offset in it of elements e0..e0+3 (those past the end repeat e0)
       unsigned bc[4], rem[4];
@@ -419,10 +449,10 @@ template <bool GEN>
 __device__ __forceinline__ void down_field4(const DownLevel& lv, int li, int p, int64_t g,
                                             const sonar::PhiloxKeys& keys,
                                             const int64_t* bc, const int* rem,
-                                            int64_t hw, float* v) {
+                                            int64_t hw, int shard, const UpShard& sh,
+                                            int64_t n, float* v) {
   if (GEN) {
-    const float4 q = sonar::normal4(
-        sonar::philox_group((uint64_t)g, (uint32_t)(4 * li + p), keys));
+    const float4 q = down_draw4(g, (uint32_t)(4 * li + p), keys, shard, sh, n);
     v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
   } else {
 #pragma unroll
@@ -434,7 +464,7 @@ template <bool GEN, bool BASE, bool BILINEAR>
 __global__ void __launch_bounds__(kDownThreads)
     pyramid_down_kernel(const float* __restrict__ base, float* __restrict__ out,
                         int64_t n, int h, int w, const DownLevels L, uint32_t k0,
-                        uint32_t k1, int base_aligned) {
+                        uint32_t k1, int base_aligned, int shard, const UpShard sh) {
   const int64_t groups = (n + 3) >> 2;
   const int64_t hw = (int64_t)h * w;
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
@@ -475,17 +505,22 @@ __global__ void __launch_bounds__(kDownThreads)
       for (int k = 0; k < 4; ++k) rem[k] = row[k] * w + col[k];
     }
     const bool one_row = col[0] + 3 < w;  // else a lane wraps, even back to this row
+    // shard 1: the group is one global group, located once for every field
+    const int64_t gd =
+        shard == 1 ? (sh.first + (e0 / sh.run) * sh.stride + e0 % sh.run) >> 2 : g;
+    const int sd = shard == 1 ? 0 : shard;
     for (int li = 0; li < L.n; ++li) {
       const DownLevel& lv = L.lv[li];
       if (!BILINEAR || lv.planes == 1) {
         float v[4];
-        down_field4<GEN>(lv, li, 0, g, keys, bc, rem, hw, v);
+        down_field4<GEN>(lv, li, 0, gd, keys, bc, rem, hw, sd, sh, n, v);
 #pragma unroll
         for (int k = 0; k < 4; ++k) acc[k] = acc[k] + v[k] * lv.coef;
       } else {
         float f[4][4];  // [plane][lane]
 #pragma unroll
-        for (int p = 0; p < 4; ++p) down_field4<GEN>(lv, li, p, g, keys, bc, rem, hw, f[p]);
+        for (int p = 0; p < 4; ++p)
+          down_field4<GEN>(lv, li, p, gd, keys, bc, rem, hw, sd, sh, n, f[p]);
         float2 wr = down_weights(row[0], lv.ratio_h);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -506,8 +541,8 @@ __global__ void __launch_bounds__(kDownThreads)
 
 template <bool GEN, bool BASE, bool BILINEAR>
 void down_launch(const float* base, float* out, int64_t n, int h, int w,
-                 const DownLevels& L, uint32_t k0, uint32_t k1, int variant,
-                 cudaStream_t stream) {
+                 const DownLevels& L, uint32_t k0, uint32_t k1, int variant, int shard,
+                 const UpShard& sh, cudaStream_t stream) {
   const int64_t groups = (n + 3) >> 2;
   if (variant == 1) {
     int warps = L.fields < 4 ? 4 : L.fields;
@@ -516,13 +551,14 @@ void down_launch(const float* base, float* out, int64_t n, int h, int w,
     const int64_t blocks = (groups + kSpreadGroups - 1) / kSpreadGroups;
     pyramid_down_spread_kernel<GEN, BASE, BILINEAR>
         <<<(unsigned)blocks, 32 * warps, smem, stream>>>(
-            base, out, (unsigned)n, (unsigned)((int64_t)h * w), (unsigned)w, L, k0, k1);
+            base, out, (unsigned)n, (unsigned)((int64_t)h * w), (unsigned)w, L, k0, k1,
+            shard, sh);
   } else {
     int64_t blocks = (groups + kDownThreads - 1) / kDownThreads;
     if (blocks > kMaxDownBlocks) blocks = kMaxDownBlocks;
     const int base_aligned = (reinterpret_cast<uintptr_t>(base) & 15) == 0;
     pyramid_down_kernel<GEN, BASE, BILINEAR><<<(int)blocks, kDownThreads, 0, stream>>>(
-        base, out, n, h, w, L, k0, k1, base_aligned);
+        base, out, n, h, w, L, k0, k1, base_aligned, shard, sh);
   }
 }
 
@@ -579,14 +615,22 @@ int sonar_pyramid_up(const float* base, float* out, int bc, int h, int w,
 // ptrs: 1 per level (given fields, 0 when gen != 0); planes: 1 or 4 per
 // level; params: 3 per level (coef, ratio_h, ratio_w). base may be null.
 // variant: 1 the spread kernel (below 2^31 elements), 2 one thread a group.
+// run > 0 (with gen): every field is the slice (first, run, stride) of the
+// unsharded draw's flat elements, as sonar_philox_fill_shard's and
+// sonar_pyramid_up's; run = 0: the whole draw from element 0.
 int sonar_pyramid_down(const float* base, float* out, int bc, int h, int w,
                        int n_levels, const int64_t* ptrs, const int* planes,
                        const float* params, int gen, uint32_t k0, uint32_t k1,
-                       int variant, void* stream) {
+                       int variant, int64_t first, int64_t run, int64_t stride,
+                       void* stream) {
   if (n_levels < 0 || n_levels > kMaxLevels || bc <= 0 || h <= 0 || w <= 0 ||
       (variant != 1 && variant != 2))
     return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)bc * h * w;
+  if (run != 0 && (gen == 0 || first < 0 || run < 1 || stride < run || n % run))
+    return (int)cudaErrorInvalidValue;
+  const UpShard sh = {first, run, stride};
+  const int shard = run == 0 ? 0 : (first % 4 == 0 && run % 4 == 0 && stride % 4 == 0) ? 1 : 2;
   if (variant == 1 && n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   DownLevels L;
   L.n = n_levels;
@@ -605,14 +649,14 @@ int sonar_pyramid_down(const float* base, float* out, int bc, int h, int w,
   for (int f = L.fields; f < kMaxFields; ++f) L.stream[f] = 0;
   const cudaStream_t st = (cudaStream_t)stream;
   switch ((gen != 0) * 4 + (base != nullptr) * 2 + (int)bilinear) {
-    case 0: down_launch<false, false, false>(base, out, n, h, w, L, k0, k1, variant, st); break;
-    case 1: down_launch<false, false, true>(base, out, n, h, w, L, k0, k1, variant, st); break;
-    case 2: down_launch<false, true, false>(base, out, n, h, w, L, k0, k1, variant, st); break;
-    case 3: down_launch<false, true, true>(base, out, n, h, w, L, k0, k1, variant, st); break;
-    case 4: down_launch<true, false, false>(base, out, n, h, w, L, k0, k1, variant, st); break;
-    case 5: down_launch<true, false, true>(base, out, n, h, w, L, k0, k1, variant, st); break;
-    case 6: down_launch<true, true, false>(base, out, n, h, w, L, k0, k1, variant, st); break;
-    default: down_launch<true, true, true>(base, out, n, h, w, L, k0, k1, variant, st); break;
+    case 0: down_launch<false, false, false>(base, out, n, h, w, L, k0, k1, variant, shard, sh, st); break;
+    case 1: down_launch<false, false, true>(base, out, n, h, w, L, k0, k1, variant, shard, sh, st); break;
+    case 2: down_launch<false, true, false>(base, out, n, h, w, L, k0, k1, variant, shard, sh, st); break;
+    case 3: down_launch<false, true, true>(base, out, n, h, w, L, k0, k1, variant, shard, sh, st); break;
+    case 4: down_launch<true, false, false>(base, out, n, h, w, L, k0, k1, variant, shard, sh, st); break;
+    case 5: down_launch<true, false, true>(base, out, n, h, w, L, k0, k1, variant, shard, sh, st); break;
+    case 6: down_launch<true, true, false>(base, out, n, h, w, L, k0, k1, variant, shard, sh, st); break;
+    default: down_launch<true, true, true>(base, out, n, h, w, L, k0, k1, variant, shard, sh, st); break;
   }
   return (int)cudaGetLastError();
 }

@@ -123,7 +123,7 @@ def load_library() -> ctypes.CDLL:
                                      u32, f32, i64, i64, i64, p]
     lib.sonar_pyramid_up.restype = i32
     lib.sonar_pyramid_down.argtypes = [p, p, i32, i32, i32, i32, p, p, p, i32, u32,
-                                       u32, i32, p]
+                                       u32, i32, i64, i64, i64, p]
     lib.sonar_pyramid_down.restype = i32
     lib.sonar_voronoi_ksmallest.argtypes = [p, i64, p, i64, p, p, p, i32, i32, i32, i32,
                                             i32, i32, f32, f32, f32, f32, f32, f32, p]

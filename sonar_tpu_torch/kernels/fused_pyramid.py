@@ -32,7 +32,11 @@ small level ``i ≥ 1`` with :func:`~.hwrng.philox_randn` (kernel B3) from
 of (level ``l``, plane ``p``) from ``seed`` on stream ``4l + p``, planes in
 the order g00, g01, g10, g11. The plain versions draw the same fields with
 the plain Philox, so a kernel and its plain version agree element by element
-for one seed.
+for one seed. With ``planes=(first, run, stride)`` (a rank's block of a
+sharded latent, ``parallel.LatentShard.plane_runs``) both kernels draw each
+field at the global planes' indices: B4 its base pair, B5 every field, in
+both of its kernels, also where a Philox group of four straddles two
+ranks' blocks.
 
 The gates ``fused_pyramid_supported``/``fused_downscale_supported`` are pure
 functions of the configuration, the same on the CPU and the card. They keep
@@ -57,7 +61,7 @@ import torch
 from ..core.rng import derive_seed
 from ..ops.resample import _resize_separable, _resize_taps, resize_taps
 from .fused import _check_cuda
-from .hwrng import philox_key, philox_randn, philox_randn_reference
+from .hwrng import check_shard, philox_key, philox_randn, philox_randn_reference
 
 MAX_LEVELS = 16  # kernel parameter arrays (csrc/fused_pyramid.cu kMaxLevels)
 MAX_TAPS = 4  # nonzeros in a row of an upscaling matrix (csrc/fused_pyramid.cu kMaxTaps)
@@ -314,15 +318,16 @@ def fused_downscale_accumulate_reference(g_fields, shape_hw, sizes, coefs,
 
 def fused_downscale_pyramid_reference(seed: int, shape, sizes, coefs,
                                       mode: str = "bilinear", base=None, *,
-                                      device=None) -> torch.Tensor:
+                                      device=None, planes=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_downscale_pyramid`, on the same
     stream (``device`` defaults to ``base``'s)."""
     b, c, h, w = shape
     device = torch.device(device) if device is not None else base.device
+    sh = _field_shard(planes, h, w)
 
     def fields(li, n):
         return [philox_randn_reference(seed, (b * c, h, w), device=device,
-                                       stream=4 * li + p) for p in range(n)]
+                                       stream=4 * li + p, shard=sh) for p in range(n)]
 
     return _downscale_reference(fields, b * c, h, w, sizes, coefs, mode, base,
                                 device).reshape(b, c, h, w)
@@ -353,7 +358,7 @@ def _forced_down_variant(variant):
         _forced_variant = before
 
 
-def _launch_down(out, base, g_fields, sizes, coefs, mode, key):
+def _launch_down(out, base, g_fields, sizes, coefs, mode, key, shard=None):
     bc, h, w = out.shape
     variant = _forced_variant or downscale_variant(out.numel())
     levels = _down_levels(sizes, coefs, h, w, mode)
@@ -366,11 +371,12 @@ def _launch_down(out, base, g_fields, sizes, coefs, mode, key):
         planes[i] = p
         params[3 * i:3 * i + 3] = [coef, rh, rw]
     k0, k1 = key if key is not None else (0, 0)
+    first, run, stride = check_shard(shard, out.numel()) if shard is not None else (0, 0, 0)
     with torch.cuda.device(out.device):
         _call_kernel("sonar_pyramid_down",
                      None if base is None else base.data_ptr(), out.data_ptr(),
                      bc, h, w, n, ptrs, planes, params, int(key is not None), k0, k1,
-                     int(variant))
+                     int(variant), first, run, stride)
 
 
 def _check_base(base, bc, h, w):
@@ -381,11 +387,16 @@ def _check_base(base, bc, h, w):
 
 
 def fused_downscale_pyramid(seed: int, shape, sizes, coefs, mode: str = "bilinear",
-                            base=None, *, device=None) -> torch.Tensor:
+                            base=None, *, device=None, planes=None) -> torch.Tensor:
     """One highres_pyramid / pyramid_old draw of ``shape`` (B, C, H, W) by
     kernel B5, fields drawn in-kernel; ``base`` (any shape of B·C·H·W
     elements, e.g. highres_pyramid's inner draw) is added in.
-    :func:`downscale_variant` picks which of B5's two kernels runs."""
+    :func:`downscale_variant` picks which of B5's two kernels runs.
+
+    ``planes=(first, run, stride)``: the draw is the slice of a larger one
+    (a rank's shard), as :func:`fused_pyramid`'s: every field is drawn at its
+    global planes' indices, also where a Philox group of four straddles two
+    ranks' blocks."""
     b, c, h, w = shape
     if not fused_downscale_supported(sizes, h, w, mode):
         raise ValueError(f"fused_downscale_pyramid: ladder {sizes} in mode {mode!r} "
@@ -393,12 +404,13 @@ def fused_downscale_pyramid(seed: int, shape, sizes, coefs, mode: str = "bilinea
     device = torch.device(device) if device is not None else base.device
     if device.type == "cpu":
         return fused_downscale_pyramid_reference(seed, shape, sizes, coefs, mode,
-                                                 base, device=device)
+                                                 base, device=device, planes=planes)
     if device.type != "cuda":
         raise ValueError(f"fused_downscale_pyramid: no kernel for device {device}")
     _check_base(base, b * c, h, w)
     out = torch.empty((b * c, h, w), dtype=torch.float32, device=device)
-    _launch_down(out, base, None, sizes, coefs, mode, philox_key(seed))
+    _launch_down(out, base, None, sizes, coefs, mode, philox_key(seed),
+                 _field_shard(planes, h, w))
     fused_downscale_pyramid.launches += 1
     return out.reshape(b, c, h, w)
 

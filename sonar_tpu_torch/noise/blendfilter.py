@@ -199,6 +199,11 @@ class BlendFilterNoise(MultiChildNoise):
                                    sigma=sigma)
         return noise
 
+    def _effects(self, ctx, noise, sigma):
+        # "saturate" takes the mean over dimension -3: the whole latent's
+        # where that dimension is split (a 5-D latent's frames)
+        return ctx.across((-3,), lambda n: self.apply_effects(n, sigma), noise)
+
     def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
         n = len(self.items)
         normalize_noise = self.get_normalize("normalize_noise", normalized or n > 1)
@@ -210,16 +215,17 @@ class BlendFilterNoise(MultiChildNoise):
             cur, st = item.sample(ctx, state[i], derive_seed(seed, i), sigma, sigma_next,
                                   normalized=False)
             new_states.append(st)
-            cur = scale_noise(cur, normalized=bool(normalize_noise))
+            cur = scale_noise(cur, normalized=bool(normalize_noise), shard=ctx.shard)
             if noise_effects:
-                cur = self.apply_effects(cur, sigma)
+                cur = self._effects(ctx, cur, sigma)
             if self.blend_mode == "simple_add":
                 cur = cur * item.factor
                 total = cur if total is None else total + cur
             else:
                 total = BLENDING_MODES[self.blend_mode](
                     torch.zeros_like(cur) if total is None else total, cur, item.factor)
-        total = scale_noise(total, self.factor, normalized=bool(normalize_result))
+        total = scale_noise(total, self.factor, normalized=bool(normalize_result),
+                            shard=ctx.shard)
         if result_effects:
-            total = self.apply_effects(total, sigma)
+            total = self._effects(ctx, total, sigma)
         return total, tuple(new_states)

@@ -51,19 +51,23 @@ def unit_time(t, t_lo, t_hi) -> np.float32:
     return (_F32(t) - _F32(t_lo)) / (_F32(t_hi) - _F32(t_lo))
 
 
-def brownian_normals(seed: int, shape, *, device, dtype=torch.float32) -> Callable:
+def brownian_normals(seed: int, shape, *, device, dtype=torch.float32,
+                     shard=None) -> Callable:
     """The default source of W's normals: ``normals(j, k)`` is the tensor of
-    fold ``j`` (0 for Z_0, ``l + 1`` for level ``l``) and cell ``k``."""
+    fold ``j`` (0 for Z_0, ``l + 1`` for level ``l``) and cell ``k``
+    (``shard``: the slice of each draw that a rank's block holds, kernel
+    B3's)."""
 
     def normals(j: int, k: int) -> torch.Tensor:
         s = derive_seed(seed, 0) if j == 0 else derive_seed(seed, j, k)
-        return philox_randn(s, shape, device=device, dtype=dtype)
+        return philox_randn(s, shape, device=device, dtype=dtype,
+                            **({} if shard is None else {"shard": shard}))
 
     return normals
 
 
 def brownian_w(seed: int, u, shape, *, levels: int = 16, dtype=torch.float32,
-               device=None, normals: Callable | None = None) -> torch.Tensor:
+               device=None, normals: Callable | None = None, shard=None) -> torch.Tensor:
     """Evaluate W(u) elementwise for a host ``u`` in [0, 1] (clipped).
 
     ``normals(j, k)`` replaces the Philox draws (a test feeds two
@@ -71,7 +75,8 @@ def brownian_w(seed: int, u, shape, *, levels: int = 16, dtype=torch.float32,
     ``shape`` that this function may read but does not change."""
     shape = tuple(shape)
     if normals is None:
-        normals = brownian_normals(seed, shape, device=default_device(device), dtype=dtype)
+        normals = brownian_normals(seed, shape, device=default_device(device), dtype=dtype,
+                                   **({} if shard is None else {"shard": shard}))
     u = min(max(_F32(u), _F32(0.0)), _F32(1.0))
     acc = normals(0, 0) * _rounded(u, dtype)
     for lvl in range(levels):
@@ -87,12 +92,12 @@ def brownian_w(seed: int, u, shape, *, levels: int = 16, dtype=torch.float32,
 
 def brownian_increment(seed: int, t0, t1, shape, *, t_lo, t_hi, levels: int = 16,
                        dtype=torch.float32, device=None, w0: torch.Tensor | None = None,
-                       normals: Callable | None = None):
+                       normals: Callable | None = None, shard=None):
     """``((W(t1) - W(t0)) / sqrt(|t1 - t0|), W(t1))`` on [t_lo, t_hi].
 
     Pass a precomputed ``w0 = W(u0)`` to skip one full evaluation (the
     stateful generator carries the previous endpoint across steps)."""
-    kw = dict(levels=levels, dtype=dtype, device=device, normals=normals)
+    kw = dict(levels=levels, dtype=dtype, device=device, normals=normals, shard=shard)
     if w0 is None:
         w0 = brownian_w(seed, unit_time(t0, t_lo, t_hi), shape, **kw)
     w1 = brownian_w(seed, unit_time(t1, t_lo, t_hi), shape, **kw)
@@ -133,7 +138,8 @@ def endpoint_state(ctx, seed: int, dtype=None) -> dict:
 def endpoint_increment(ctx, state, sigma, sigma_next, *, levels: int = 16, dtype=None):
     """``(noise, new_state)`` for the step sigma -> sigma_next on the path of
     ``state["base"]``; ``state`` is left as it was."""
-    kw = dict(levels=levels, dtype=dtype or ctx.dtype, device=default_device(ctx.device))
+    kw = dict(levels=levels, dtype=dtype or ctx.dtype, device=default_device(ctx.device),
+              shard=ctx.field_shard(ctx.shape))
     u0 = unit_time(sigma, ctx.sigma_min, ctx.sigma_max)
     if abs(u0 - _F32(state["u_last"])) < 1e-6:
         w0 = state["w_last"]

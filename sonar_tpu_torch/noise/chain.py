@@ -23,12 +23,9 @@ class NoiseChain(NoiseItem):
         self.items.append(item)
         return self
 
-    @property
-    def SHARDABLE(self) -> bool:  # noqa: N802 (the generators' class attribute)
-        """A chain draws a rank's shard when every item can: each item draws
-        its block and the sum is normalized with the whole latent's
-        statistics."""
-        return bool(self.items) and all(getattr(i, "SHARDABLE", False) for i in self.items)
+    # each item draws its block and the sum is normalized with the whole
+    # latent's statistics (``make_noise_sampler`` checks the items too)
+    SHARDABLE = True
 
     @property
     def chain_factor(self) -> float:

@@ -74,11 +74,24 @@ class CollatzGenerator(Generator):
             "mix_noise_sampler": None,
         }
 
+    def _chain_dims(self, nd: int) -> tuple[int, ...]:
+        """The dimensions a chain runs along (the flattened tail with ``flatten``)."""
+        dims = {d % nd for d in self.dims}
+        return tuple(sorted(set(range(min(dims), nd)) if self.flatten else dims))
+
+    def couples(self, ctx):
+        """A chain runs along its dimension: along a split one it would
+        cross ranks (and a flattened tail is not a field of the latent's
+        planes)."""
+        return self.flatten or ctx.splits(self._chain_dims(len(ctx.shape)))
+
     # -- child plumbing -------------------------------------------------------
     def _children(self):
         return {"seed": self.seed_noise_sampler, "mix": self.mix_noise_sampler}
 
     def init_state(self, ctx, seed):
+        if ctx.shard is not None and self.couples(ctx):
+            ctx = ctx.whole()  # the whole latent's draw, as generate makes it
         return {k: (None if c is None else c.init_state(ctx, derive_seed(seed, i)))
                 for i, (k, c) in enumerate(self._children().items())}
 
@@ -149,13 +162,21 @@ class CollatzGenerator(Generator):
                 seed_full = seed_full.reshape(seed_full.shape[:dim]
                                               + (math.prod(seed_full.shape[dim:]),))
             sl = tuple(slice(None, sz) for sz in chunk_shape)
-            orig_noise = normalize_to_scale(seed_full[sl], 1e-06, 1.0,
-                                            dim=tuple(range(1, len(chunk_shape))))
+            # per sample: across the ranks where a sample is split
+            orig_noise = ctx.across(
+                range(1, len(chunk_shape)),
+                lambda v: normalize_to_scale(v, 1e-06, 1.0,
+                                             dim=tuple(range(1, len(chunk_shape)))),
+                seed_full[sl].contiguous())
         else:
-            orig_noise = philox_rand(sseed, chunk_shape, device=device, dtype=self.noise_dtype)
+            kw = {} if ctx.shard is None else {"shard": ctx.field_shard(chunk_shape)}
+            orig_noise = philox_rand(sseed, chunk_shape, device=device, dtype=self.noise_dtype,
+                                     **kw)
         rmin, rmax = self.rmin, self.rmax
         noise = orig_noise.to(self.noise_dtype) * (rmax - rmin + 1) + rmin
-        noise = torch.where(noise == 0, torch.amax(noise) / noise.numel(), noise)
+        # the whole latent's largest value over its element count
+        total = noise.numel() if ctx.shard is None else math.prod(ctx.global_shape(noise.shape))
+        noise = torch.where(noise == 0, ctx.pmax(torch.amax(noise)) / total, noise)
         if self.seed_mode != "default":
             even = torch.remainder(noise, 2.0) < 1
             noise = torch.where(even if self.seed_mode == "force_odd" else ~even, noise + 1, noise)
@@ -177,9 +198,9 @@ class CollatzGenerator(Generator):
             grouped = out1.reshape(s[:dim] + (n_chunks, cl_total) + s[dim + 1:])
             grouped = grouped.narrow(dim + 1, self.chain_offset, chain_length)
             out1 = grouped.reshape(s[:dim] + (n_chunks * chain_length,) + s[dim + 1:])
-        if self.quantile not in {0, 1}:
-            out1 = quantile_normalize(out1, quantile=self.quantile, dim=0,
-                                      strategy=self.quantile_strategy)
+        if self.quantile not in {0, 1}:  # dim 0 flattened: the whole latent's quantile
+            out1 = ctx.on_whole(lambda v: quantile_normalize(
+                v, quantile=self.quantile, dim=0, strategy=self.quantile_strategy), out1)
         output_slice = tuple(slice(None, sz) for sz in shape)
         out1 = out1[output_slice].reshape(out_shape).to(ctx.dtype)
         if omode in {"ratios", "mults", "adds"}:
@@ -187,7 +208,8 @@ class CollatzGenerator(Generator):
         if omode in {"values", "seed_x_ratios", "seed_x_mults", "seed_x_adds"}:
             out2 = torch.repeat_interleave(orig_noise, chain_length, dim=dim)
         elif self.mix_noise_sampler is None:
-            out2 = philox_randn(smix, shape, device=device, dtype=out1.dtype)
+            kw = {} if ctx.shard is None else {"shard": ctx.field_shard(shape)}
+            out2 = philox_randn(smix, shape, device=device, dtype=out1.dtype, **kw)
         else:
             out2, st = self.mix_noise_sampler.sample(ctx, state["mix"], smix, sigma, sigma_next,
                                                      normalized=False)
@@ -212,8 +234,9 @@ class CollatzGenerator(Generator):
             sign = -1.0 if self.iteration_sign_flipping and (it & 1) == 1 else 1.0
             result = result + temp * (it_scale * sign)
         if self.adjust_scale:
-            result = normalize_to_scale(
-                result, -1.0, 1.0, dim=tuple(range(1 if result.ndim < 4 else 2, result.ndim)))
+            dims = tuple(range(1 if result.ndim < 4 else 2, result.ndim))
+            result = ctx.across(dims, lambda v: normalize_to_scale(v, -1.0, 1.0, dim=dims),
+                                result)
         return result, state
 
 

@@ -17,6 +17,14 @@ reads nothing back from the card. They cannot reproduce JAX's threefry
 choices; a test replaces both with one table. ``ShuffledNoise``'s masks and
 permutations are Philox uniforms on the device (kernel B3) and an
 ``argsort`` there.
+
+On a sharded latent (``NoiseCtx.shard``) every item draws this rank's block
+of the whole latent's draw (:mod:`.base`): normalizations pass the shard,
+the reductions that span the latent (a guide's shift, a remap's range, a
+quantile, a modulation's norms) run on the blocks gathered from the ranks
+(``NoiseCtx.on_whole``), and ``PerDimNoise`` along a split dimension and
+``ShuffledNoise`` draw the whole latent on every rank and keep their block
+(``couples``).
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from ..samplers.ancestral import get_ancestral_step
 from ..samplers.guidance import guidance_linear as _guidance_linear
 from ..samplers.guidance import guidance_shift
 from ..utils.misc import crop_samples, default_device, elementwise_shuffle_by_dim, pattern_break
-from .base import NoiseCtx, NoiseItem
+from .base import NoiseCtx, NoiseItem, draw_whole, quantile_dims
 
 INT32_MAX = 2**31 - 1
 
@@ -83,12 +91,15 @@ class WrapperNoise(NoiseItem):
     """Base for single-child wrappers: handles child state plumbing."""
 
     CHILD_KEYS: tuple[str, ...] = ("noise",)
+    SHARDABLE = True  # draws a rank's block of a sharded latent (module docstring)
 
     def _children(self) -> dict[str, NoiseItem | None]:
         return {k: getattr(self, k, None) for k in self.CHILD_KEYS}
 
     def check_dims(self, ctx):
         super().check_dims(ctx)
+        if ctx.shard is not None and self.couples(ctx):  # its children draw the whole latent
+            ctx = dataclasses.replace(ctx, shape=ctx.global_shape(), shard=None, ref=None)
         for child in self._children().values():
             if child is not None:
                 child.check_dims(self.child_ctx(ctx))
@@ -97,6 +108,8 @@ class WrapperNoise(NoiseItem):
         return ctx
 
     def init_state(self, ctx, seed):
+        if ctx.shard is not None and self.couples(ctx):
+            ctx = ctx.whole()  # the whole latent's draw, as sample makes it
         cctx = self.child_ctx(ctx)
         return {
             k: (None if c is None else c.init_state(cctx, derive_seed(seed, i)))
@@ -135,7 +148,10 @@ class CompositeNoise(WrapperNoise):
             m = _as_device(self.mask, ctx)
             m = scale_samples(m.reshape((-1, 1) + tuple(m.shape[-2:])), ctx.width, ctx.height,
                               mode="bilinear")
-            return m.repeat(-(-ctx.batch // m.shape[0]), 1, 1, 1)[: ctx.batch]
+            # on a shard, this rank's rows of the whole batch's tiling
+            b0 = 0 if ctx.shard is None else ctx.shard.offset[0]
+            batch = ctx.global_shape()[0]
+            return m.repeat(-(-batch // m.shape[0]), 1, 1, 1)[b0: b0 + ctx.batch]
 
         return _memo(self._masks, ctx, make)
 
@@ -149,7 +165,7 @@ class CompositeNoise(WrapperNoise):
                                        sigma, sigma_next, normalized=ns_)
         mask = self._prepared_mask(ctx)
         out = dst * (1.0 - mask) + src * mask
-        return scale_noise(out, self.factor, normalized=nr), state
+        return scale_noise(out, self.factor, normalized=nr, shard=ctx.shard), state
 
 
 # ---------------------------------------------------------------------------
@@ -176,8 +192,14 @@ class GuidedNoise(WrapperNoise):
         self._refs = {}
 
     def _ref(self, ctx):
-        return _memo(self._refs, ctx, lambda: scale_samples(
-            _as_device(self.ref_latent, ctx), ctx.width, ctx.height, mode="bicubic"))
+        def make():
+            ref = scale_samples(_as_device(self.ref_latent, ctx), ctx.width, ctx.height,
+                                mode="bicubic")
+            if ctx.shard is not None and tuple(ref.shape) == ctx.global_shape():
+                ref = ctx.block(ref)  # a guide of the whole latent: this rank's block
+            return ref
+
+        return _memo(self._refs, ctx, make)
 
     def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
         nn = self.get_normalize("normalize_noise", normalized)
@@ -193,17 +215,23 @@ class GuidedNoise(WrapperNoise):
         lerp = BLENDING_MODES["lerp"]
         s, sn = _host_f32(sigma), _host_f32(sigma_next)
         if self.method == "linear" or s == sn:
-            out = _guidance_linear(noise, ref, gf, blend=lerp, do_shift=have_noise)
+            # the shift's mean and std are the whole latent's
+            out = ctx.on_whole(lambda n, r: _guidance_linear(n, r, gf, blend=lerp,
+                                                             do_shift=have_noise), noise, ref)
         else:
             # guidance_euler with x = the noise (py/noise.py:600-614); the
             # reference passes the exemplar x as `denoised` for the shift
             shift_src = ctx.ref_like()
             if shift_src is None:
                 shift_src = noise
-            ref_shift = guidance_shift(shift_src, ref) if have_noise else ref
-            d = (noise - ref_shift) / float(s if s != 0 else np.float32(1.0))
-            out = noise + d * float(sn - s) * gf
-        return scale_noise(out, self.factor, normalized=nr), state
+
+            def euler(n, r, src):
+                ref_shift = guidance_shift(src, r) if have_noise else r
+                d = (n - ref_shift) / float(s if s != 0 else np.float32(1.0))
+                return n + d * float(sn - s) * gf
+
+            out = ctx.on_whole(euler, noise, ref, shift_src)
+        return scale_noise(out, self.factor, normalized=nr, shard=ctx.shard), state
 
 
 class ScheduledNoise(WrapperNoise):
@@ -235,7 +263,7 @@ class ScheduledNoise(WrapperNoise):
         else:
             noise, state = self.child_sample("fallback_noise", ctx, state, seed, sigma,
                                              sigma_next, normalized=False)
-        return scale_noise(noise, self.factor, normalized=normalize), state
+        return scale_noise(noise, self.factor, normalized=normalize, shard=ctx.shard), state
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +330,13 @@ class RepeatedNoise(WrapperNoise):
         state = {**state, "cache": cache, "counts": counts, "filled": min(filled + 1, L),
                  "last_idx": idx}
         if self.permute == "always" or (self.permute == "enabled" and not need_fresh):
-            noise = self._permuted(noise, rep_mode, r2, r3)
-        return scale_noise(noise, self.factor, normalized=normalize), state
+            nd = noise.ndim
+            permute = lambda t: self._permuted(t, rep_mode, r2, r3)  # noqa: E731
+            if ctx.splits((r2 % nd, r3 % nd)):  # rolled or flipped across ranks
+                noise = ctx.on_whole(permute, noise)
+            else:
+                noise = permute(noise)
+        return scale_noise(noise, self.factor, normalized=normalize, shard=ctx.shard), state
 
     @staticmethod
     def _permuted(noise, rep_mode, r2, r3):
@@ -406,21 +439,26 @@ class ModulatedNoise(WrapperNoise):
         if self.modulation_type == "none":
             noise, state = self.child_sample("noise", ctx, state, seed, sigma, sigma_next,
                                              normalized=nr or nn)
-            return scale_noise(noise, self.factor, normalized=False), state
+            return scale_noise(noise, self.factor, normalized=False, shard=ctx.shard), state
         mod_fn = _MODULATION_FUNCTIONS[self.modulation_type]
         dims = self.MODULATION_DIMS[self.modulation_dims - 1]
         noise, state = self.child_sample("noise", ctx, state, seed, sigma, sigma_next,
                                          normalized=nn)
-        if self.ref_latent_opt is not None:
+        _, sigma_up = get_ancestral_step(_host_f32(sigma), _host_f32(sigma_next), eta=1.0)
+
+        def modulate(n, ref):  # its norms, means and spectra span the whole latent
+            return mod_fn(scale_noise(ref, normalized=nref), n, 1.0, float(sigma_up),
+                          self.modulation_strength, dims)
+
+        if self.ref_latent_opt is not None:  # a reference of the whole latent
             ref = _memo(self._refs, ctx, lambda: _as_device(self.ref_latent_opt, ctx))
+            out = ctx.on_whole(lambda n: modulate(n, ref), noise)
         else:
             ref = ctx.ref_like()
             if ref is None:
                 ref = _zeros(ctx)
-        _, sigma_up = get_ancestral_step(_host_f32(sigma), _host_f32(sigma_next), eta=1.0)
-        out = mod_fn(scale_noise(ref, normalized=nref), noise, 1.0, float(sigma_up),
-                     self.modulation_strength, dims)
-        return scale_noise(out, self.factor, normalized=nr), state
+            out = ctx.on_whole(modulate, noise, ref)
+        return scale_noise(out, self.factor, normalized=nr, shard=ctx.shard), state
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +468,8 @@ class ModulatedNoise(WrapperNoise):
 
 class MultiChildNoise(NoiseItem):
     """Base for combinators over a list of children (a chain's items)."""
+
+    SHARDABLE = True  # draws a rank's block of a sharded latent (module docstring)
 
     def __init__(self, factor=1.0, *, items, **kwargs):
         items = (list(items.items) if hasattr(items, "items") and not callable(items.items)
@@ -494,7 +534,7 @@ class RandomNoise(MultiChildNoise):
             total = ni if total is None else total + ni
         if total is None:  # mix_count 0
             total = _zeros(ctx)
-        return scale_noise(total, self.factor, normalized=normalize), tuple(new_states)
+        return scale_noise(total, self.factor, normalized=normalize, shard=ctx.shard), tuple(new_states)
 
 
 # ---------------------------------------------------------------------------
@@ -530,7 +570,7 @@ class ChannelNoise(MultiChildNoise):
     def child_ctx(self, ctx, channel: int | None = None):
         """Per-channel ctx; the exemplar latent is sliced to the channel
         (the reference passes x[:, c:c+1] to each child, py/noise.py:1116-1123)."""
-        cctx = ctx.with_shape((ctx.shape[0], 1) + tuple(ctx.shape[2:]))
+        cctx = ctx.with_planes((ctx.shape[0], 1) + tuple(ctx.shape[2:]))
         ref = None
         if channel is not None:
             ref = ctx.ref_like()
@@ -563,7 +603,7 @@ class ChannelNoise(MultiChildNoise):
             chunks.append(ni)
             new_states.append(st)
         noise = torch.cat(chunks, dim=1)
-        return scale_noise(noise, self.factor, normalized=normalize), tuple(new_states)
+        return scale_noise(noise, self.factor, normalized=normalize, shard=ctx.shard), tuple(new_states)
 
 
 # ---------------------------------------------------------------------------
@@ -595,35 +635,42 @@ class RippleFilteredNoise(WrapperNoise):
         st["counter"] = 0
         return st
 
-    def _scaler(self, ctx):
-        nd = len(ctx.shape)
+    def _scaler(self, ctx, shape=None):
+        shape = tuple(ctx.shape if shape is None else shape)
+        nd = len(shape)
         dim = self.dim % nd
 
         def make():
             if self.flatten:
-                dim_els = math.prod(ctx.shape[dim:])
-                scaler_shape = (1,) * dim + tuple(ctx.shape[dim:])
+                dim_els = math.prod(shape[dim:])
+                scaler_shape = (1,) * dim + tuple(shape[dim:])
             else:
-                dim_els = ctx.shape[dim]
-                scaler_shape = tuple(ctx.shape[d] if d == dim else 1 for d in range(nd))
+                dim_els = shape[dim]
+                scaler_shape = tuple(shape[d] if d == dim else 1 for d in range(nd))
             fn = torch.sin if self.mode.startswith("sin") else torch.cos
             wave = fn(torch.linspace(self.offset, self.offset + math.pi * self.period, dim_els,
                                      dtype=ctx.dtype, device=default_device(ctx.device)))
             return (1.0 + torch.where(wave < 0, wave * self.amplitude_low,
                                       wave * self.amplitude_high)).reshape(scaler_shape)
 
-        return _memo(self._scalers, ctx, make), dim
+        key = ctx.with_shape(shape)
+        return _memo(self._scalers, key, make), dim
 
     def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
         normalize = self.get_normalize("normalize", normalized)
         noise, state = self.child_sample("noise", ctx, state, seed, sigma, sigma_next,
                                          normalized=self.normalize_noise)
-        scaler, dim = self._scaler(ctx)
+        nd = noise.ndim
+        across = ctx.splits(range(self.dim % nd, nd) if self.flatten else (self.dim,))
+        # a wave along a split dimension: the whole latent's, then this rank's block
+        scaler, dim = self._scaler(ctx, ctx.global_shape() if across else None)
         shift = int(np.float32(self.roll) * np.float32(state["counter"]))
         if shift:
             scaler = torch.roll(scaler, shift, dims=dim)
+        if across:
+            scaler = ctx.block(scaler.expand(ctx.global_shape()))
         state = {**state, "counter": state["counter"] + 1}
-        result = scale_noise(noise, self.factor, normalized=normalize) * scaler
+        result = scale_noise(noise, self.factor, normalized=normalize, shard=ctx.shard) * scaler
         if self.mode.endswith("_copysign"):
             result = torch.copysign(result, 1.0 - scaler)
         return result, state
@@ -679,6 +726,11 @@ class NormalizeToScaleNoise(WrapperNoise):
         normalize = self.get_normalize("normalize", normalized)
         noise, state = self.child_sample("noise", ctx, state, seed, sigma, sigma_next,
                                          normalized=self.normalize_noise)
+        # the ranges and corrections span the latent or a sample: the whole latent's
+        noise = ctx.on_whole(self._remap, noise)
+        return scale_noise(noise, self.factor, normalized=normalize, shard=ctx.shard), state
+
+    def _remap(self, noise):
         per_sample = noise.ndim >= 2 and bool(self.dims)
         if self.mode == "simple":
             if not per_sample:
@@ -701,7 +753,7 @@ class NormalizeToScaleNoise(WrapperNoise):
             nstd = (tstd(noise, dim=self.std_dims, keepdim=True) - 1.0) \
                 * self.std_multiplier + 1.0
             noise = noise / torch.where(nstd == 0, 1e-07, nstd)
-        return scale_noise(noise, self.factor, normalized=normalize), state
+        return noise
 
 
 # ---------------------------------------------------------------------------
@@ -738,7 +790,7 @@ class BlendedNoise(WrapperNoise):
         n1, state = self.child_sample("custom_noise_1", ctx, state, derive_seed(seed, 1),
                                       sigma, sigma_next, normalized=False)
         if self.custom_noise_2 is None:
-            return scale_noise(n1, self.factor, normalized=normalize), state
+            return scale_noise(n1, self.factor, normalized=normalize, shard=ctx.shard), state
         n2, state = self.child_sample("custom_noise_2", ctx, state, derive_seed(seed, 2),
                                       sigma, sigma_next, normalized=False)
         if self.custom_noise_mask is not None:
@@ -746,12 +798,15 @@ class BlendedNoise(WrapperNoise):
                                          derive_seed(seed, "mask"), sigma, sigma_next,
                                          normalized=False)
             # the reference's normalize_to_scale default: per batch (-3, -2, -1)
-            t = torch.clamp(normalize_to_scale(m, 0.0, 1.0, dim=(-3, -2, -1))
-                            + self.noise_2_percent, 0.0, 1.0)
+            def remap(v):
+                return torch.clamp(normalize_to_scale(v, 0.0, 1.0, dim=(-3, -2, -1))
+                                   + self.noise_2_percent, 0.0, 1.0)
+
+            t = ctx.on_whole(remap, m) if ctx.splits((-3, -2, -1)) else remap(m)
         else:
             t = float(np.float32(self.noise_2_percent))
         noise = self.blend_function(n1, n2, t)
-        return scale_noise(noise, self.factor, normalized=normalize), state
+        return scale_noise(noise, self.factor, normalized=normalize, shard=ctx.shard), state
 
 
 # ---------------------------------------------------------------------------
@@ -841,7 +896,7 @@ class ResizedNoise(WrapperNoise):
             return noise * self.factor, state
         noise, state = self.child_sample("custom_noise", ctx, state, seed, sigma,
                                          sigma_next, normalized=False)
-        return out(scale_noise(noise, self.factor, normalized=normalize)), state
+        return out(scale_noise(noise, self.factor, normalized=normalize, shard=ctx.shard)), state
 
 
 # ---------------------------------------------------------------------------
@@ -864,9 +919,13 @@ class LatentOperationFilteredNoise(WrapperNoise):
         normalize = self.get_normalize("normalize", normalized)
         noise, state = self.child_sample("noise", ctx, state, seed, sigma, sigma_next,
                                          normalized=self.normalize_noise)
-        for op in self.operations:
-            noise = op(latent=noise, sigma=sigma)
-        return scale_noise(noise, self.factor, normalized=normalize), state
+        def run(n):  # an operation may take statistics of the whole latent
+            for op in self.operations:
+                n = op(latent=n, sigma=sigma)
+            return n
+
+        noise = ctx.on_whole(run, noise)
+        return scale_noise(noise, self.factor, normalized=normalize, shard=ctx.shard), state
 
 
 # ---------------------------------------------------------------------------
@@ -891,10 +950,12 @@ class QuantileFilteredNoise(WrapperNoise):
         normalize = self.get_normalize("normalize", normalized)
         noise, state = self.child_sample("noise", ctx, state, seed, sigma, sigma_next,
                                          normalized=self.normalize_noise)
-        noise = quantile_normalize(noise, quantile=self.quantile, dim=self.norm_dim,
-                                   flatten=self.norm_flatten, nq_fac=self.norm_fac,
-                                   pow_fac=self.norm_pow, strategy=self.strategy)
-        return scale_noise(noise, self.factor, normalized=normalize), state
+        noise = ctx.across(quantile_dims(self.norm_dim, self.norm_flatten, noise.ndim),
+                           lambda n: quantile_normalize(
+                               n, quantile=self.quantile, dim=self.norm_dim,
+                               flatten=self.norm_flatten, nq_fac=self.norm_fac,
+                               pow_fac=self.norm_pow, strategy=self.strategy), noise)
+        return scale_noise(noise, self.factor, normalized=normalize, shard=ctx.shard), state
 
 
 # ---------------------------------------------------------------------------
@@ -928,6 +989,11 @@ class PerDimNoise(WrapperNoise):
             raise ValueError("Dimension out of range")
         return dim
 
+    def couples(self, ctx):
+        """The child's state is threaded chunk by chunk along ``dim``: along a
+        split dimension each rank would start from the initial state."""
+        return ctx.splits((self._dim(ctx),))
+
     def child_ctx(self, ctx):
         if not self.shrink_dim:
             return ctx
@@ -941,9 +1007,11 @@ class PerDimNoise(WrapperNoise):
         if ref is not None and tuple(ref.shape) == tuple(ctx.shape):
             ref = ref[_along(dim, len(shape), slice(self.offset,
                                                     self.offset + self.chunk_size))]
-        return dataclasses.replace(ctx, shape=shape, ref=ref)
+        return dataclasses.replace(ctx.with_planes(shape), ref=ref)
 
     def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
+        if ctx.shard is not None and self.couples(ctx):
+            return draw_whole(self, ctx, state, seed, sigma, sigma_next, normalized=normalized)
         normalize = self.get_normalize("normalize", normalized)
         dim = self._dim(ctx)
         dim_size, nd = ctx.shape[dim], len(ctx.shape)
@@ -964,7 +1032,7 @@ class PerDimNoise(WrapperNoise):
                 stop = min(start + self.chunk_size, dim_size)
                 pieces.append(full[_along(dim, nd, slice(start, stop))])
             noise = torch.cat(pieces, dim=dim)
-        return scale_noise(noise, self.factor, normalized=normalize), {**state, "noise": cstate}
+        return scale_noise(noise, self.factor, normalized=normalize, shard=ctx.shard), {**state, "noise": cstate}
 
 
 # ---------------------------------------------------------------------------
@@ -987,7 +1055,16 @@ class ShuffledNoise(WrapperNoise):
                          percentages=tuple(percentages), no_identity=no_identity,
                          fork_rng=fork_rng)
 
+    def couples(self, ctx):
+        """Its mask and permutation uniforms are numbered line by line, in
+        the order of the shuffled axis, over the whole latent, and along a
+        split dimension elements move between ranks: on any shard the whole
+        latent is drawn and shuffled."""
+        return True
+
     def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
+        if ctx.shard is not None:
+            return draw_whole(self, ctx, state, seed, sigma, sigma_next, normalized=normalized)
         nd = len(ctx.shape)
         dims = tuple(d if d >= 0 else nd + d for d in self.dims)
         if not all(0 <= d < nd for d in dims):
@@ -996,7 +1073,7 @@ class ShuffledNoise(WrapperNoise):
                                          sigma, sigma_next, normalized=normalized)
         if not self.percentages or not dims or all(p == 0 for p in self.percentages):
             return noise, state
-        noise = scale_noise(noise, self.factor, normalized=normalized)
+        noise = scale_noise(noise, self.factor, normalized=normalized, shard=ctx.shard)
         shuffle, n_p = derive_seed(seed, "shuffle"), len(self.percentages)
         for idx, dim in enumerate(dims):
             noise = elementwise_shuffle_by_dim(
@@ -1028,11 +1105,10 @@ class PatternBreakNoise(WrapperNoise):
                                      normalized=normalized)
         noise, state = self.child_sample("noise", ctx, state, seed, sigma, sigma_next,
                                          normalized=False)
-        noise = pattern_break(noise, percentage=self.percentage,
-                              detail_level=self.detail_level,
-                              blend_function=self.blend_function,
-                              restore_scale=self.restore_scale)
-        return scale_noise(noise, self.factor, normalized=normalized), state
+        noise = ctx.on_whole(lambda n: pattern_break(
+            n, percentage=self.percentage, detail_level=self.detail_level,
+            blend_function=self.blend_function, restore_scale=self.restore_scale), noise)
+        return scale_noise(noise, self.factor, normalized=normalized, shard=ctx.shard), state
 
 
 class CustomNoiseParametersNoise(WrapperNoise):
@@ -1113,8 +1189,8 @@ class CustomNoiseParametersNoise(WrapperNoise):
         if self.fix_invalid:
             finite = torch.nan_to_num(noise, nan=0.0, posinf=0.0, neginf=0.0)
             noise = torch.nan_to_num(noise, nan=0.0, posinf=math.inf, neginf=-math.inf)
-            noise = torch.where(torch.isposinf(noise), finite.max(), noise)
-            noise = torch.where(torch.isneginf(noise), finite.min(), noise)
+            noise = torch.where(torch.isposinf(noise), ctx.pmax(finite.max()), noise)
+            noise = torch.where(torch.isneginf(noise), ctx.pmin(finite.min()), noise)
         if self.ensure_square_aspect_ratio and cctx.shape != tuple(ctx.shape):
             hw_shape, spat = self._folded(ctx)
             hw = hw_shape[-spat:]
@@ -1122,7 +1198,7 @@ class CustomNoiseParametersNoise(WrapperNoise):
             noise = flat.reshape(flat.shape[:-1] + tuple(hw))
         if noise.shape != tuple(ctx.shape):
             noise = noise.reshape(tuple(ctx.shape))
-        return scale_noise(noise.to(ctx.dtype), self.factor, normalized=normalize), state
+        return scale_noise(noise.to(ctx.dtype), self.factor, normalized=normalize, shard=ctx.shard), state
 
 
 __all__ = [

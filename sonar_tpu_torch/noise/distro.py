@@ -39,6 +39,7 @@ float32 for bfloat16 and float16 contexts and are rounded once at the end.
 
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Callable
 
@@ -49,6 +50,7 @@ from ..core.normalize import quantile_normalize
 from ..core.rng import derive_seed, draw_laplace, draw_t
 from ..kernels.hwrng import philox_rand, philox_randn
 from ..utils.misc import default_device, work_dtype
+from .base import NoiseCtx, quantile_dims
 from .generators import Generator
 
 GAMMA_ROUNDS = 8
@@ -63,8 +65,18 @@ _F32 = np.float32
 # ---------------------------------------------------------------------------
 
 
-def _rand(seed, shape, dtype, device):
-    return philox_rand(seed, shape, device=device, dtype=dtype)
+# the ctx of the draw in progress: on a shard, every draw below is this
+# rank's slice of the whole latent's (an unsharded ctx outside a draw)
+_CTX: contextvars.ContextVar = contextvars.ContextVar("distro_ctx", default=NoiseCtx(shape=()))
+
+
+def _sliced(fn, seed, shape, lead=0, **kw):
+    """``fn(seed, shape, **kw)`` through the draw's ctx (``NoiseCtx.draw``)."""
+    return _CTX.get().draw(lambda s, sh, **k: fn(s, sh, **kw, **k), seed, shape, lead=lead)
+
+
+def _rand(seed, shape, dtype, device, lead=0):
+    return _sliced(philox_rand, seed, shape, lead, device=device, dtype=dtype)
 
 
 def _uniform(seed, shape, dtype, device, lo, hi):
@@ -79,8 +91,8 @@ def _u(seed, shape, dtype, device):
     return _uniform(seed, shape, dtype, device, 1e-7, 1.0 - 1e-7)
 
 
-def _normal(seed, shape, dtype, device):
-    return philox_randn(seed, shape, device=device, dtype=dtype)
+def _normal(seed, shape, dtype, device, lead=0):
+    return _sliced(philox_randn, seed, shape, lead, device=device, dtype=dtype)
 
 
 def _exp1(seed, shape, dtype, device):
@@ -134,8 +146,9 @@ def _log_gamma(seed, alpha, shape, dtype, device):
     d = a - 1.0 / 3.0
     c = torch.rsqrt(9.0 * d)
     shape = tuple(shape)
-    x = _normal(derive_seed(seed, 0), (GAMMA_ROUNDS,) + shape, dtype, device)
-    u = 1.0 - _rand(derive_seed(seed, 1), (GAMMA_ROUNDS + 1,) + shape, dtype, device)  # (0, 1]
+    x = _normal(derive_seed(seed, 0), (GAMMA_ROUNDS,) + shape, dtype, device, lead=1)
+    u = 1.0 - _rand(derive_seed(seed, 1), (GAMMA_ROUNDS + 1,) + shape, dtype, device,
+                    lead=1)  # (0, 1]
     v = (1.0 + c * x) ** 3
     ok = v > 0
     logv = torch.log(torch.where(ok, v, 1.0))
@@ -175,7 +188,7 @@ def _poisson_ptrs(seed, rate, shape, dtype, device):
     a = -0.059 + 0.02483 * b
     inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
     vr = 0.9277 - 3.6224 / (b - 2.0)
-    uv = _rand(seed, (2, POISSON_ROUNDS) + tuple(shape), dtype, device)
+    uv = _rand(seed, (2, POISSON_ROUNDS) + tuple(shape), dtype, device, lead=2)
     U, V = uv[0] - 0.5, uv[1]
     us = 0.5 - torch.abs(U)
     k = torch.floor((2.0 * a / us + b) * U + rate + 0.43)
@@ -287,7 +300,7 @@ def _kumaraswamy(seed, p, shape, dtype, device):
 
 
 def _laplacian(seed, p, shape, dtype, device):
-    z = draw_laplace(seed, shape, dtype, device=device)
+    z = _sliced(draw_laplace, seed, shape, dtype=dtype, device=device)
     return _arg(p["loc"], device, dtype) + _arg(p["scale"], device, dtype) * z
 
 
@@ -355,10 +368,12 @@ def _relaxed_onehotcategorical(seed, p, shape, dtype, device):
 def _studentt(seed, p, shape, dtype, device):
     df = np.asarray(p["df"], np.float32).reshape(-1)
     if df.size == 1:
-        t = draw_t(seed, float(df[0]), shape, dtype, device=device)
+        t = _sliced(lambda s, sh, **k: draw_t(s, float(df[0]), sh, dtype, **k), seed, shape,
+                    device=device)
     else:  # one df a slice of the trailing dim
-        t = torch.stack([draw_t(derive_seed(seed, j), float(v), tuple(shape)[:-1], dtype,
-                                device=device) for j, v in enumerate(df)], dim=-1)
+        t = torch.stack([_sliced(lambda s, sh, v=v, **k: draw_t(s, float(v), sh, dtype, **k),
+                                 derive_seed(seed, j), tuple(shape)[:-1], device=device)
+                         for j, v in enumerate(df)], dim=-1)
     return _arg(p["loc"], device, dtype) + _arg(p["scale"], device, dtype) * t
 
 
@@ -537,7 +552,11 @@ class DistroGenerator(Generator):
         return fn(seed, params, shape, work_dtype(ctx.dtype), default_device(ctx.device))
 
     def generate(self, ctx, state, seed, sigma, sigma_next):
-        noise = self.raw(ctx, seed)
+        token = _CTX.set(ctx)  # the draws read the shard from it
+        try:
+            noise = self.raw(ctx, seed)
+        finally:
+            _CTX.reset(token)
         # trim extra trailing dims via result_index cycling
         ris = self._result_indices()
         trim = 0
@@ -547,14 +566,16 @@ class DistroGenerator(Generator):
                 idx = noise.shape[-1] + idx
             noise = noise[..., max(0, min(noise.shape[-1] - 1, idx))]
             trim += 1
-        noise = quantile_normalize(
-            noise,
-            quantile=self.quantile_norm,
-            dim=self.quantile_norm_dim,
-            flatten=self.quantile_norm_flatten,
-            nq_fac=self.quantile_norm_fac,
-            pow_fac=self.quantile_norm_pow,
-        ).reshape(ctx.shape)
+        noise = ctx.across(
+            quantile_dims(self.quantile_norm_dim, self.quantile_norm_flatten, noise.ndim),
+            lambda n: quantile_normalize(
+                n,
+                quantile=self.quantile_norm,
+                dim=self.quantile_norm_dim,
+                flatten=self.quantile_norm_flatten,
+                nq_fac=self.quantile_norm_fac,
+                pow_fac=self.quantile_norm_pow,
+            ), noise).reshape(ctx.shape)
         return noise.to(ctx.dtype), state
 
 

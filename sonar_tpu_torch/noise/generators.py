@@ -53,6 +53,30 @@ def _shard_kw(ctx: NoiseCtx, shape) -> dict:
     return {} if ctx.shard is None else {"shard": ctx.field_shard(shape)}
 
 
+def _planes_kw(ctx: NoiseCtx) -> dict:
+    """B4's and B5's ``planes=`` for the latent's planes under a sharded ctx."""
+    return {} if ctx.shard is None else {"planes": ctx.shard.plane_runs()}
+
+
+def _bislerp_couples(mode: str, ctx: NoiseCtx) -> bool:
+    """``bislerp`` slerps each pixel's vector across the channels (a 5-D
+    latent's frames folded into them): where a channel or frame dimension is
+    split, that vector spans ranks."""
+    return mode == "bislerp" and ctx.splits(range(1, ctx.ndim - 2))
+
+
+def _lattice_shard(ctx: NoiseCtx, h: int, w: int):
+    """B3's ``shard=`` for a field of ``h × w`` planes per channel (the
+    latent's planes without the batch, e.g. Perlin's lattice, drawn once for
+    every batch row): None where the channels are whole on every rank."""
+    sh = ctx.shard
+    if sh is None or all(d == 0 for d in sh.dims):
+        return None
+    from ..parallel.mesh import LatentShard
+
+    return LatentShard(sh.global_shape[1:], sh.offset[1:], sh.local_shape[1:]).runs(h, w)
+
+
 class Generator(NoiseItem):
     """Leaf noise generator spec.
 
@@ -65,6 +89,7 @@ class Generator(NoiseItem):
     DEFAULT_NORMALIZED = True  # class default for the internal output hook
     MIN_DIMS = 1
     MAX_DIMS = 0
+    SHARDABLE = True  # draws a rank's block of a sharded latent (base module docstring)
 
     def __init__(self, factor: float = 1.0, *, normalize: bool | None = None, **kwargs):
         merged = dict(self.ng_params())
@@ -118,7 +143,13 @@ class Generator(NoiseItem):
     def hooked(self, ctx, state, seed, sigma, sigma_next, *, internal_default=None):
         """Nested-generator entry point: class-default internal hook."""
         d = self.DEFAULT_NORMALIZED if internal_default is None else internal_default
-        noise, state = self.generate(ctx, state, seed, sigma, sigma_next)
+        if ctx.shard is not None and self.couples(ctx):
+            # the whole latent's draw on every rank, and this rank's block
+            noise, state = self.generate(ctx.whole(), state, seed, sigma, sigma_next)
+            noise = ctx.block(noise, ctx.shape if noise.ndim == ctx.ndim
+                              else ctx.adjusted_shape())
+        else:
+            noise, state = self.generate(ctx, state, seed, sigma, sigma_next)
         return self.output_hook(noise, internal_default=d, shard=ctx.shard), state
 
     def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
@@ -135,7 +166,6 @@ class GaussianGenerator(Generator):
 
     name = "gaussian"
     DEFAULT_NORMALIZED = False
-    SHARDABLE = True  # B3 draws a shard at its global indices
 
     def generate(self, ctx, state, seed, sigma, sigma_next):
         return self.randn(ctx, seed, shape=ctx.shape), state
@@ -187,13 +217,16 @@ def perlin_noise(
     dtype=torch.float32,
     *,
     device,
+    shard=None,
 ) -> torch.Tensor:
     """Classic grid-gradient Perlin (py/noise_generation.py:300-476).
 
     Random angles on the (grid+1)² lattice (Philox uniforms times 2π); four
     corner gradients per cell; smoothstep blend of the corner dot products.
     Broadcasting instead of torch unfold, as the JAX package: the same
-    corner order (TL, TR, BL, BR) and (x, y) component layout.
+    corner order (TL, TR, BL, BR) and (x, y) component layout. ``shard``
+    draws a slice of the lattice's angles (kernel B3's): the
+    ``batch_size`` planes are then a rank's block of a larger lattice.
     """
     blend = blend if blend is not None else BLENDING_MODES["lerp"]
     gh, gw = grid_shape
@@ -203,8 +236,8 @@ def perlin_noise(
         raise ValueError(f"Output height {oh} must be divisible by grid height {gh}")
     if ow != bw * gw:
         raise ValueError(f"Output width {ow} must be divisible by grid width {gw}")
-    angle = philox_rand(seed, (batch_size, gh + 1, gw + 1), device=device,
-                        dtype=dtype) * (2.0 * math.pi)
+    angle = philox_rand(seed, (batch_size, gh + 1, gw + 1), device=device, dtype=dtype,
+                        **({} if shard is None else {"shard": shard})) * (2.0 * math.pi)
     # gradient components, last dim = (x, y)
     grad = torch.stack((torch.cos(angle), torch.sin(angle)), dim=-1)
     corners_v = (grad[:, :-1, :-1], grad[:, :-1, 1:], grad[:, 1:, :-1], grad[:, 1:, 1:])
@@ -262,6 +295,7 @@ class PerlinOldGenerator(Generator):
                 blend=blend,
                 dtype=noise.dtype,
                 device=noise.device,
+                shard=_lattice_shard(ctx, height + 1, ctx.width + 1),
             )
         return fix_output_frames(ctx, noise), state
 
@@ -317,6 +351,9 @@ class HighresPyramidGenerator(Generator):
             "schedule_seed": 0,
         }
 
+    def couples(self, ctx):
+        return _bislerp_couples(self.upscale_mode, ctx)
+
     def _inner(self):
         if self.noise_generator is not None:
             return self.noise_generator
@@ -337,7 +374,7 @@ class HighresPyramidGenerator(Generator):
             # are drawn (kernel B5), the oversized levels never exist
             coefs = [self.discount**i for i in range(len(sizes))]
             noise = fused_downscale_pyramid(draw, (b, c, h, w), sizes, coefs,
-                                            self.upscale_mode, base=noise)
+                                            self.upscale_mode, base=noise, **_planes_kw(ctx))
             return fix_output_frames(ctx, noise), state
         for i, (sh, sw) in enumerate(sizes):
             big = self.randn(ctx, derive_seed(draw, i), (b, c, sh, sw), noise.dtype)
@@ -364,13 +401,17 @@ class PyramidOldGenerator(Generator):
             "upscale_mode": "nearest-exact",
         }
 
+    def couples(self, ctx):
+        return _bislerp_couples(self.upscale_mode, ctx)
+
     def generate(self, ctx, state, seed, sigma, sigma_next):
         b, c, h, w = ctx.adjusted_shape()
         sizes = [(h * 2 ** (i + 1), w * 2 ** (i + 1)) for i in range(self.iterations)]
         if fused_downscale_supported(sizes, h, w, self.upscale_mode):
             coefs = [(0.5**i) * self.discount**i for i in range(self.iterations)]
             noise = fused_downscale_pyramid(seed, (b, c, h, w), sizes, coefs,
-                                            self.upscale_mode, device=_device(ctx))
+                                            self.upscale_mode, device=_device(ctx),
+                                            **_planes_kw(ctx))
             return fix_output_frames(ctx, noise), state
         noise = torch.zeros((b, c, h, w), dtype=ctx.dtype, device=_device(ctx))
         for i, (sh, sw) in enumerate(sizes):
@@ -386,7 +427,6 @@ class PyramidGenerator(Generator):
     name = "pyramid"
     MIN_DIMS = 4
     MAX_DIMS = 5
-    SHARDABLE = True  # B4 and B3 draw a shard's planes at their global indices
 
     @classmethod
     def ng_params(cls):
@@ -397,13 +437,15 @@ class PyramidGenerator(Generator):
             "schedule_seed": 0,
         }
 
+    def couples(self, ctx):
+        return _bislerp_couples(self.upscale_mode, ctx)
+
     def generate(self, ctx, state, seed, sigma, sigma_next):
         b, c, h, w = ctx.adjusted_shape()
         sizes = _size_ladder_pyramid(h, w, self.iterations, self.schedule_seed)
         if fused_pyramid_supported(sizes, h, w, self.upscale_mode):
-            planes = {} if ctx.shard is None else {"planes": ctx.shard.plane_runs()}
             noise = fused_pyramid(seed, (b, c, h, w), sizes, self.discount,
-                                  self.upscale_mode, device=_device(ctx), **planes)
+                                  self.upscale_mode, device=_device(ctx), **_planes_kw(ctx))
             return fix_output_frames(ctx, noise), state
         noise = self.randn(ctx, derive_seed(seed, "base"), (b, c, h, w))
         for i, (sh, sw) in enumerate(sizes):
@@ -433,10 +475,18 @@ class StudentTGenerator(Generator):
 
     def generate(self, ctx, state, seed, sigma, sigma_next):
         noise = self.loc + self.scale * draw_t(seed, self.df, ctx.shape, ctx.dtype,
-                                               device=_device(ctx))
-        flat = torch.abs(noise.reshape(ctx.shape[0], -1))
-        nq = tquantile(flat, self.quantile_fac, dim=-1) * self.nq_fac
-        nq = nq.reshape((ctx.shape[0],) + (1,) * (noise.ndim - 1))
+                                               device=_device(ctx),
+                                               **_shard_kw(ctx, ctx.shape))
+
+        def row_quantile(v):  # a batch row's |quantile|, on the whole row
+            flat = torch.abs(v.reshape(v.shape[0], -1))
+            nq = tquantile(flat, self.quantile_fac, dim=-1) * self.nq_fac
+            return nq.reshape((v.shape[0],) + (1,) * (v.ndim - 1)).expand(v.shape)
+
+        if ctx.splits(range(1, noise.ndim)):  # a row spans ranks
+            nq = ctx.on_whole(row_quantile, noise)
+        else:
+            nq = row_quantile(noise)
         noise = torch.clamp(noise, -nq, nq)
         return torch.copysign(torch.abs(noise) ** self.pow_fac, noise), state
 
@@ -470,7 +520,8 @@ class GreenTestGenerator(Generator):
         power[0, 0].fill_(self.power_base)  # a fill: assigning a number copies it to the card
         spec = torch.fft.fft2(noise) / torch.sqrt(power).to(torch.complex64)
         out = torch.fft.ifft2(spec)
-        out = out * (scale / tstd(out))
+        # the std of the whole latent's draw: on a shard, of the gathered blocks
+        out = out * (scale / tstd(ctx.gather(out)))
         return fix_output_frames(ctx, out.real.to(ctx.dtype)), state
 
 
@@ -503,7 +554,8 @@ class PowerOldGenerator(Generator):
     def generate(self, ctx, state, seed, sigma, sigma_next):
         b = ctx.shape[0]
         noise = self.rand(ctx, seed, shape=ctx.shape)
-        freq = torch.arange(1, b + 1, dtype=ctx.dtype, device=noise.device).reshape(
+        b0 = 0 if ctx.shard is None else ctx.shard.offset[0]  # the global batch rows
+        freq = torch.arange(b0 + 1, b0 + b + 1, dtype=ctx.dtype, device=noise.device).reshape(
             (b,) + (1,) * (len(ctx.shape) - 1))
         noise = noise * (self.k / freq**self.alpha)
         mean = noise.mean(dim=(-2, -1), keepdim=True)
@@ -512,8 +564,12 @@ class PowerOldGenerator(Generator):
 
 
 class OneFGenerator(Generator):
-    """1/f^alpha spectrum shaping over a full fftn, batch and channel axes
-    included (py/noise_generation.py:720-759)."""
+    """1/f^alpha spectrum shaping (py/noise_generation.py:720-759). The
+    reference's ``fftn`` spans the batch and channel axes too, but its gain
+    is a function of (H, W) alone, so the transform along those axes cancels
+    and the shaping is each plane's ``fft2``: the same values to float32
+    rounding, and a rank's block of a sharded latent is shaped on its own
+    planes."""
 
     name = "onef"
     MIN_DIMS = 4
@@ -542,9 +598,9 @@ class OneFGenerator(Generator):
             power = self.k / power
         power[0, 0].fill_(self.base_power)  # a fill: assigning a number copies it to the card
         power = power[None, None].to(torch.complex64)
-        spec = torch.fft.fftn(noise)
+        spec = torch.fft.fft2(noise)
         spec = spec / (torch.sqrt(power) if self.use_sqrt else power)
-        out = torch.fft.ifftn(spec).real.to(ctx.dtype)
+        out = torch.fft.ifft2(spec).real.to(ctx.dtype)
         return fix_output_frames(ctx, out), state
 
 
@@ -568,9 +624,10 @@ class PowerLawGenerator(Generator):
         modulation = torch.abs(noise) ** self.alpha
         noise = (torch.sign(noise) if self.use_sign else noise) * modulation
         if self.div_max_dims is not None:
-            noise = noise / torch.amax(
-                torch.abs(noise) if self.use_div_max_abs else noise,
-                dim=tuple(self.div_max_dims), keepdim=True)
+            dims = tuple(self.div_max_dims)
+            peak = torch.amax(torch.abs(noise) if self.use_div_max_abs else noise, dim=dims,
+                              keepdim=True)
+            noise = noise / ctx.pmax(peak, dims)  # over the ranks that split ``dims``
         return noise, state
 
 
@@ -588,7 +645,8 @@ class LaplacianGenerator(Generator):
     def generate(self, ctx, state, seed, sigma, sigma_next):
         noise = self.randn(ctx, derive_seed(seed, 0), shape=ctx.shape) / self.div_fac
         lap = self.loc + self.scale * draw_laplace(derive_seed(seed, 1), ctx.shape,
-                                                   ctx.dtype, device=_device(ctx))
+                                                   ctx.dtype, device=_device(ctx),
+                                                   **_shard_kw(ctx, ctx.shape))
         return noise + lap, state
 
 

@@ -52,6 +52,13 @@ class TypedNoiseItem(NoiseItem):
         gen_kwargs = p.pop("gen_kwargs")
         return self.__class__(factor, **p, **gen_kwargs)
 
+    @property
+    def SHARDABLE(self) -> bool:  # noqa: N802 (the other items' class attribute)
+        """Whether the named noise draws a rank's block of a sharded latent."""
+        from .base import shardable
+
+        return shardable(self._gen)
+
     def _ctx(self, ctx: NoiseCtx) -> NoiseCtx:
         return dataclasses.replace(
             ctx,

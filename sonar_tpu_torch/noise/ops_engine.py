@@ -191,6 +191,8 @@ class BlehOpsNoise(NoiseItem):
         super().check_dims(ctx)
         self.noise.check_dims(ctx)
 
+    SHARDABLE = True  # draws a rank's block of a sharded latent (base module docstring)
+
     def init_state(self, ctx, seed):
         return {"inner": self.noise.init_state(ctx, seed)}
 
@@ -204,7 +206,11 @@ class BlehOpsNoise(NoiseItem):
         noise, st = self.noise.sample(ctx, state["inner"], seed, sigma, sigma_next,
                                       normalized=False)
         if self.rules.rules:
-            prog_state = {"h": noise, "hsp": self._hsp(ctx, noise), "sigma": sigma}
-            noise = self.rules.eval(prog_state)["h"]
-        return (scale_noise(noise, self.factor, normalized=bool(normalize)),
+            # a rule may take statistics of the whole latent (a quantile, a
+            # normalization): the program runs on the ranks' gathered blocks
+            def run(h):
+                return self.rules.eval({"h": h, "hsp": self._hsp(ctx, h), "sigma": sigma})["h"]
+
+            noise = ctx.on_whole(run, noise)
+        return (scale_noise(noise, self.factor, normalized=bool(normalize), shard=ctx.shard),
                 {**state, "inner": st})

@@ -259,6 +259,7 @@ class PowerNoiseItem(NoiseItem):
 
     MIN_DIMS = 4
     MAX_DIMS = 4
+    SHARDABLE = True  # draws a rank's block of a sharded latent (base module docstring)
 
     def __init__(self, factor=1.0, *, power_filter: PowerFilter | None = None,
                  mix=1.0, common_mode=0.0, channel_correlation="1, 1, 1, 1, 1, 1",
@@ -327,10 +328,11 @@ class PowerNoiseItem(NoiseItem):
         else:
             shape = tuple(ctx.shape[:-1]) + (ctx.width // 2 + 1,)
             device = default_device(ctx.device)
-            rfft = torch.complex(philox_randn(derive_seed(seed, 0), shape, device=device),
-                                 philox_randn(derive_seed(seed, 1), shape, device=device))
+            kw = {} if ctx.shard is None else {"shard": ctx.field_shard(shape)}
+            rfft = torch.complex(philox_randn(derive_seed(seed, 0), shape, device=device, **kw),
+                                 philox_randn(derive_seed(seed, 1), shape, device=device, **kw))
             out = self._filtered(ctx, rfft, filter_rfft, is_spatial=False)
-        return scale_noise(out, self.factor, normalized=bool(eff)), state
+        return scale_noise(out, self.factor, normalized=bool(eff), shard=ctx.shard), state
 
 
 class PowerFilterNoiseItem(PowerNoiseItem):
@@ -356,7 +358,7 @@ class PowerFilterNoiseItem(PowerNoiseItem):
                                       normalized=bool(normalize_noise))
         out = self._filtered(ctx, noise, self.filter_tensor(ctx), is_spatial=True)
         return (
-            scale_noise(out, self.factor, normalized=bool(normalize_result)),
+            scale_noise(out, self.factor, normalized=bool(normalize_result), shard=ctx.shard),
             {**state, "inner": st},
         )
 

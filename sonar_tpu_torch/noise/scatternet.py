@@ -166,8 +166,15 @@ class ScatternetFilteredGenerator(Generator):
         b, c, h, w = ctx.adjusted_shape()
         return (b, c, h * comp, w * comp)
 
+    def couples(self, ctx):
+        """Its output is padded or trimmed on the whole flattened draw, so a
+        rank's block takes elements of other rows: on any shard the whole
+        latent is drawn."""
+        return True
+
     def init_state(self, ctx, seed):
         self._validate()
+        ctx = ctx.whole()  # on a shard, the whole latent's draw (couples)
         if self.noise_sampler is None:
             return ()
         return self.noise_sampler.init_state(ctx.with_shape(self._inner_shape(ctx)), seed)
@@ -194,6 +201,9 @@ class ScatternetFilteredGenerator(Generator):
         return x
 
     def generate(self, ctx, state, seed, sigma, sigma_next):
+        if ctx.shard is not None:  # called directly by ScatternetFilteredNoise
+            noise, state = self.generate(ctx.whole(), state, seed, sigma, sigma_next)
+            return ctx.block(noise, ctx.adjusted_shape()), state
         self._validate()
         adjusted_shape = ctx.adjusted_shape()
         b, c, height, width = adjusted_shape
@@ -270,6 +280,7 @@ class ScatternetFilteredNoise(NoiseItem):
 
     MIN_DIMS = 4
     MAX_DIMS = 4
+    SHARDABLE = True  # the whole draw's block (ScatternetFilteredGenerator.couples)
 
     def __init__(self, factor=1.0, *, noise=None, normalize=None, normalize_noise=False,
                  padding_mode="symmetric", **gen_kwargs):
@@ -293,7 +304,8 @@ class ScatternetFilteredNoise(NoiseItem):
     def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
         normalize = self.normalize if self.normalize is not None else normalized
         noise, state = self._gen.generate(ctx, state, seed, sigma, sigma_next)
-        return scale_noise(noise, self.factor, normalized=bool(normalize)), state
+        return scale_noise(noise, self.factor, normalized=bool(normalize),
+                           shard=ctx.shard), state
 
 
 __all__ = ["ScatternetFilteredGenerator", "ScatternetFilteredNoise", "scat_layer_dtcwt",

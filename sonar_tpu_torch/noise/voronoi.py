@@ -27,6 +27,11 @@ there). On this card the kernel is the faster route for every prefix, so f1
 takes it too; its values are the per-axis path's bit for bit (minkowski
 to an ulp of ``pow``).
 
+On a sharded latent the feature points of a rank's planes are drawn at their
+global indices (a (B, C, N, 3) field of the latent's planes), B6 runs on the
+local planes, and fuzz's min and max and the cell ids' maximum are the
+whole latent's (over the ranks).
+
 Seeds: every ``fold_in``/``split`` of the JAX package is a
 :func:`~sonar_tpu_torch.core.rng.derive_seed` label of its own; feature
 points are Philox uniforms (kernel B3), so one seed gives the same points on
@@ -34,6 +39,8 @@ the CPU and the card.
 """
 
 from __future__ import annotations
+
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +50,12 @@ from ..core.rng import derive_seed
 from ..kernels.hwrng import philox_rand
 from ..kernels.voronoi import sqrt_rn, voronoi_kernel_supported, voronoi_ksmallest
 from ..utils.misc import fallback
+from .base import NoiseCtx
 from .generators import Generator, _device
+
+# the ctx of the draw in progress: its shard steers the global min, max and
+# fuzz uniforms of the distance and result modes (an unsharded ctx outside a draw)
+_CTX: contextvars.ContextVar = contextvars.ContextVar("voronoi_ctx", default=NoiseCtx(shape=()))
 
 
 def _parse_modes(spec: str, scale_key: str):
@@ -312,10 +324,14 @@ class VoronoiGenerator(Generator):
 
     def _fuzzed(self, result, fuzz: float, seed):
         """result + U(-1, 1)·max(|min|, |max|)·fuzz, remapped to the
-        unfuzzed [min, max] over the last two axes."""
-        rmin, rmax = torch.min(result), torch.max(result)
+        unfuzzed [min, max] over the last two axes. On a shard the min and
+        max are the whole latent's and the uniforms its draw's slice."""
+        ctx = _CTX.get()
+        rmin, rmax = ctx.pmin(torch.min(result)), ctx.pmax(torch.max(result))
         amt = torch.maximum(torch.abs(rmin), torch.abs(rmax)) * fuzz
-        u = philox_rand(seed, result.shape, device=result.device, dtype=result.dtype)
+        u = ctx.draw(lambda s, sh, **kw: philox_rand(s, sh, device=result.device,
+                                                      dtype=result.dtype, **kw),
+                     seed, result.shape)
         result = result + (u * 2 - 1) * amt
         return normalize_to_scale(result, rmin, rmax, dim=(-2, -1))
 
@@ -377,7 +393,7 @@ class VoronoiGenerator(Generator):
 
     def _result_cellid(self, d, env, kw):
         ids = torch.argmin(d, dim=-1).to(d.dtype)
-        return ids / torch.max(ids) + 1.0
+        return ids / _CTX.get().pmax(torch.max(ids)) + 1.0
 
     def _result_ridge(self, d, env, kw):
         kw = dict(kw)
@@ -541,6 +557,13 @@ class VoronoiGenerator(Generator):
         return self._apply_result(d, d_orig, octave, sr)
 
     def generate(self, ctx, state, seed, sigma, sigma_next):
+        token = _CTX.set(ctx)  # the distance and result modes read the shard from it
+        try:
+            return self._generate(ctx, state, seed, sigma, sigma_next)
+        finally:
+            _CTX.reset(token)
+
+    def _generate(self, ctx, state, seed, sigma, sigma_next):
         h, w = ctx.height, ctx.width
         dev = _device(ctx)
         # z-max policy (py/noise_generation.py:1871-1884); the reference's

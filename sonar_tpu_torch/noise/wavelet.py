@@ -254,6 +254,7 @@ class WaveletFilteredNoise(NoiseItem):
 
     MIN_DIMS = 4
     MAX_DIMS = 5
+    SHARDABLE = True  # draws a rank's block of a sharded latent (base module docstring)
 
     def __init__(self, factor=1.0, *, noise=None, noise_high=None, normalize_noise=False,
                  normalize=None, **gen_kwargs):
@@ -277,7 +278,8 @@ class WaveletFilteredNoise(NoiseItem):
     def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
         normalize = self.normalize if self.normalize is not None else normalized
         noise, state = self._gen.generate(ctx, state, seed, sigma, sigma_next)
-        return scale_noise(noise, self.factor, normalized=bool(normalize)), state
+        return scale_noise(noise, self.factor, normalized=bool(normalize),
+                           shard=ctx.shard), state
 
 
 __all__ = ["WaveletFilteredGenerator", "WaveletFilteredNoise", "WaveletGenerator"]

@@ -6,6 +6,8 @@ of ``sonar_tpu.parallel``)."""
 from .launch import run_world  # noqa: F401
 from .mesh import (  # noqa: F401
     LatentShard,
+    all_max,
+    all_min,
     all_reduce,
     latent_spec,
     make_mesh,

@@ -16,7 +16,9 @@ holding its own shard, and calls the collectives itself:
   denoiser's own.
 
 Every collective here is built from ``all_reduce`` and ``broadcast`` over a
-mesh axis's process group. Those two are the collectives that the gloo
+mesh axis's process group (a maximum or minimum over ranks is an
+``all_reduce`` of a world-sized stack in which each rank fills its entry),
+and a group of one rank makes no call at all. Those two are the collectives that the gloo
 backend takes on CUDA tensors, and NCCL takes one rank a card: so the same
 code runs as a 1-rank NCCL world on one card, as several gloo ranks sharing
 one card, and as gloo worlds on the CPU in the tests. ``ppermute`` (the
@@ -133,6 +135,8 @@ class LatentShard:
     offset: tuple[int, ...]
     local_shape: tuple[int, ...]
     groups: tuple = dataclasses.field(default=(), compare=False)
+    # the dimension each of ``groups`` splits
+    dims: tuple = dataclasses.field(default=(), compare=False)
 
     def __post_init__(self):
         g, o, n = self.global_shape, self.offset, self.local_shape
@@ -149,7 +153,7 @@ class LatentShard:
         """The shard a DTensor latent holds on this rank."""
         mesh, shape = x.device_mesh, tuple(x.shape)
         offset, local = [0] * len(shape), list(shape)
-        groups = []
+        groups, dims = [], []
         for i, p in enumerate(x.placements):
             if isinstance(p, Replicate):
                 continue
@@ -161,7 +165,8 @@ class LatentShard:
             local[p.dim] = shape[p.dim] // size
             offset[p.dim] = mesh.get_local_rank(i) * local[p.dim]
             groups.append(mesh.get_group(i))
-        return cls(shape, tuple(offset), tuple(local), tuple(groups))
+            dims.append(p.dim)
+        return cls(shape, tuple(offset), tuple(local), tuple(groups), tuple(dims))
 
     def plane_runs(self) -> tuple[int, int, int]:
         """The block's planes (all dimensions but H and W, row-major) in the
@@ -187,6 +192,32 @@ class LatentShard:
         first, run, stride = self.plane_runs()
         return first * h * w, run * h * w, stride * h * w
 
+    def plane_index(self, device) -> torch.Tensor:
+        """The global plane of each local plane (row-major), as int64."""
+        first, run, stride = self.plane_runs()
+        i = torch.arange(math.prod(self.local_shape[:-2]), dtype=torch.int64, device=device)
+        return first + (i // run) * stride + i % run
+
+    def groups_over(self, dims) -> tuple:
+        """The groups that split one of ``dims`` (a reduction over ``dims``
+        sums over these ranks; the others hold other rows)."""
+        nd = len(self.global_shape)
+        want = {d % nd for d in dims}
+        return tuple(g for g, d in zip(self.groups, self.dims) if d in want)
+
+    def resized(self, local_shape) -> "LatentShard":
+        """The same block of a field whose dimensions that are not split
+        have other sizes (a channel of the latent, another H × W)."""
+        local_shape = tuple(local_shape)
+        if len(local_shape) != len(self.local_shape) or any(
+                local_shape[d] != self.local_shape[d] for d in self.dims):
+            raise NotImplementedError(f"LatentShard: {local_shape} changes a split "
+                                      f"dimension of {self.local_shape}")
+        glob = tuple(self.global_shape[d] if d in self.dims else n
+                     for d, n in enumerate(local_shape))
+        off = tuple(self.offset[d] if d in self.dims else 0 for d in range(len(glob)))
+        return LatentShard(glob, off, local_shape, self.groups, self.dims)
+
     def rewrap(self, local: torch.Tensor, like: DTensor) -> DTensor:
         """``local`` (this rank's block) as a DTensor laid out as ``like``."""
         return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
@@ -210,14 +241,48 @@ def _collective(t: torch.Tensor):
             torch.cuda.set_sync_debug_mode(mode)
 
 
+def _groups(groups) -> tuple:
+    """The groups of ``groups`` (one group or a sequence) that hold more than
+    one rank: a sum over a 1-rank group is the value itself, and makes no
+    call."""
+    gs = groups if isinstance(groups, (tuple, list)) else (groups,)
+    return tuple(g for g in gs if dist.get_world_size(g) > 1)
+
+
 def all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
     """The sum of ``t`` over the ranks of each process group in ``groups``
-    (one group or a sequence, reduced in turn); ``t`` is left as it is."""
+    (one group or a sequence, reduced in turn); ``t`` is left as it is. Where
+    every group has one rank the result is a copy of ``t``, and no
+    collective runs."""
     out = t.contiguous().clone()
     with _collective(out):
-        for g in (groups if isinstance(groups, (tuple, list)) else (groups,)):
+        for g in _groups(groups):
             dist.all_reduce(out, group=g)
     return out
+
+
+def _all_extreme(t: torch.Tensor, groups, largest: bool) -> torch.Tensor:
+    for g in _groups(groups):
+        # a world-sized stack in which each rank fills its own entry: the sum
+        # over the ranks holds every rank's value, and the extreme is exact
+        buf = torch.zeros((dist.get_world_size(g),) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        buf[dist.get_rank(g)] = t
+        buf = all_reduce(buf, g)
+        t = buf.amax(0) if largest else buf.amin(0)
+    return t.clone()
+
+
+def all_max(t: torch.Tensor, groups) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over the ranks of each group in
+    ``groups`` (in turn), from ``all_reduce`` alone."""
+    return _all_extreme(t, groups, True)
+
+
+def all_min(t: torch.Tensor, groups) -> torch.Tensor:
+    """The elementwise minimum of ``t`` over the ranks of each group in
+    ``groups`` (in turn), from ``all_reduce`` alone."""
+    return _all_extreme(t, groups, False)
 
 
 def psum(t: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:

@@ -35,7 +35,8 @@ import torch
 
 from .ancestral import get_ancestral_step
 from .momentum import SonarConfig
-from .sonar import _host_sigmas, _setup
+from ..parallel.mesh import all_reduce
+from .sonar import _host_sigmas, _setup, current_shard, sharded
 
 __all__ = ["sample_dpm_fast", "sample_dpm_adaptive", "DPM_SOLVER_SAMPLERS"]
 
@@ -123,6 +124,7 @@ def _seg_step(model_fn, x, order, seg, noise, s_noise):
     return out
 
 
+@sharded
 def sample_dpm_fast(
     model,
     x: torch.Tensor,
@@ -159,6 +161,7 @@ def sample_dpm_fast(
     return x
 
 
+@sharded
 def sample_dpm_adaptive(
     model,
     x: torch.Tensor,
@@ -184,7 +187,8 @@ def sample_dpm_adaptive(
     """k-diffusion ``sample_dpm_adaptive``: PID-controlled adaptive
     DPM-Solver over [sigmas[0], last nonzero sigma]; ``max_steps`` bounds
     the attempts (a NaN error estimate would loop forever otherwise). One
-    host read an attempt: its error estimate."""
+    host read an attempt: its error estimate, on a shard the norm of the
+    whole latent's (the ranks' squares summed)."""
     if callback is not None:
         raise NotImplementedError("dpm_adaptive picks its own steps — callback is not supported")
     if order not in (2, 3):
@@ -201,7 +205,10 @@ def sample_dpm_adaptive(
     b1 = _F((pcoeff + icoeff + dcoeff) / pid_order)
     b2 = _F(-(pcoeff + 2.0 * dcoeff) / pid_order)
     b3 = _F(dcoeff / pid_order)
-    root_numel = math.sqrt(float(np.prod(x.shape)))
+    shard = current_shard()
+    # the whole latent's norm: each rank's squares summed over the ranks, so
+    # that every rank accepts and rejects the same attempts
+    root_numel = math.sqrt(float(np.prod(x.shape if shard is None else shard.global_shape)))
     one, t_end32 = _F(1.0), _F(t_end)
 
     def sigma_of(t):
@@ -245,7 +252,12 @@ def sample_dpm_adaptive(
         x_low, x_high = solver_step(xw, s, t_, 0.5 if order == 2 else 1.0 / 3.0,
                                     with_third=order == 3)
         delta = torch.clamp(torch.maximum(x_low.abs(), x_prev.to(wide).abs()) * rtol, min=atol)
-        error = torch.linalg.vector_norm((x_low - x_high) / delta) / root_numel
+        scaled = (x_low - x_high) / delta
+        if shard is None:
+            error = torch.linalg.vector_norm(scaled) / root_numel
+        else:
+            squares = all_reduce(torch.sum(scaled.double() ** 2).reshape(1), shard.groups)
+            error = torch.sqrt(squares[0]) / root_numel
         inv_err = one / (_F(error.item()) + _F(1e-8))  # the attempt's one host read
         if it == 0:
             errs[:] = inv_err

@@ -44,7 +44,7 @@ import torch
 from ..noise.base import NoiseItem
 from .ancestral import get_ancestral_step, to_d
 from .momentum import SonarConfig
-from .sonar import _host_sigmas, _run_loop, _setup, sample_sonar_dpmpp_sde
+from .sonar import _host_sigmas, _run_loop, _setup, sample_sonar_dpmpp_sde, sharded
 
 __all__ = [
     "sample_euler",
@@ -142,6 +142,7 @@ def _info(out, sigma, sigma_hat, denoised):
             "denoised": denoised}
 
 
+@sharded
 def sample_euler(
     model: Callable,
     x: torch.Tensor,
@@ -187,6 +188,7 @@ def sample_euler(
                      stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_euler_ancestral(
     model: Callable,
     x: torch.Tensor,
@@ -229,6 +231,7 @@ def sample_euler_ancestral(
                      stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_heun(
     model: Callable,
     x: torch.Tensor,
@@ -278,6 +281,7 @@ def sample_heun(
                      stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_dpmpp_2m(
     model: Callable,
     x: torch.Tensor,
@@ -322,6 +326,7 @@ def sample_dpmpp_2m(
                      start_step=start_step, stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_dpmpp_2s_ancestral(
     model: Callable,
     x: torch.Tensor,
@@ -375,6 +380,7 @@ def sample_dpmpp_2s_ancestral(
                      stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_ddim(
     model: Callable,
     x: torch.Tensor,
@@ -420,6 +426,7 @@ def sample_ddim(
                      stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_lcm(
     model: Callable,
     x: torch.Tensor,
@@ -466,6 +473,7 @@ def sample_lcm(
                      stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_dpmpp_2m_sde(
     model: Callable,
     x: torch.Tensor,
@@ -527,6 +535,7 @@ def sample_dpmpp_2m_sde(
                      return_state=return_state)
 
 
+@sharded
 def sample_dpmpp_3m_sde(
     model: Callable,
     x: torch.Tensor,
@@ -594,6 +603,7 @@ def sample_dpmpp_3m_sde(
                      stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_dpmpp_sde(
     model: Callable,
     x: torch.Tensor,
@@ -624,6 +634,7 @@ def sample_dpmpp_sde(
         start_step=start_step, stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_dpm_2(
     model: Callable,
     x: torch.Tensor,
@@ -675,6 +686,7 @@ def sample_dpm_2(
                      stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_dpm_2_ancestral(
     model: Callable,
     x: torch.Tensor,
@@ -725,6 +737,7 @@ def sample_dpm_2_ancestral(
                      stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_heunpp2(
     model: Callable,
     x: torch.Tensor,
@@ -852,11 +865,13 @@ def _res_multistep(
                      start_step=start_step, stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_res_multistep(model, x, sigmas, *, eta=0.0, **kw):
     """ComfyUI ``sample_res_multistep`` (deterministic: eta=0)."""
     return _res_multistep(model, x, sigmas, eta=eta, **kw)
 
 
+@sharded
 def sample_res_multistep_ancestral(model, x, sigmas, *, eta=1.0, **kw):
     """ComfyUI ``sample_res_multistep_ancestral`` (eta=1 default)."""
     return _res_multistep(model, x, sigmas, eta=eta, **kw)
@@ -869,6 +884,7 @@ sample_res_multistep.__wrapped__ = _res_multistep
 sample_res_multistep_ancestral.__wrapped__ = _res_multistep
 
 
+@sharded
 def sample_ddpm(
     model: Callable,
     x: torch.Tensor,

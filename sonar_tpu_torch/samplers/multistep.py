@@ -33,7 +33,7 @@ import torch
 
 from .ancestral import to_d
 from .momentum import SonarConfig
-from .sonar import _host_sigmas, _run_loop, _setup
+from .sonar import _host_sigmas, _run_loop, _setup, sharded
 
 __all__ = [
     "sample_deis",
@@ -143,7 +143,7 @@ def _make_d_sampler(name: str, max_order_default: int, mode: str, doc: str) -> C
     sampler.__name__ = name
     sampler.__qualname__ = name
     sampler.__doc__ = doc
-    return sampler
+    return sharded(sampler)
 
 
 sample_deis = _make_d_sampler(
@@ -291,6 +291,7 @@ def _uni_pc(model, x, sigmas, *, variant: str, seed=None, extra_args=None, callb
     return out * inv_alpha_last
 
 
+@sharded
 def sample_uni_pc(model, x, sigmas, *, seed=None, extra_args=None, callback=None,
                   method="scan", resume_from=None, start_step=0, stop_step=None,
                   return_state=False):
@@ -302,6 +303,7 @@ def sample_uni_pc(model, x, sigmas, *, seed=None, extra_args=None, callback=None
                    start_step=start_step, stop_step=stop_step, return_state=return_state)
 
 
+@sharded
 def sample_uni_pc_bh2(model, x, sigmas, *, seed=None, extra_args=None, callback=None,
                       method="scan", resume_from=None, start_step=0, stop_step=None,
                       return_state=False):

@@ -27,7 +27,7 @@ from ..core.rng import derive_seed, seed_from
 from ..kernels.hwrng import philox_randn
 from ..noise.base import NoiseItem, make_noise_sampler
 from .schedules import karras_ramp
-from .sonar import _host_sigmas, sample_sonar_euler
+from .sonar import _host_sigmas, current_shard, sample_sonar_euler, sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +65,7 @@ def default_segments(sigmas, *, n_restarts: int = 1, segment_steps: int = 4,
     return tuple(out)
 
 
+@sharded
 def sample_restart(
     model: Callable,
     x: torch.Tensor,
@@ -98,16 +99,20 @@ def sample_restart(
     sigma_min_all = float(pos.min()) if pos.size else 0.0
     sigma_max_all = float(sigmas.max())
     noise_fn = noise_state = None
+    # on a shard, the jumps' noise is this rank's block of the whole latent's
+    shard = current_shard()
+    shape = tuple(x.shape if shard is None else shard.global_shape)
     if custom_noise is not None:
         noise_fn, noise_state = make_noise_sampler(
-            custom_noise, tuple(x.shape), dtype=x.dtype, device=x.device,
+            custom_noise, shape, dtype=x.dtype, device=x.device,
             sigma_min=sigma_min_all, sigma_max=sigma_max_all,
-            seed=derive_seed(base, "restart"), normalized=True, ref_latent=x)
+            seed=derive_seed(base, "restart"), normalized=True, ref_latent=x, shard=shard)
+    block = {} if shard is None else {"shard": shard.runs(*shape[-2:])}
 
     def draw(state, t0, t1, idx):
         if noise_fn is None:
             return (philox_randn(derive_seed(base, "gauss", idx), tuple(x.shape),
-                                 device=x.device, dtype=x.dtype), state)
+                                 device=x.device, dtype=x.dtype, **block), state)
         return noise_fn(state, float(np.float32(t0)), float(np.float32(t1)))
 
     inner_calls = 0

@@ -15,11 +15,14 @@ Noise injection: pass ``noise_item`` (a NoiseItem spec) or ``noise_sampler``
 as a plain callable ``fn(step, sigma, sigma_next) -> noise`` (e.g. a
 recorded stream for trajectory-equivalence tests).
 
-Sharded latents: a ``DTensor`` latent (``parallel.shard_latent``) is stepped
-on its local shard. The model sees the local rows, kernel B1 runs on the
-shard, the noise is this rank's block of the whole latent's draw, normalized
-with the whole latent's statistics, and the result is a ``DTensor`` with the
-input's placements.
+Sharded latents: every sampler of the registry takes a ``DTensor`` latent
+(``parallel.shard_latent``) through :func:`sharded`, and steps its local
+shard. The model sees the local rows, kernel B1 runs on the shard, the noise
+is this rank's block of the whole latent's draw, normalized with the whole
+latent's statistics, and the result is a ``DTensor`` with the input's
+placements. Every host decision of a step must come out the same on every
+rank (an adaptive step's accept reads a norm summed over the ranks), or the
+ranks would part ways and then wait for each other in a collective.
 
 Type promotion: the per-step scalars are host floats, which follow the
 latent's type, so a bfloat16 latent is stepped in bfloat16 (the JAX
@@ -30,7 +33,9 @@ both sides.
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -65,6 +70,16 @@ class _Setup:
     ref_latent: torch.Tensor | None
 
 
+# the shard of the sampler call in progress (a ``parallel.LatentShard``), or None
+_SHARD: contextvars.ContextVar = contextvars.ContextVar("sampler_shard", default=None)
+
+
+def current_shard():
+    """Where the latent of the sampler call in progress lies (a
+    ``parallel.LatentShard``), or None for a whole latent."""
+    return _SHARD.get()
+
+
 def _unshard(x):
     """``(local latent, shard, wrap)``: a DTensor latent's local block, where
     it lies (a ``parallel.LatentShard``) and a function that turns a result
@@ -83,14 +98,35 @@ def _unshard(x):
     return x.to_local(), (shard if shard.groups else None), wrap
 
 
+def sharded(sampler: Callable) -> Callable:
+    """``sampler(model, x, sigmas, ...)`` that also takes a DTensor latent:
+    it runs on the local block, with :func:`current_shard` saying where the
+    block lies (``_setup`` draws the block's noise from it), and its result
+    is a DTensor laid out as ``x``. A plain latent inside a sharded call (a
+    sampler that calls another) keeps the call's shard."""
+
+    @functools.wraps(sampler)
+    def run(model, x, sigmas, *args, **kwargs):
+        if not isinstance(x, DTensor):
+            return sampler(model, x, sigmas, *args, **kwargs)
+        local, shard, wrap = _unshard(x)
+        token = _SHARD.set(shard)
+        try:
+            return wrap(sampler(model, local, sigmas, *args, **kwargs))
+        finally:
+            _SHARD.reset(token)
+
+    return run
+
+
 def _host_sigmas(sigmas) -> torch.Tensor:
     """The schedule as a float32 CPU tensor (one copy per run)."""
     return torch.as_tensor(sigmas).detach().to("cpu", torch.float32).reshape(-1)
 
 
 def _setup(model, x, sigmas, *, cfg: SonarConfig, default_noise_type: str,
-           noise_item, noise_sampler, seed, extra_args, need_noise: bool,
-           shard=None) -> _Setup:
+           noise_item, noise_sampler, seed, extra_args, need_noise: bool) -> _Setup:
+    shard = current_shard()
     extra_args = dict(extra_args or {})
     seed = seed_from(extra_args.pop("seed", seed))
     s = _host_sigmas(sigmas)
@@ -190,6 +226,7 @@ def _run_loop(step_fn, x, n_steps: int, mom_state, noise_state, *, callback=None
     return (carry[0], carry) if return_state else carry[0]
 
 
+@sharded
 def sample_sonar_euler(
     model: Callable,
     x: torch.Tensor,
@@ -207,13 +244,11 @@ def sample_sonar_euler(
     stop_step: int | None = None,
     return_state: bool = False,
 ) -> torch.Tensor:
-    """Deterministic momentum Euler (py/sonar.py:452-526). A DTensor latent
-    is stepped on its shard (module docstring)."""
+    """Deterministic momentum Euler (py/sonar.py:452-526)."""
     cfg = (sonar_config or SonarConfig()).updated(sonar_params)
-    x, shard, wrap = _unshard(x)
     st = _setup(model, x, sigmas, cfg=cfg, default_noise_type="gaussian",
                 noise_item=None, noise_sampler=noise_sampler, seed=seed,
-                extra_args=extra_args, need_noise=False, shard=shard)
+                extra_args=extra_args, need_noise=False)
     sig = st.sigmas
 
     def step_fn(carry, i):
@@ -227,10 +262,9 @@ def sample_sonar_euler(
         return (out, mom, nstate), {"x": out, "sigma": sigma, "sigma_hat": sigma,
                                     "denoised": denoised}
 
-    return wrap(_run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x), (),
-                          callback=callback, method=method, resume_from=resume_from,
-                          start_step=start_step, stop_step=stop_step,
-                          return_state=return_state))
+    return _run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x), (),
+                     callback=callback, method=method, resume_from=resume_from,
+                     start_step=start_step, stop_step=stop_step, return_state=return_state)
 
 
 def _fused_eligible(cfg: SonarConfig) -> bool:
@@ -293,6 +327,7 @@ def _momentum_tables(cfg: SonarConfig, sched, device) -> torch.Tensor:
     ]).to(device)
 
 
+@sharded
 def sample_sonar_euler_ancestral(
     model: Callable,
     x: torch.Tensor,
@@ -327,8 +362,7 @@ def sample_sonar_euler_ancestral(
     CONST/flow models (see :func:`get_ancestral_step_rf`); it always takes
     the composed path.
 
-    A DTensor latent is stepped on its shard (module docstring); the kernel
-    B1 tables stay one per run.
+    On a DTensor latent the kernel B1 tables stay one per run.
     """
     if ancestral_mode not in ("vp", "rf"):
         raise ValueError(f"ancestral_mode must be 'vp' or 'rf', "
@@ -340,10 +374,9 @@ def sample_sonar_euler_ancestral(
             "(the fused momentum kernel bakes the VP noise injection); "
             "leave use_fused=None to auto-select the unfused path")
     cfg = (sonar_config or SonarConfig()).updated(sonar_params)
-    x, shard, wrap = _unshard(x)
     st = _setup(model, x, sigmas, cfg=cfg, default_noise_type="gaussian",
                 noise_item=noise_item, noise_sampler=noise_sampler, seed=seed,
-                extra_args=extra_args, need_noise=True, shard=shard)
+                extra_args=extra_args, need_noise=True)
     sig = st.sigmas
     sched = _ancestral_schedule(sig, eta, s_noise, rf)
     fused = (use_fused is None or use_fused) and _fused_eligible(cfg) and not rf
@@ -377,10 +410,10 @@ def sample_sonar_euler_ancestral(
             out = out + noise * noise_scale[i]
         return (out, mom, nstate), {"x": out, **info}
 
-    return wrap(_run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x),
-                          st.noise_state, callback=callback, method=method,
-                          resume_from=resume_from, start_step=start_step,
-                          stop_step=stop_step, return_state=return_state))
+    return _run_loop(step_fn, x, len(sig) - 1, init_momentum_state(x),
+                     st.noise_state, callback=callback, method=method,
+                     resume_from=resume_from, start_step=start_step,
+                     stop_step=stop_step, return_state=return_state)
 
 
 def _dpmpp_sde_schedule(sigmas: list[float], eta: float, s_noise: float, r: float):
@@ -409,6 +442,7 @@ def _dpmpp_sde_schedule(sigmas: list[float], eta: float, s_noise: float, r: floa
             "end": stage(sigma_next)}
 
 
+@sharded
 def sample_sonar_dpmpp_sde(
     model: Callable,
     x: torch.Tensor,

@@ -52,6 +52,7 @@ def parallel_world(data: dict) -> dict:
     from sonar_tpu_torch.core.normalize import scale_noise
     from sonar_tpu_torch.kernels.hwrng import philox_rand, philox_randn
     from sonar_tpu_torch.noise import get_noise_item, make_noise_sampler
+    from sonar_tpu_torch.noise.base import NoiseItem
     from sonar_tpu_torch.parallel import LatentShard, make_mesh, placements, shard_latent
     from sonar_tpu_torch.samplers.sonar import (sample_sonar_euler,
                                                 sample_sonar_euler_ancestral)
@@ -103,9 +104,13 @@ def parallel_world(data: dict) -> dict:
                                         shard=sh)
             draws[what][name] = _np(fn(st, 5.0, 1.0)[0])
     out["draws"] = draws
+
+    class UserNoise(NoiseItem):  # a user's own item: it does not say SHARDABLE
+        def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
+            return torch.zeros(ctx.shape), state
+
     out["refused"] = _raised(lambda: make_noise_sampler(
-        get_noise_item("perlin"), (4, 4, 16, 16), device="cpu", seed=4,
-        shard=LatentShard.of(xs)))
+        UserNoise(), (4, 4, 16, 16), device="cpu", seed=4, shard=LatentShard.of(xs)))
 
     # scale_noise's global mode on a shard, and the dead-band of the global N
     for key in ("stats", "deadband"):
@@ -326,6 +331,7 @@ def parallel_train_world(data: dict) -> dict:
                                         shard_dit_params)
     from sonar_tpu_torch.models.unet import UNet, UNetConfig
     from sonar_tpu_torch.noise import NoiseChain, get_noise_item
+    from sonar_tpu_torch.noise.base import NoiseItem
     from sonar_tpu_torch.parallel import (LatentShard, make_mesh, shard_latent, shard_target,
                                           shard_unet_params, unet_param_shardings)
     from sonar_tpu_torch.parallel.grad import reduce_from
@@ -509,7 +515,354 @@ def parallel_train_world(data: dict) -> dict:
     finally:
         S.make_noise_sampler = S_make
     out["chain"] = {"x": _np(res.to_local()), "draws": draws, "placements": str(res.placements)}
+
+    class UserNoise(NoiseItem):  # a user's own item: it does not say SHARDABLE
+        def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
+            return torch.zeros(ctx.shape), state
+
     out["chain_refused"] = _raised(lambda: S.make_noise_sampler(
-        NoiseChain([get_noise_item("gaussian"), get_noise_item("perlin")]), tuple(xs.shape),
+        NoiseChain([get_noise_item("gaussian"), UserNoise()]), tuple(xs.shape),
         device="cpu", seed=0, shard=LatentShard.of(xs)))
     return out
+
+
+# -- tests/test_torch_parallel_samplers.py ------------------------------------------------
+
+
+SAMPLER_SHAPE = (4, 4, 16, 16)
+# the SDE samplers, whose default noise is Brownian
+SDE_NAMES = ("sonar_dpmpp_sde", "dpmpp_sde", "dpmpp_sde_gpu", "dpmpp_2m_sde",
+             "dpmpp_2m_sde_gpu", "dpmpp_3m_sde", "dpmpp_3m_sde_gpu")
+
+
+def sampler_sigmas():
+    """A Karras-style schedule 14.6 → 0.03 of six steps and a final 0."""
+    ramp = np.linspace(0, 1, 6)
+    s = (14.6 ** (1 / 7.0) + ramp * (0.03 ** (1 / 7.0) - 14.6 ** (1 / 7.0))) ** 7.0
+    return np.concatenate([s, [0.0]]).astype(np.float32)
+
+
+def takes_noise_sampler(fn) -> bool:
+    import inspect
+
+    return "noise_sampler" in inspect.signature(fn).parameters
+
+
+def restart_table(k: int, shape) -> np.ndarray:
+    """The k-th restart jump's normals (the parent hands JAX the same)."""
+    return np.random.default_rng([7, k]).standard_normal(tuple(shape)).astype(np.float32)
+
+
+def _counting(fn, calls: list):
+    def den(x, s, **kw):
+        calls.append(1)
+        return fn(x, s, **kw)
+
+    return den
+
+
+def guided_cases(device="cpu"):
+    """The JAX package's dryrun paths (``__graft_entry__.py:259-366``) on the
+    port, at CPU size: name → (pipeline, x0, sigmas). The same seeds build
+    the same weights in the parent and in every rank."""
+    from sonar_tpu_torch.api import SonarPipeline
+    from sonar_tpu_torch.api.guider import make_latent_op_cfg_function
+    from sonar_tpu_torch.cfg import (DiscreteSampling, FreeUExtremeConfig, Flow, WaveletCFG,
+                                     WCFGRules, make_freeu_patches)
+    from sonar_tpu_torch.models import make_dit_denoiser
+    from sonar_tpu_torch.models.dit import DiTConfig, init_dit_params
+    from sonar_tpu_torch.models.unet import UNetConfig, init_unet_params, make_denoiser
+    from sonar_tpu_torch.noise import get_noise_item
+    from sonar_tpu_torch.noise.power import PowerFilter
+
+    ucfg = UNetConfig(model_channels=16, channel_mult=(1, 2), attention_levels=(1,),
+                      num_heads=2, norm_groups=4)
+    unet = init_unet_params(torch.Generator().manual_seed(0), ucfg, device=device)
+    ms = DiscreteSampling()
+    frux = FreeUExtremeConfig(target="backbone", stage_1=True, scale=1.1, hidden_mean=True,
+                              sonar_power_filter=PowerFilter(max_freq=0.3))
+    patches = make_freeu_patches(model_sampling=ms, model_channels=16, output_config=frux)
+    model = make_denoiser(unet)
+    rules = WCFGRules.build(wave="db4", level=2, padding_mode="periodization",
+                            high_precision_mode=False,
+                            diff=dict(yl_scale=6.0, yh_scales=[5.0, "fill"]))
+    lo_cfg = make_latent_op_cfg_function(
+        operations=(lambda latent=None, **kw: latent * 1.05,), mode="denoised",
+        blend_scale_mode="reverse_sampling", blend_strength=0.5, model_sampling=ms)
+    x0 = torch.from_numpy(np.random.default_rng(3).standard_normal(SAMPLER_SHAPE)
+                          .astype(np.float32) * 14.6).to(device)
+    sig = sampler_sigmas()
+    cases = {
+        "wcfg_freeu_latent_op": SonarPipeline(
+            model=make_denoiser(unet, block_patches=patches), model_uncond=model,
+            sampler="sonar_euler", cfg_scale=6.0, wavelet_cfg=WaveletCFG(rules=rules),
+            latent_op_cfg=lo_cfg, model_sampling=ms, seed=11),
+        "dpmpp_2s_ancestral_pyramid": SonarPipeline(
+            model=model, sampler="dpmpp_2s_ancestral", cfg_scale=1.0, model_sampling=ms,
+            seed=19, noise=get_noise_item("pyramid")),
+        "uni_pc": SonarPipeline(model=model, sampler="uni_pc", cfg_scale=1.0,
+                                model_sampling=ms, seed=19),
+    }
+    out = {k: (p, x0, sig) for k, p in cases.items()}
+    fms = Flow(shift=3.0)
+    dit = init_dit_params(torch.Generator().manual_seed(12),
+                          DiTConfig(hidden=32, depth=2, num_heads=4, patch_size=2), device=device)
+    fden = make_dit_denoiser(dit, prediction="flow", timestep_fn=fms.timestep)
+    fx = torch.from_numpy(np.random.default_rng(5).standard_normal(SAMPLER_SHAPE)
+                          .astype(np.float32)).to(device)
+    out["flow_dit"] = (SonarPipeline(model=fden, model_sampling=fms, seed=17), fx,
+                       np.asarray([1.0, 0.75, 0.5, 0.25, 0.0], np.float32))
+    return out
+
+
+@torch.no_grad()
+def parallel_samplers_world(data: dict) -> dict:
+    """Every case of ``test_torch_parallel_samplers.py`` in one 4-rank world:
+    the 31 registry names on a dp-sharded latent on injected noise, the SDE
+    names on their default Brownian noise, and the guided paths."""
+    import sonar_tpu_torch.samplers.restart as restart
+    from sonar_tpu_torch.api.functions import SAMPLERS
+    from sonar_tpu_torch.parallel import LatentShard, make_mesh, shard_latent
+
+    mesh = make_mesh(axis_names=("dp",), device_type="cpu")
+    xs = shard_latent(torch.from_numpy(data["x0"]), mesh)
+    sh = LatentShard.of(xs)
+    rows = slice(sh.offset[0], sh.offset[0] + sh.local_shape[0])
+    model = _stub(data["target"][rows])
+    sig = torch.from_numpy(sampler_sigmas())
+    injected = lambda i, s, sn: torch.from_numpy(data["noises"][i][rows])  # noqa: E731
+    # restart's jumps: this rank's rows of the k-th table draw of the whole latent
+    jumps = []
+
+    def table_randn(seed, shape, *, device, dtype=torch.float32, stream=0, shard=None):
+        full = restart_table(len(jumps), SAMPLER_SHAPE)
+        jumps.append(tuple(shape))
+        return torch.from_numpy(full[rows]).to(device=device, dtype=dtype)
+
+    out: dict = {"rank": dist.get_rank(), "box": (sh.offset, sh.local_shape)}
+    real_randn = restart.philox_randn
+    restart.philox_randn = table_randn
+    try:
+        for name, fn in sorted(SAMPLERS.items()):
+            calls = []
+            kw = {"noise_sampler": injected} if takes_noise_sampler(fn) else {}
+            res = fn(_counting(model, calls), xs, sig, seed=3, **kw)
+            out[name] = (_np(res.to_local()), str(res.placements), len(calls))
+    finally:
+        restart.philox_randn = real_randn
+    out["restart_jumps"] = len(jumps)
+    for name in SDE_NAMES:
+        out["brownian " + name] = _np(SAMPLERS[name](model, xs, sig, seed=3).to_local())
+    for name, (pipe, x0, s) in guided_cases().items():
+        res = pipe(shard_latent(x0, mesh), torch.from_numpy(s))
+        out["guided " + name] = (_np(res.to_local()), str(res.placements))
+    return out
+
+
+# -- tests/test_torch_parallel_noise.py ---------------------------------------------------
+
+
+# the layouts of test_torch_parallel.py's test_sharded_draws_are_slices
+NOISE_LAYOUTS = {"dp": (4, 4, 16, 16), "dp ragged": (4, 3, 5, 7), "sp": (1, 4, 8, 16, 16)}
+NOISE_SIGMAS = ((5.0, 1.0), (1.0, 0.5))  # two draws: the second reads the first's state
+
+
+def combinator_trees() -> dict:
+    """A few combinator trees: name → (item, layout). Among them the items
+    that couple along the split axis (ShuffledNoise, PerDimNoise on it)."""
+    from sonar_tpu_torch.noise import get_noise_item
+    from sonar_tpu_torch.noise.combinators import (
+        BlendedNoise, ChannelNoise, CustomNoiseParametersNoise, GuidedNoise, ModulatedNoise,
+        NormalizeToScaleNoise, PerDimNoise, QuantileFilteredNoise, RepeatedNoise,
+        RippleFilteredNoise, ShuffledNoise)
+    from sonar_tpu_torch.noise.voronoi import VoronoiGenerator
+
+    g, py = get_noise_item("gaussian"), get_noise_item("pyramid")
+    zwalk = VoronoiGenerator(n_points=(16,), z_increment=0.35, z_range=10.0, result_mode=("f1",))
+    return {
+        "shuffled batch": (ShuffledNoise(noise=g, dims=(0, -1)), "dp"),
+        "shuffled width": (ShuffledNoise(noise=py, dims=(-1,), percentages=(0.5,)), "dp"),
+        "perdim batch": (PerDimNoise(noise=get_noise_item("brownian"), dim=0), "dp"),
+        "perdim channel": (PerDimNoise(noise=g, dim=1), "dp"),
+        "perdim frames z-walk": (PerDimNoise(
+            noise=CustomNoiseParametersNoise(noise=zwalk, frames_to_channels=True,
+                                             normalize=False),
+            dim=2, chunk_size=1, normalize=False), "sp"),
+        "channel": (ChannelNoise(noise=[g, get_noise_item("uniform")]), "dp"),
+        "repeated": (RepeatedNoise(noise=g, repeat_length=1, permute="always"), "dp"),
+        "modulated": (ModulatedNoise(noise=g, modulation_type="intensity"), "dp"),
+        "guided": (GuidedNoise(ref_latent=np.linspace(-1, 1, 4 * 4 * 16 * 16, dtype=np.float32)
+                               .reshape(4, 4, 16, 16), noise=g), "dp"),
+        "normalize_to_scale": (NormalizeToScaleNoise(noise=g), "dp"),
+        "quantile": (QuantileFilteredNoise(noise=g, norm_dim=None), "dp"),
+        "ripple batch": (RippleFilteredNoise(noise=g, dim=0, roll=1.0), "dp"),
+        "blended mask sp": (BlendedNoise(custom_noise_1=g, custom_noise_2=py,
+                                         custom_noise_mask=get_noise_item("uniform")), "sp"),
+    }
+
+
+def video_item():
+    """Config 5's video noise (``tools/bench_configs.py:105-140``):
+    time-Brownian power noise with the frames folded into the channels."""
+    from sonar_tpu_torch.noise import CustomNoiseParametersNoise
+    from sonar_tpu_torch.noise.power import PowerNoiseItem
+
+    return CustomNoiseParametersNoise(
+        noise=PowerNoiseItem(alpha=0.5, min_freq=0.05, time_brownian=True),
+        frames_to_channels=True)
+
+
+VIDEO_SHAPE = (1, 4, 16, 16, 16)
+SWEEP_SHAPE = (1, 4, 4, 8, 8)
+
+
+def noise_nodes():
+    """Every node of the port's node API that builds a noise item, built with
+    its link inputs at CPU tensors (``tests/test_schema_validation.py``'s
+    link factories): name → item, or None where the builder needs more."""
+    from sonar_tpu_torch.api.nodes import NODES, build
+    from sonar_tpu_torch.api.schemas import SCHEMAS
+    from sonar_tpu_torch.api.validate import ALIASES
+    from sonar_tpu_torch.cfg.latent_ops import SonarLatentOperation
+    from sonar_tpu_torch.cfg.model_sampling import ContinuousEDM
+    from sonar_tpu_torch.noise import NoiseChain, get_noise_item
+    from sonar_tpu_torch.noise.base import NoiseItem
+    from sonar_tpu_torch.noise.power import PowerFilter
+
+    links = {
+        "OCS_NOISE,SONAR_CUSTOM_NOISE": lambda: NoiseChain([get_noise_item("gaussian")]),
+        "SONAR_POWER_FILTER": PowerFilter,
+        "LATENT": lambda: torch.zeros((1, 4, 8, 8)),
+        "MASK": lambda: torch.ones((8, 8)),
+        "IMAGE": lambda: torch.zeros((8, 8, 3)),
+        "SIGMAS": lambda: torch.tensor([14.6, 7.0, 0.0]),
+        "LATENT_OPERATION": lambda: SonarLatentOperation(),
+        "SAMPLER": lambda: "sonar_euler",
+    }
+    overrides = {
+        "SonarScheduledNoise": {"model": ..., "model_sampling": ContinuousEDM()},
+        "SonarWaveletCFG": {"model": ...},
+        "FreeUExtreme": {"model": ..., "model_sampling": ContinuousEDM(),
+                         "model_channels": 320},
+        "NoisyLatentLike": {"model_sampling": ContinuousEDM()},
+    }
+    out = {}
+    for name in sorted(n for n in SCHEMAS if n in NODES or n in ALIASES.values()):
+        schema = SCHEMAS[ALIASES.get(name, name)]
+        extra = overrides.get(name, {})
+        kw = {f: links[s["ty"]]() for f, s in schema.items()
+              if f not in extra and s["t"] == "x" and s["ty"] in links}
+        kw.update({f: v for f, v in extra.items() if v is not ...})
+        try:
+            obj = build(name, **kw)
+        except Exception:
+            continue  # a node that needs richer inputs; the node tests cover it
+        if isinstance(obj, NoiseItem):
+            out[name] = obj
+    return out
+
+
+def _draws(item, shape, shard=None, normalized=True):
+    from sonar_tpu_torch.noise import make_noise_sampler
+
+    fn, st = make_noise_sampler(item, shape, device="cpu", seed=4, sigma_min=0.03,
+                                sigma_max=14.6, shard=shard, normalized=normalized)
+    got = []
+    for s, sn in NOISE_SIGMAS:
+        n, st = fn(st, s, sn)
+        got.append(_np(n))
+    return got
+
+
+@torch.no_grad()
+def parallel_noise_world(data: dict) -> dict:
+    """Every case of ``test_torch_parallel_noise.py`` in one 4-rank world:
+    every noise name and a few combinator trees drawn on the three layouts,
+    config 5's video noise on sp, the node sweep on sp, B5's plain version
+    with ``planes=``, the refusal, and the 1-rank collective."""
+    import sonar_tpu_torch.parallel.mesh as pmesh
+    from sonar_tpu_torch.kernels.fused_pyramid import fused_downscale_pyramid
+    from sonar_tpu_torch.noise import NoiseChain, get_noise_item, make_noise_sampler
+    from sonar_tpu_torch.noise.base import NoiseItem
+    from sonar_tpu_torch.noise.presets import noise_type_names
+    from sonar_tpu_torch.parallel import LatentShard, make_mesh, shard_latent
+
+    meshes = {"dp": make_mesh(axis_names=("dp",), device_type="cpu"),
+              "sp": make_mesh(axis_names=("dp", "sp"), mesh_shape=(1, 4), device_type="cpu")}
+
+    def shard_of(shape):
+        sp = "sp" if len(shape) == 5 else None
+        return LatentShard.of(shard_latent(torch.zeros(shape), meshes["sp" if sp else "dp"],
+                                           sp=sp))
+
+    out: dict = {"rank": dist.get_rank(), "boxes": {}}
+    for layout, shape in NOISE_LAYOUTS.items():
+        sh = shard_of(shape)
+        out["boxes"][layout] = (sh.offset, sh.local_shape)
+        for name in noise_type_names():
+            for normalized in (True, False):
+                out[("name", layout, name, normalized)] = _try(
+                    lambda: _draws(get_noise_item(name), shape, sh, normalized))
+    for tree, (item, layout) in combinator_trees().items():
+        out[("tree", tree)] = _try(lambda: _draws(item, NOISE_LAYOUTS[layout],
+                                                  shard_of(NOISE_LAYOUTS[layout])))
+    vsh = shard_of(VIDEO_SHAPE)
+    out["boxes"]["video"] = (vsh.offset, vsh.local_shape)
+    out["video"] = _draws(video_item(), VIDEO_SHAPE, vsh)
+    wsh = shard_of(SWEEP_SHAPE)
+    out["boxes"]["sweep"] = (wsh.offset, wsh.local_shape)
+    out["sweep"] = {name: _try(lambda: _draws(item, SWEEP_SHAPE, wsh)[:1])
+                    for name, item in noise_nodes().items()}
+    # B5's plain version with planes=, on each layout's planes
+    b5 = {}
+    for layout, shape in NOISE_LAYOUTS.items():
+        sh = shard_of(shape)
+        bc = math.prod(sh.local_shape[:-2])
+        h, w = shape[-2:]
+        for mode, sizes, coefs in (("bilinear", [(h, w), (3 * h, 3 * w)], [1.0, 0.7]),
+                                   ("nearest-exact", [(2 * h, 2 * w), (4 * h, 4 * w)],
+                                    [1.0, 0.4])):
+            b5[(layout, mode)] = _np(fused_downscale_pyramid(
+                9, (1, bc, h, w), sizes, coefs, mode, device="cpu", planes=sh.plane_runs()))
+    out["b5"] = b5
+
+    # the refusal: an item that does not say SHARDABLE, alone and in a chain
+    class Plain(NoiseItem):
+        def sample(self, ctx, state, seed, sigma, sigma_next, *, normalized=True):
+            return torch.zeros(ctx.shape), state
+
+    dp_shard = shard_of(NOISE_LAYOUTS["dp"])
+    out["refused"] = [
+        _raised(lambda: make_noise_sampler(it, NOISE_LAYOUTS["dp"], device="cpu",
+                                           shard=dp_shard))
+        for it in (Plain(), NoiseChain([get_noise_item("gaussian"), Plain()]))]
+
+    # the 1-rank collective: a sum over a 1-rank group makes no dist call
+    calls = []
+    real = dist.all_reduce
+
+    def counted(t, *a, **kw):
+        calls.append(1)
+        return real(t, *a, **kw)
+
+    one = make_mesh(axis_names=("dp", "tp"), mesh_shape=(4, 1), device_type="cpu")
+    pmesh.dist.all_reduce = counted
+    try:
+        t = torch.arange(3.0) + dist.get_rank()
+        tp_sum = pmesh.psum(t, one, "tp")
+        n_tp = len(calls)
+        dp_sum = pmesh.psum(t, one, "dp")
+        out["one_rank"] = (n_tp, len(calls) - n_tp, _np(tp_sum), _np(dp_sum),
+                           _np(pmesh.all_max(t, one.get_group("dp"))),
+                           _np(pmesh.all_min(t, one.get_group("dp"))))
+    finally:
+        pmesh.dist.all_reduce = real
+    return out
+
+
+def _try(fn):
+    """``fn()``, or ("raised", exception type, message)."""
+    try:
+        return fn()
+    except Exception as e:  # the test holds refusals by type
+        return ("raised", type(e).__name__, str(e)[:300])

@@ -1248,6 +1248,39 @@ def test_pyramid_plane_slice_matches_plain(cuda, shape, planes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("mode", ["bilinear", "nearest-exact"])
+@pytest.mark.parametrize("shape,planes", [((1, 4, 64, 64), (4, 4, 8)),
+                                          ((1, 3, 67, 61), (1, 1, 2))])
+def test_downscale_plane_slice_matches_plain(cuda, shape, planes, mode, variant):
+    """B5 (both kernels) with its fields drawn at a plane slice's global
+    indices: against its plain version (1e-5) and bit for bit against the
+    unsharded kernel draw's planes (whole Philox groups, and planes of
+    67 × 61 that start inside one)."""
+    h, w = shape[2:]
+    ladder = (_size_ladder_highres(h, w, 4, 0) if mode == "bilinear"
+              else [(h * 2 ** (i + 1), w * 2 ** (i + 1)) for i in range(3)])
+    coefs = [0.7**i for i in range(len(ladder))]
+    i = torch.arange(shape[1], device=cuda)
+    idx = planes[0] + (i // planes[1]) * planes[2] + i % planes[1]
+    full_shape = (1, int(idx.max()) + 1, h, w)
+    base = _randn(full_shape, cuda) if mode == "bilinear" else None
+    local_base = None if base is None else base[:, idx].contiguous()
+    with P._forced_down_variant(variant):
+        k = P.fused_downscale_pyramid(5, shape, ladder, coefs, mode, base=local_base,
+                                      device=cuda, planes=planes)
+        full = P.fused_downscale_pyramid(5, full_shape, ladder, coefs, mode, base=base,
+                                         device=cuda)
+    p = P.fused_downscale_pyramid_reference(5, shape, ladder, coefs, mode, local_base,
+                                            device=cuda, planes=planes)
+    assert _rel_err(k, p) <= 1e-5
+    assert torch.equal(k, full[:, idx])
+    with pytest.raises(ValueError, match="whole runs"):
+        P.fused_downscale_pyramid(5, shape, ladder, coefs, mode, base=local_base, device=cuda,
+                                  planes=(0, 2, 4) if shape[1] % 2 else (0, 3, 6))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 4, 64, 64), (1, 3, 67, 61)])
 def test_scale_noise_split_matches_plain(cuda, shape, dtype):

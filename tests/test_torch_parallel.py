@@ -146,10 +146,11 @@ def test_sharded_draws_are_slices(world, layout, kind):
 
 
 def test_unshardable_noise_refused(world):
-    """A generator that cannot draw a shard's slice raises, naming itself."""
+    """An item that does not say SHARDABLE (a user's own) cannot draw a
+    shard's slice: it raises, naming itself."""
     for r in world:
         kind, msg = r["refused"]
-        assert kind == "NotImplementedError" and "perlin" in msg
+        assert kind == "NotImplementedError" and "UserNoise" in msg
 
 
 @pytest.mark.parametrize("key", ["stats", "deadband"])
