@@ -1,0 +1,49 @@
+"""What the reference samplers and noises share: the ancestral split of a
+step, ``scale_noise``, and the seed chain that gives each draw its stream.
+
+Written from the semantics of ComfyUI-sonar (py/sonar.py, py/utils.py:85-106)
+as the JAX package states them, in float32 PyTorch on whatever device the
+tensors are on, one operation at a time and without kernels. Nothing here
+imports the program.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import philox
+
+
+def ancestral_split(sigma: float, sigma_next: float, eta: float = 1.0):
+    """(sigma_down, sigma_up) of one ancestral step, in float32."""
+    s, sn = torch.tensor(sigma, dtype=torch.float32), torch.tensor(sigma_next, dtype=torch.float32)
+    if not eta:
+        return float(sn), 0.0
+    up = torch.minimum(sn, eta * torch.sqrt(sn**2 * (s**2 - sn**2) / s**2))
+    down = torch.sqrt(sn**2 - up**2)
+    return float(down), float(up)
+
+
+def scale_noise(noise: torch.Tensor, threshold_std_devs: float = 2.5) -> torch.Tensor:
+    """Mean 0 and std 1, each applied only where the draw misses it by more
+    than ``threshold_std_devs/√N`` (the std is ddof=1, taken before the mean
+    is removed)."""
+    n = noise.numel()
+    mean = noise.mean()
+    std = noise.std(correction=1)
+    threshold = threshold_std_devs / math.sqrt(n)
+    if abs(float(mean)) > threshold:
+        noise = noise - mean
+    if abs(1.0 - float(std)) > threshold and float(std) != 0.0:
+        noise = noise / std
+    return noise
+
+
+def draw_seed(seed: int, step: int) -> int:
+    """The seed of draw ``step`` of a sampler run given ``seed``: the run's
+    stream seed from the user seed, the noise stream's from it, then one a
+    draw."""
+    stream = philox.seed_from(philox.derive_seed(philox.seed_from(seed), "noise"))
+    return philox.derive_seed(stream, step)
