@@ -494,8 +494,10 @@ def device_us(torch, fn, iters: int):
         events = prof.events()
         marks = [e.time_range.start for e in events if e.name == "device_us_timed"]
         t0 = min(marks) - 2000.0 if marks else math.inf  # µs: inside the idle gap
+        # a range (this marker, the program's spans) shows on the device too
         kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name != "device_us_timed" and e.time_range.start >= t0]
+                   and not e.is_user_annotation and e.name != "device_us_timed"
+                   and e.time_range.start >= t0]
         seen.append(len(kernels))
         if kernels and len(kernels) % iters == 0:
             break
@@ -3932,8 +3934,9 @@ def main():
     wf_b(x0, sig_b, callback=timer)
     st27 = timer.summary()
     need(st27["steps"] == STEPS, f"[27] StepTimer: {st27}")
-    print(f"[27] (b) under StepTimer (synchronised every step): p50 {st27['p50_ms']:.3f} ms, "
-          f"p90 {st27['p90_ms']:.3f} ms, mean {st27['mean_ms']:.3f} ms [{card}]")
+    print(f"[27] (b) under StepTimer (an event a step, one synchronisation): "
+          f"p50 {st27['p50_ms']:.3f} ms, p90 {st27['p90_ms']:.3f} ms, "
+          f"mean {st27['mean_ms']:.3f} ms [{card}]")
     with trace(os.path.join(ROOT, "build", "trace27")) as trace_path:
         wf_b(x0, sig_b[-3:])  # one step and the tail
     need(os.path.getsize(trace_path) > 0, "[27] trace: no trace file")

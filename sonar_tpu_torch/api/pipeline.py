@@ -30,6 +30,7 @@ from ..cfg.model_sampling import max_denoise
 from ..models.prediction import CONST, EPS, get_prediction
 from ..noise.base import NoiseItem
 from ..samplers.momentum import SonarConfig
+from ..utils.profiling import span
 from .functions import get_sampler
 
 
@@ -98,7 +99,12 @@ class SonarPipeline:
         if model is None and batched is None:
             raise ValueError("SonarPipeline requires a model callable")
         if self.model_uncond is None and batched is None:
-            return model
+            def unguided(x, sigma_batch, **kw):
+                with span("sonar.model"):
+                    return model(x, sigma_batch, **kw)
+
+            unguided.takes_sigma_host = getattr(model, "takes_sigma_host", False)
+            return unguided
 
         uncond = self.model_uncond
         cfg_fn = self.wavelet_cfg if self.wavelet_cfg is not None else basic_cfg
@@ -106,29 +112,34 @@ class SonarPipeline:
         ms = self.model_sampling
 
         def guided(x, sigma_batch, *, sigma_host=None, **kw):
-            base = dict(sigma=sigma_batch, sigma_host=sigma_host, model_sampling=ms)
-            if lo_hook == "model_input":
-                x = lo_patch(dict(input=x, **base))
-            if batched is not None:
-                # one denoiser call on the doubled batch: [cond | uncond]
-                b = x.shape[0]
-                s2 = sigma_batch if sigma_batch.ndim == 0 else torch.cat(
-                    [sigma_batch, sigma_batch], 0)
-                d2 = batched(torch.cat([x, x], dim=0), s2, **kw)
-                cond_d, uncond_d = d2[:b], d2[b:]
-            else:
-                cond_d = model(x, sigma_batch, **kw)
-                uncond_d = uncond(x, sigma_batch, **kw)
-            if lo_hook == "pre_cfg":
-                conds = lo_patch(dict(input=x, conds_out=[cond_d, uncond_d], **base))
-                cond_d, uncond_d = conds[0], conds[1]
-            args = dict(input=x, cond=x - cond_d, uncond=x - uncond_d,
-                        cond_denoised=cond_d, uncond_denoised=uncond_d,
-                        cond_scale=self.cfg_scale, sample_sigmas=sample_sigmas, **base)
-            out = x - cfg_fn(args)
-            if lo_hook == "post_cfg":
-                out = lo_patch(dict(input=x, denoised=out, uncond_denoised=uncond_d, **base))
-            return out
+            with span("sonar.guidance"):
+                base = dict(sigma=sigma_batch, sigma_host=sigma_host, model_sampling=ms)
+                if lo_hook == "model_input":
+                    x = lo_patch(dict(input=x, **base))
+                if batched is not None:
+                    # one denoiser call on the doubled batch: [cond | uncond]
+                    b = x.shape[0]
+                    s2 = sigma_batch if sigma_batch.ndim == 0 else torch.cat(
+                        [sigma_batch, sigma_batch], 0)
+                    x2 = torch.cat([x, x], dim=0)
+                    with span("sonar.model"):
+                        d2 = batched(x2, s2, **kw)
+                    cond_d, uncond_d = d2[:b], d2[b:]
+                else:
+                    with span("sonar.model"):
+                        cond_d = model(x, sigma_batch, **kw)
+                    with span("sonar.model"):
+                        uncond_d = uncond(x, sigma_batch, **kw)
+                if lo_hook == "pre_cfg":
+                    conds = lo_patch(dict(input=x, conds_out=[cond_d, uncond_d], **base))
+                    cond_d, uncond_d = conds[0], conds[1]
+                args = dict(input=x, cond=x - cond_d, uncond=x - uncond_d,
+                            cond_denoised=cond_d, uncond_denoised=uncond_d,
+                            cond_scale=self.cfg_scale, sample_sigmas=sample_sigmas, **base)
+                out = x - cfg_fn(args)
+                if lo_hook == "post_cfg":
+                    out = lo_patch(dict(input=x, denoised=out, uncond_denoised=uncond_d, **base))
+                return out
 
         # the port's samplers pass the step's host sigma to a model that says
         # it takes one (samplers/sonar.py)

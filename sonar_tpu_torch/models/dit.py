@@ -67,6 +67,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ..parallel.grad import copy_to, join, ppermute_grad, reduce_from, reduce_from_groups
 from ..parallel.mesh import LatentShard
 from ..utils.misc import default_device
+from ..utils.profiling import span
 from .unet import Dense, _sigma_embedding
 
 
@@ -198,10 +199,11 @@ class Block(nn.Module):
         qkv = self._column(self.qkv, x)
         heads = qkv.shape[-1] // (3 * dh)  # this rank's heads under tp
         qkv = qkv.reshape(b, n, heads, 3, dh)  # head-major packing
-        q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, dh)
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        att = torch.softmax(logits / math.sqrt(dh), dim=-1)
-        out = torch.matmul(att.to(x.dtype), v)
+        with span("sonar.attention"):
+            q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, dh)
+            logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            att = torch.softmax(logits / math.sqrt(dh), dim=-1)
+            out = torch.matmul(att.to(x.dtype), v)
         return self._row(self.attn_out, out.transpose(1, 2).reshape(b, n, heads * dh))
 
     def moe_mlp(self, x, dp=None):

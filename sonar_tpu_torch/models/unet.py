@@ -57,6 +57,7 @@ from torch import nn
 
 from ..parallel.grad import copy_to, fsdp_gather, gather, reduce_from
 from ..utils.misc import default_device
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,9 +200,10 @@ class Attention(nn.Module):
         y = self.norm(x).reshape(b, c, n).transpose(1, 2)  # (b, n, c)
         q, k, v = self.qkv(y).reshape(b, n, 3, heads, c // heads).unbind(2)
         scale = 1.0 / math.sqrt(c // heads)
-        logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float() * scale
-        attn = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
+        with span("sonar.attention"):
+            logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float() * scale
+            attn = torch.softmax(logits, dim=-1).to(x.dtype)
+            out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
         return x + self.proj(out).transpose(1, 2).reshape(b, c, h, w)
 
 

@@ -49,6 +49,7 @@ import torch
 from ..core.normalize import scale_noise
 from ..core.rng import derive_seed, seed_from
 from ..utils.misc import default_device
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -460,12 +461,13 @@ def make_noise_sampler(
               "node": item.init_state(ctx, derive_seed(stream, "init"))}
 
     def sample_fn(state, sigma, sigma_next):
-        draw_seed = derive_seed(state["seed"], state["counter"])
-        noise, node_state = item.sample(ctx, state["node"], draw_seed, sigma,
-                                        sigma_next, normalized=normalized)
-        return noise.to(dtype), {"seed": state["seed"],
-                                 "counter": state["counter"] + 1,
-                                 "node": node_state}
+        with span("sonar.noise"):
+            draw_seed = derive_seed(state["seed"], state["counter"])
+            noise, node_state = item.sample(ctx, state["node"], draw_seed, sigma,
+                                            sigma_next, normalized=normalized)
+            noise = noise.to(dtype)
+        return noise, {"seed": state["seed"], "counter": state["counter"] + 1,
+                       "node": node_state}
 
     return sample_fn, state0
 

@@ -46,6 +46,7 @@ from ..kernels.fused import fused_momentum_step, pack_momentum_scalars
 from ..noise.base import NoiseItem, make_noise_sampler
 from ..noise.presets import get_noise_item
 from ..parallel.mesh import LatentShard
+from ..utils.profiling import span
 from .ancestral import get_ancestral_step, get_ancestral_step_rf
 from .guidance import guidance_step, prepare_ref_latent
 from .momentum import (
@@ -219,8 +220,9 @@ def _run_loop(step_fn, x, n_steps: int, mom_state, noise_state, *, callback=None
     stop = n_steps if stop_step is None else min(stop_step, n_steps)
     carry = resume_from if resume_from is not None else (x, mom_state, noise_state)
     for i in range(start_step, stop):
-        new_carry, info = step_fn(carry, i)
-        carry = _restabilize(new_carry, carry)
+        with span("sonar.step"):
+            new_carry, info = step_fn(carry, i)
+            carry = _restabilize(new_carry, carry)
         if callback is not None:
             callback({"i": i, **info})
     return (carry[0], carry) if return_state else carry[0]
