@@ -5,8 +5,11 @@ and the objects are linked into one shared library with a plain C interface,
 loaded with :mod:`ctypes` (no PyTorch headers, so a build takes seconds).
 The build happens at first use, never at import, into
 ``<checkout>/build/kernels/<hash>/``, where ``<hash>`` covers every source
-(headers included) and the flags: a changed source gets a new directory, so
-a stale library is never loaded. Two processes building at once each work
+(headers included) and each source's flags: a changed source gets a new
+directory, so a stale library is never loaded. B1–B6 compile with
+``-fmad=false``, which their bitwise agreement with their plain versions
+needs; ``attention.cu`` with FMA contraction on, its inner products being
+FFMAs. Two processes building at once each work
 in a private temporary directory and rename the library into place.
 """
 
@@ -22,13 +25,12 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("elem.cuh", "philox.cuh", "fused.cu", "hwrng.cu", "fused_pyramid.cu", "voronoi.cu")
+SOURCES = ("elem.cuh", "philox.cuh", "fused.cu", "hwrng.cu", "fused_pyramid.cu", "voronoi.cu",
+           "attention.cu")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (
-    *ARCH, "-std=c++17", "-O3", "-fmad=false",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+FMAD = {"attention.cu": "-fmad=true"}  # every other source: -fmad=false
 LINK_FLAGS = (*ARCH, "-shared")
 LIB_NAME = "libsonar_fused.so"
 
@@ -46,12 +48,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def nvcc_flags(src: str) -> tuple[str, ...]:
+    return (*NVCC_FLAGS, FMAD.get(src, "-fmad=false"))
+
+
 def source_hash() -> str:
     h = hashlib.sha256()
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+        if name.endswith(".cu"):
+            h.update(" ".join(nvcc_flags(name)).encode())
+    h.update(" ".join(LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -73,7 +81,7 @@ def build() -> pathlib.Path:
         jobs = []
         for src in (s for s in SOURCES if s.endswith(".cu")):
             obj = work / (src + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+            cmd = [nvcc, *nvcc_flags(src), "-c", "-o", str(obj), str(CSRC / src)]
             log = open(work / (src + ".log"), "w")
             jobs.append((cmd, obj, log, subprocess.Popen(
                 cmd, stdout=log, stderr=subprocess.STDOUT)))
@@ -128,6 +136,9 @@ def load_library() -> ctypes.CDLL:
     lib.sonar_voronoi_ksmallest.argtypes = [p, i64, p, i64, p, p, p, i32, i32, i32, i32,
                                             i32, i32, f32, f32, f32, f32, f32, f32, p]
     lib.sonar_voronoi_ksmallest.restype = i32
+    lib.sonar_attention.argtypes = [p, i64, i64, i64, i64, i32, i32, i32, i32, i32, p, i64,
+                                     i64, i64, f32, i32, p]
+    lib.sonar_attention.restype = i32
     lib.sonar_error_string.argtypes = [i32]
     lib.sonar_error_string.restype = ctypes.c_char_p
     return lib

@@ -21,8 +21,11 @@ What must match XLA and needs care in PyTorch:
 - tokens are laid out (b, hp, wp, ph, pw, c), as ``_patchify`` does;
 - the sigma embedding's angles are float32 (the UNet's ``_sigma_embedding``).
 
-The DiT holds no hand-written kernel: its products, norms and softmax are
-PyTorch operators. The sampler around it launches the port's kernels.
+The DiT's attention core is kernel B7 (``csrc/attention.cu``: q, k and v
+read from the head-major qkv by strides, TF32 products where matmul TF32
+is on) on the card, and its plain version, the PyTorch operators, on the
+CPU (:func:`~sonar_tpu_torch.kernels.attention.fused_attention` chooses);
+its other products, norms and activations are PyTorch operators.
 
 Parallel serving (the JAX package's shardings and ``dit_pp_apply``), one
 process a rank with the collectives of ``parallel.mesh``:
@@ -64,6 +67,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..kernels.attention import fused_attention
 from ..parallel.grad import copy_to, join, ppermute_grad, reduce_from, reduce_from_groups
 from ..parallel.mesh import LatentShard
 from ..utils.misc import default_device
@@ -200,11 +204,8 @@ class Block(nn.Module):
         heads = qkv.shape[-1] // (3 * dh)  # this rank's heads under tp
         qkv = qkv.reshape(b, n, heads, 3, dh)  # head-major packing
         with span("sonar.attention"):
-            q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, dh)
-            logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-            att = torch.softmax(logits / math.sqrt(dh), dim=-1)
-            out = torch.matmul(att.to(x.dtype), v)
-        return self._row(self.attn_out, out.transpose(1, 2).reshape(b, n, heads * dh))
+            out = fused_attention(qkv, "dit")  # (b, n, heads·dh)
+        return self._row(self.attn_out, out)
 
     def moe_mlp(self, x, dp=None):
         """Switch top-1 routing per sample: each sample's tokens compete for a

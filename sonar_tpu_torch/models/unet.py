@@ -15,11 +15,15 @@ XLA and needs care in PyTorch:
   sides;
 - group norm reduces the group count until it divides the channels;
 - attention splits qkv as ``(b, n, 3, heads, d)`` and takes its logits in
-  float32;
+  float32 (kernel B7 or its plain version,
+  :func:`~sonar_tpu_torch.kernels.attention.fused_attention`);
 - the sigma embedding's angles and the conditioning sigma stay float32.
 
-The UNet holds no hand-written kernel: its convolutions, norms and
-attention are PyTorch operators.
+The UNet's attention core is kernel B7 (``csrc/attention.cu``, one pass
+over key tiles, no logit in device memory) on the card, and its plain
+version, the PyTorch operators, on the CPU
+(:func:`~sonar_tpu_torch.kernels.attention.fused_attention` chooses); its
+convolutions and norms are PyTorch operators.
 
 Sharded training: :func:`sonar_tpu_torch.parallel.shard_unet_params` gives
 each conv and dense layer a :class:`LayerLayout`. Under tp a layer holds its
@@ -55,6 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.attention import fused_attention
 from ..parallel.grad import copy_to, fsdp_gather, gather, reduce_from
 from ..utils.misc import default_device
 from ..utils.profiling import span
@@ -198,12 +203,9 @@ class Attention(nn.Module):
         b, c, h, w = x.shape
         n, heads = h * w, self.num_heads
         y = self.norm(x).reshape(b, c, n).transpose(1, 2)  # (b, n, c)
-        q, k, v = self.qkv(y).reshape(b, n, 3, heads, c // heads).unbind(2)
-        scale = 1.0 / math.sqrt(c // heads)
+        qkv = self.qkv(y).reshape(b, n, 3, heads, c // heads)
         with span("sonar.attention"):
-            logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float() * scale
-            attn = torch.softmax(logits, dim=-1).to(x.dtype)
-            out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
+            out = fused_attention(qkv, "unet")
         return x + self.proj(out).transpose(1, 2).reshape(b, c, h, w)
 
 
