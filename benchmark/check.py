@@ -4,7 +4,9 @@ with what the program produced.
 
 The reference is found by the names the cell's files give: the network
 ``reference/<family>.py``, the guided denoiser ``reference/pipelines/<pipeline>.py``,
-the sampler ``reference/samplers/<sampler>.py`` and the noise
+the sampler ``reference/samplers/<sampler>.py`` (given
+``ancestral_mode="rf"`` under a flow ``model_sampling`` where it takes that
+knob, as ``SonarPipeline`` does the port's) and the noise
 ``reference/noise/<noise>.py``. It runs in float32 with both TF32 switches off, on weights it makes again
 from the seed (the program's own tensors may have been changed in place by
 it), after the program is freed. The number compared is ``latent_gap``: the
@@ -17,6 +19,7 @@ readings of the program and of the control (``calibrate.py``).
 from __future__ import annotations
 
 import importlib
+import inspect
 
 import torch
 
@@ -33,12 +36,16 @@ def reference_sampler(config: dict, traffic: dict, seed: int, device, dtype=torc
     noise = importlib.import_module(f"benchmark.reference.noise.{traffic['noise']}")
     params = weights.make(ref.param_specs(config), seed, device)
     denoise = pipeline.denoiser(ref.network, params, config, traffic, dtype)
+    kw = dict(traffic.get("sonar_config", {}))
+    if (traffic_mod.model_sampling(traffic) is not None
+            and "ancestral_mode" in inspect.signature(sampler.sample).parameters):
+        kw.setdefault("ancestral_mode", "rf")
 
     def run(index, sigmas):
         s = traffic_mod.call_seed(seed, index)
         x0 = traffic_mod.start_latent(traffic, s, float(sigmas[0]), device)
         draws = noise.sampler(s, x0.shape, device, **traffic.get("noise_params", {}))
-        return sampler.sample(denoise, x0, sigmas, noise=draws, **traffic.get("sonar_config", {}))
+        return sampler.sample(denoise, x0, sigmas, noise=draws, **kw)
 
     return run
 

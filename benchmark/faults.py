@@ -1,18 +1,27 @@
 """Faults planted under an otherwise whole run of a cell, which the check
 that decides ``correct`` has to catch (``calibrate.py --faults``, and
 ``tests/test_portbench_faults.py`` at a small size on the CPU). Each is a
-list of ``(owner, attribute, replacement)`` patches, undone after the run:
+list of ``(owner, attribute, replacement)`` patches, undone after the run,
+found for any configuration and traffic by the names their files give:
 
-- ``control``: the reference's network in bfloat16, the precision below
-  the configurations' float32, in the program's place as its denoisers
-  (the port's pipeline, sampler and noise around it);
-- ``step_unchanged``: a sampler step that returns its state unchanged;
-- ``half_batch`` (batched guidance only): half of the images left out, the
-  denoiser computing the first half and handing its rows to the rest;
+- ``control``: the family's reference network (``reference/<family>.py``)
+  in bfloat16, the precision below the configurations' float32, in the
+  program's place as its denoisers (``families/<family>.py build``): the
+  traffic's prediction around it and its CFG mode (``pair``, ``batched`` or
+  ``none``, ``families/_common.py guided_models``), the port's pipeline,
+  sampler and noise around those;
+- ``step_unchanged``: every sampler step returns its state unchanged (the
+  step loop of ``samplers/sonar.py``, which the VP path through kernel B1
+  and the rectified-flow composed path both run);
+- ``half_batch`` (where a call holds two images or more): half of the
+  images left out, each model call computing the first half of its rows
+  (of each of cond and uncond in a doubled batch) and handing them to the
+  rest;
 - ``answer_altered``: one element of the final latent negated where the
   pipeline returns it;
 - ``attention_axis``: one layer kind wrong, the network's attention taking
-  its softmax over the queries instead of the keys, in every block.
+  its softmax over the queries instead of the keys, in every block
+  (``families/<family>.py attention_axis``).
 
 No cell crosses chips, so no exchange between chips can be left out.
 """
@@ -21,7 +30,6 @@ from __future__ import annotations
 
 import contextlib
 import importlib
-import math
 
 import torch
 
@@ -29,57 +37,62 @@ NAMES = ("control", "step_unchanged", "half_batch", "answer_altered", "attention
 
 
 def applies(fault: str, traffic: dict) -> bool:
-    return fault != "half_batch" or traffic["cfg"]["mode"] == "batched"
+    return fault != "half_batch" or traffic["shape"][0] >= 2
+
+
+def _reference_denoiser(network, *, prediction: str, timestep_fn=None):
+    """The port's ``make_denoiser`` contract over a plain network, with the
+    reference's prediction arithmetic."""
+    from .reference import prediction as pred
+
+    def den(x, sigma, **kw):
+        sb = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+        sb = sb.reshape(-1).expand(x.shape[0])
+        s4 = sb.reshape(-1, 1, 1, 1)
+        c = sb if timestep_fn is None else timestep_fn(sb)
+        return x - s4 * network(pred.network_input(prediction, x, s4), c, **kw)
+
+    return den
 
 
 def _control_build(config, params, traffic, device):
+    from .families._common import guided_models
+
     ref = importlib.import_module(f"benchmark.reference.{config['family']}")
     p = {k: v.to(torch.bfloat16) for k, v in params.items()}
-    s = float(traffic["cfg"]["uncond_input_scale"])
 
-    def den(scale):
-        def d(x, sb, **_):
-            s4 = sb.reshape(-1, 1, 1, 1)
-            xin = x / torch.sqrt(s4 * s4 + 1.0)
-            return x - s4 * ref.network(p, config, xin * scale, sb, torch.bfloat16)
-        return d
+    def network(xin, c, **_):
+        return ref.network(p, config, xin, c, torch.bfloat16)
 
-    if traffic["cfg"]["mode"] == "pair":
-        return {"model": den(1.0), "model_uncond": den(s)}
-    b = traffic["shape"][0]
-    return {"model_batched": den(torch.tensor([1.0] * b + [s] * b, device=device)
-                                 .reshape(-1, 1, 1, 1))}
+    return guided_models(_reference_denoiser, network, traffic, device)
 
 
-def _unet_attention_axis(self, x):
-    b, c, h, w = x.shape
-    n, heads = h * w, self.num_heads
-    y = self.norm(x).reshape(b, c, n).transpose(1, 2)
-    q, k, v = self.qkv(y).reshape(b, n, 3, heads, c // heads).unbind(2)
-    logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float() / math.sqrt(c // heads)
-    attn = torch.softmax(logits, dim=-2).to(x.dtype)
-    out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
-    return x + self.proj(out).transpose(1, 2).reshape(b, c, h, w)
+def _half_rows(inner, groups: int):
+    """``inner`` on the first half of each of ``groups`` equal row groups,
+    the rows repeated over the group."""
 
+    def half(x, sb, **k):
+        n = x.shape[0] // groups
+        idx = torch.tensor([g * n + i % (n // 2) for g in range(groups) for i in range(n)],
+                           device=x.device)
+        return inner(x[idx], sb.reshape(-1).expand(x.shape[0])[idx], **k)
 
-def _dit_attention_axis(self, x):
-    b, n, d = x.shape
-    dh = d // self.cfg.num_heads
-    qkv = self.qkv(x).reshape(b, n, self.cfg.num_heads, 3, dh)
-    q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    att = torch.softmax(logits / math.sqrt(dh), dim=-2)
-    return self.attn_out(torch.matmul(att.to(x.dtype), v).transpose(1, 2).reshape(b, n, d))
+    return half
 
 
 def patches(fault: str, config: dict, traffic: dict) -> list[tuple[object, str, object]]:
     if fault == "control":
-        return [(importlib.import_module(f"benchmark.families.{fam}"), "build", _control_build)
-                for fam in ("unet", "dit")]
+        family = importlib.import_module(f"benchmark.families.{config['family']}")
+        return [(family, "build", _control_build)]
     if fault == "step_unchanged":
         from sonar_tpu_torch.samplers import sonar
 
-        return [(sonar, "fused_momentum_step", lambda x, den, hd, noise, scal: (x, hd))]
+        real_loop = sonar._run_loop
+
+        def unchanged(step_fn, *a, **k):
+            return real_loop(lambda carry, i: (carry, step_fn(carry, i)[1]), *a, **k)
+
+        return [(sonar, "_run_loop", unchanged)]
     if fault == "half_batch":
         from . import harness
 
@@ -87,16 +100,9 @@ def patches(fault: str, config: dict, traffic: dict) -> list[tuple[object, str, 
 
         def build(*args, **kw):
             pipe, sigmas = real(*args, **kw)
-            inner = pipe.model_batched
-
-            def half(x, sb, **k):
-                b = x.shape[0] // 2  # [cond | uncond] halves of the doubled batch
-                h = b // 2
-                idx = torch.cat([torch.arange(h), torch.arange(h), torch.arange(b, b + h),
-                                 torch.arange(b, b + h)]).to(x.device)
-                return inner(x[idx], sb[idx], **k)
-
-            pipe.model_batched = half
+            for attr, groups in (("model", 1), ("model_uncond", 1), ("model_batched", 2)):
+                if getattr(pipe, attr) is not None:
+                    setattr(pipe, attr, _half_rows(getattr(pipe, attr), groups))
             return pipe, sigmas
 
         return [(harness, "build", build)]
@@ -112,13 +118,11 @@ def patches(fault: str, config: dict, traffic: dict) -> list[tuple[object, str, 
 
         return [(SonarPipeline, "__call__", altered)]
     if fault == "attention_axis":
-        if config["family"] == "unet":
-            from sonar_tpu_torch.models.unet import Attention
-
-            return [(Attention, "forward", _unet_attention_axis)]
-        from sonar_tpu_torch.models.dit import Block
-
-        return [(Block, "attention", _dit_attention_axis)]
+        family = importlib.import_module(f"benchmark.families.{config['family']}")
+        if not hasattr(family, "attention_axis"):
+            raise LookupError(f"benchmark/families/{config['family']}.py has no "
+                              "attention_axis(): that fault cannot be planted")
+        return family.attention_axis()
     raise ValueError(f"no fault {fault!r}: one of {NAMES}")
 
 

@@ -6,11 +6,13 @@ Each step: the history takes ``denoised/σ``, the derivative
 ``d = (x − denoised)/σ`` is mixed with it by ``momentum``, the history
 takes ``d``, and ``x ← x + mixed·(σ_down − σ) + noise·s_noise·σ_up`` (no
 noise where the next sigma is 0; the draw is still made, so the stream
-stays in step)."""
+stays in step). With ``ancestral_mode="rf"`` (a flow model, as
+``SonarPipeline`` sets it) the step takes the rectified-flow split:
+``x ← α·(x + mixed·(σ_down − σ)) + noise·s_noise·σ_up``."""
 
 from __future__ import annotations
 
-from ..sampling import ancestral_split
+from ..sampling import ancestral_split, ancestral_split_rf
 
 
 def _lerp(a, b, t):
@@ -18,7 +20,8 @@ def _lerp(a, b, t):
 
 
 def sample(denoise, x, sigmas, *, noise, momentum: float = 0.95, momentum_hist: float = 0.75,
-           direction: float = 1.0, eta: float = 1.0, s_noise: float = 1.0):
+           direction: float = 1.0, eta: float = 1.0, s_noise: float = 1.0,
+           ancestral_mode: str = "vp"):
     hd_ratio = momentum_hist
     hd_scale = 1.0 + abs(direction) * (1.0 - momentum_hist) if direction < 0 else 2.0 - direction
     md_scale = direction
@@ -33,9 +36,12 @@ def sample(denoise, x, sigmas, *, noise, momentum: float = 0.95, momentum_hist: 
         d = (x - denoised) / sigma
         mixed = _lerp(hd, d, momentum)
         hd = _lerp(d * md_scale, hd * hd_scale, hd_ratio)
-        down, up = ancestral_split(sigma, sigma_next, eta)
+        if ancestral_mode == "rf":
+            down, up, alpha = ancestral_split_rf(sigma, sigma_next, eta)
+        else:
+            (down, up), alpha = ancestral_split(sigma, sigma_next, eta), 1.0
         x = x + mixed * (down - sigma)
         draw = noise(i, sigma, sigma_next)
         if sigma_next > 0:
-            x = x + draw * (s_noise * up)
+            x = x * alpha + draw * (s_noise * up)
     return x

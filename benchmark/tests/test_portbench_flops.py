@@ -1,60 +1,73 @@
-"""The frozen FLOP counts equal the port's ``models/flops.py`` at every
-cell's shapes (each denoiser call's batch) and at small ones."""
+"""The frozen FLOP counts (``benchmark/flops/<family>.py``) equal the port's
+(``families/<family>.py forward_flops``, ``models/flops.py``) at every
+cell's shapes (each denoiser call's batch) and at small ones, and each
+cell's FLOPs a step equal its record (``flops_per_step/<cell>.json``)."""
 
+import importlib
+import json
 import math
+import pathlib
 
 import pytest
-from conftest import SMALL
+from conftest import small_config
 
 from benchmark import harness
 from benchmark import traffic as T
-from benchmark.flops import dit, unet
+
+HERE = pathlib.Path(__file__).resolve().parent
+CELLS = [w["name"] for w in harness.load_bench()["workloads"]]
 
 
 def _calls(traffic):
+    """The shape of each denoiser call of a step: two calls of B images
+    (``pair``), one of 2B (``batched``) or one of B (``none``)."""
     b, c, h, w = traffic["shape"]
-    return [(b, c, h, w)] if traffic["cfg"]["mode"] == "pair" else [(2 * b, c, h, w)]
+    return {"pair": [(b, c, h, w)] * 2, "batched": [(2 * b, c, h, w)],
+            "none": [(b, c, h, w)]}[traffic["cfg"]["mode"]]
+
+
+def _frozen(config, shape):
+    return importlib.import_module(f"benchmark.flops.{config['family']}").forward_flops(config,
+                                                                                          shape)
 
 
 def _port(config, shape):
-    from sonar_tpu_torch.models import flops
-    from sonar_tpu_torch.models.dit import DiTConfig
-    from sonar_tpu_torch.models.unet import UNetConfig
-
-    if config["family"] == "unet":
-        keys = ("in_channels", "out_channels", "model_channels", "num_res_blocks", "num_heads",
-                "norm_groups")
-        cfg = UNetConfig(**{k: config[k] for k in keys},
-                         channel_mult=tuple(config["channel_mult"]),
-                         attention_levels=tuple(config["attention_levels"]))
-        return flops.unet_forward_flops(cfg, shape)
-    keys = ("in_channels", "patch_size", "hidden", "depth", "num_heads", "mlp_ratio")
-    return flops.dit_forward_flops(DiTConfig(**{k: config[k] for k in keys}), shape)
+    return importlib.import_module(f"benchmark.families.{config['family']}").forward_flops(config,
+                                                                                             shape)
 
 
-FROZEN = {"unet": unet.forward_flops, "dit": dit.forward_flops}
-
-
-@pytest.mark.parametrize("name", [w["name"] for w in harness.load_bench()["workloads"]])
-def test_portbench_flops_at_cells(name):
+def _cell(name):
     cell = next(w for w in harness.load_bench()["workloads"] if w["name"] == name)
-    config, traffic = T.load("configs", cell["config"]), T.load("traffic", cell["traffic"])
+    return T.load("configs", cell["config"]), T.load("traffic", cell["traffic"])
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_portbench_flops_at_cells(name):
+    config, traffic = _cell(name)
     for shape in _calls(traffic):
-        assert FROZEN[config["family"]](config, shape) == _port(config, shape)
+        assert _frozen(config, shape) == _port(config, shape)
 
 
-@pytest.mark.parametrize("name", sorted(SMALL))
+@pytest.mark.parametrize("name", sorted({w["config"] for w in harness.load_bench()["workloads"]}))
 @pytest.mark.parametrize("shape", [(1, 4, 16, 16), (3, 4, 32, 8)])
 def test_portbench_flops_small(name, shape):
-    config = dict(T.load("configs", name), **SMALL[name])
-    assert FROZEN[config["family"]](config, shape) == _port(config, shape)
+    config = small_config(name)
+    assert _frozen(config, shape) == _port(config, shape)
 
 
-def test_portbench_flops_per_step():
+@pytest.mark.parametrize("name", CELLS)
+def test_portbench_flops_per_step(name):
     """The FLOPs a step that PERF.md records."""
-    want = {"sd1.1024-cfg7": 7.67619104768e12, "dit-xl2.512-b4": 8.392327299072e12}
-    for cell in harness.load_bench()["workloads"]:
-        config, traffic = T.load("configs", cell["config"]), T.load("traffic", cell["traffic"])
-        per_call = len(_calls(traffic)) * (2 if traffic["cfg"]["mode"] == "pair" else 1)
-        got = per_call * FROZEN[config["family"]](config, _calls(traffic)[0])
-        assert math.isclose(got, want[cell["name"]], rel_tol=1e-12)
+    path = HERE / "flops_per_step" / f"{name}.json"
+    if not path.is_file():
+        pytest.fail(f"no FLOPs-a-step record: add {path.relative_to(HERE.parents[1])}",
+                    pytrace=False)
+    config, traffic = _cell(name)
+    got = sum(_frozen(config, shape) for shape in _calls(traffic))
+    assert math.isclose(got, json.loads(path.read_text())["flops_per_step"], rel_tol=1e-12)
+
+
+@pytest.mark.parametrize("mode, calls", [("pair", [(3, 4, 8, 8)] * 2), ("batched", [(6, 4, 8, 8)]),
+                                         ("none", [(3, 4, 8, 8)])])
+def test_portbench_calls_a_step(mode, calls):
+    assert _calls({"shape": [3, 4, 8, 8], "cfg": {"mode": mode}}) == calls

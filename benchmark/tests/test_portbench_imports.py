@@ -1,6 +1,7 @@
-"""What the benchmark loads: a whole run of a cell (at a small size on the
-CPU) in a fresh process loads neither JAX nor the JAX package, and the
-reference and the check alone load no part of the program either. Names
+"""What the benchmark loads: whole runs of every cell (at a small size on
+the CPU) in a fresh process load neither JAX nor the JAX package, and the
+reference (every module under ``benchmark/reference/``, found by walking
+it) and the check alone load no part of the program either. Names
 are compared by their top-level part, whole: ``sonar_tpu_torch`` is not
 ``sonar_tpu``."""
 
@@ -22,19 +23,17 @@ RUN = """
 sys.path.insert(0, {tests!r})
 import torch
 torch.set_num_threads(2)
-from conftest import small_cell
-from benchmark import harness
-config, traffic = small_cell("dit-xl2.512-b4")
-r = harness.run_cell("dit-xl2.512-b4", seed=5, seconds=0.0, trace=True, device="cpu",
-                     t_start=0.0, config=config, traffic=traffic, log=lambda m: None)
-assert r["correct"]
+from conftest import cells, run_small
+for name in cells():
+    assert run_small(name, 5, trace=True)["correct"], name
 import benchmark.run
 """
 
 REFERENCE = """
-import benchmark.check, benchmark.reference.unet, benchmark.reference.dit
-import benchmark.reference.pipelines.basic, benchmark.reference.noise.gaussian
-import benchmark.reference.samplers.sonar_euler_ancestral
+import importlib, pkgutil
+import benchmark.check, benchmark.reference
+for m in pkgutil.walk_packages(benchmark.reference.__path__, "benchmark.reference."):
+    importlib.import_module(m.name)
 """
 
 

@@ -2,17 +2,17 @@
 inputs, weights and seeds, at small sizes on the CPU. The tests import the
 port; the reference does not."""
 
+import importlib
 import math
 
 import pytest
 import torch
-from conftest import SMALL, cells, small_cell
+from conftest import cell_traffic, cells, run_small, small_cell, small_config
 
+from benchmark import harness
 from benchmark import traffic as T
 from benchmark import weights
-from benchmark.reference import dit as ref_dit
 from benchmark.reference import philox, sampling
-from benchmark.reference import unet as ref_unet
 from benchmark.reference.noise import gaussian
 from benchmark.reference.pipelines import basic
 from benchmark.reference.samplers import sonar_euler_ancestral
@@ -55,6 +55,15 @@ def test_portbench_ancestral_split(pair):
     assert sampling.ancestral_split(*pair) == (float(down), float(up))
 
 
+@pytest.mark.parametrize("pair", [(1.0, 0.8), (0.61, 0.2), (0.2, 0.0032), (0.0032, 0.0)])
+@pytest.mark.parametrize("eta", [1.0, 0.5, 0.0])
+def test_portbench_ancestral_split_rf(pair, eta):
+    from sonar_tpu_torch.samplers.ancestral import get_ancestral_step_rf
+
+    down, up, alpha = get_ancestral_step_rf(*pair, eta)
+    assert sampling.ancestral_split_rf(*pair, eta) == (float(down), float(up), float(alpha))
+
+
 def test_portbench_cfg_combine():
     from sonar_tpu_torch.cfg import basic_cfg
 
@@ -63,27 +72,31 @@ def test_portbench_cfg_combine():
     torch.testing.assert_close(basic.guided(c, u, 7.0), out, rtol=1e-6, atol=1e-6)
 
 
-def _port_module(family, config, params):
-    from benchmark.families import dit, unet
-
-    build = {"unet": unet, "dit": dit}[family].build
-    models = build(config, params, {"shape": [1], "cfg": {"mode": "pair", "scale": 1.0,
-                                                          "uncond_input_scale": 1.0}}, "cpu")
-    return models["model"]
+CONFIGS = sorted({w["config"] for w in harness.load_bench()["workloads"]})
+FLOW = {"multiplier": 1000.0}
 
 
-@pytest.mark.parametrize("family,ref", [("unet", ref_unet), ("dit", ref_dit)])
+@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("prediction", ["eps", "const"])
 @pytest.mark.parametrize("sigma", [14.6, 0.5])
-def test_portbench_network(family, ref, sigma):
+def test_portbench_network(name, prediction, sigma):
     """The reference's denoised latent equals the port's denoiser on the
-    same weights (eps preconditioning around the network)."""
-    config = dict(T.load("configs", {"unet": "unet-sd1", "dit": "dit-xl2"}[family]),
-                  **SMALL[{"unet": "unet-sd1", "dit": "dit-xl2"}[family]])
+    same weights: eps preconditioning around the network, or CONST under
+    a flow model sampling (no input scaling, conditioned on σ·multiplier)."""
+    config = small_config(name)
+    ref = importlib.import_module(f"benchmark.reference.{config['family']}")
+    family = importlib.import_module(f"benchmark.families.{config['family']}")
+    traffic = {"shape": [2], "cfg": {"mode": "none"}}
+    if prediction == "const":
+        traffic["model_sampling"] = FLOW
     params = weights.make(ref.param_specs(config), 5, "cpu")
-    den = _port_module(family, config, params)
+    den = family.build(config, params, traffic, "cpu")["model"]
     x = philox.randn(9, (2, 4, 16, 16), device="cpu") * sigma
     sb = torch.full((2,), sigma)
-    want = x - sigma * ref.network(params, config, x / math.sqrt(sigma**2 + 1), sb)
+    if prediction == "eps":
+        want = x - sigma * ref.network(params, config, x / math.sqrt(sigma**2 + 1), sb)
+    else:
+        want = x - sigma * ref.network(params, config, x, sb * FLOW["multiplier"])
     torch.testing.assert_close(den(x, sb), want, rtol=1e-5, atol=1e-5 * sigma)
 
 
@@ -109,21 +122,80 @@ def test_portbench_sampler(seed):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("seed", [4, 2**35 + 9])
+def test_portbench_sampler_rf(seed):
+    """The same under a flow model: the port's rectified-flow split (its
+    composed path) against the reference's, on a flow schedule."""
+    from sonar_tpu_torch.samplers.sonar import sample_sonar_euler_ancestral
+
+    t = dict(T.load("traffic", "1024-cfg7"), steps=8, sigma_max=1.0, sigma_min=0.0032)
+    sigmas = T.karras_sigmas(t)
+    x0 = philox.randn(1, (2, 4, 8, 8), device="cpu")
+    w = philox.randn(2, (2, 4, 8, 8), device="cpu")
+
+    def stub(x, s, **_):
+        s = float(s.reshape(-1)[0]) if torch.is_tensor(s) else s
+        return x * (1.0 - s) - 0.3 * s * torch.tanh(x * w)
+
+    got = sample_sonar_euler_ancestral(stub, x0, sigmas, seed=seed, ancestral_mode="rf")
+    want = sonar_euler_ancestral.sample(stub, x0, sigmas, ancestral_mode="rf",
+                                        noise=gaussian.sampler(seed, x0.shape, "cpu"))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    vp = sonar_euler_ancestral.sample(stub, x0, sigmas,
+                                      noise=gaussian.sampler(seed, x0.shape, "cpu"))
+    assert (vp - want).abs().max() > 1e-2  # the two splits differ
+
+
 def test_portbench_param_counts():
     """The configuration files' parameter counts are those of the specs."""
-    for name, ref in (("unet-sd1", ref_unet), ("dit-xl2", ref_dit)):
+    for name in CONFIGS:
         cfg = T.load("configs", name)
-        assert sum(math.prod(s) for _, s, _, _ in ref.param_specs(cfg)) == cfg["params"]
+        ref = importlib.import_module(f"benchmark.reference.{cfg['family']}")
+        assert sum(math.prod(s) for _, s, _, _ in ref.param_specs(cfg)) == cfg["params"], name
 
 
 @pytest.mark.parametrize("name", cells())
 def test_portbench_whole_run_correct(name):
     """A sound run of each cell at a small size is correct under its limit."""
-    from benchmark import harness
-
-    config, traffic = small_cell(name)
-    r = harness.run_cell(name, seed=2**31 + 77, seconds=0.0, trace=False, device="cpu",
-                         t_start=0.0, config=config, traffic=traffic, log=lambda m: None)
+    _, traffic = small_cell(name)
+    r = run_small(name, 2**31 + 77)
     assert r["correct"], r["checks"]
     assert r["attempted"] == traffic["check_calls"] and r["failed"] == 0
     assert r["checks"]["latent_gap"]["value"] < 5e-5  # float32 rounding, CFG 7 and 4 steps
+
+
+def test_portbench_model_sampling_reads_multiplier_only():
+    """A flow mix states its multiplier alone: a shift would be stated and
+    never applied (the schedule is Karras), so it is refused."""
+    assert T.model_sampling({}) is None and T.prediction({}) == "eps"
+    assert T.prediction({"model_sampling": {"multiplier": 1.0}}) == "const"
+    with pytest.raises(ValueError, match="no shift applies"):
+        T.model_sampling({"model_sampling": {"multiplier": 1.0, "shift": 3.1582}})
+
+
+@pytest.mark.parametrize("takes_mode", [True, False])
+def test_portbench_check_rf_where_the_sampler_takes_it(takes_mode, monkeypatch):
+    """Under flow the check gives the reference sampler ``ancestral_mode``
+    only where its ``sample`` takes that knob, as ``SonarPipeline`` does."""
+    import sys
+    import types
+
+    from benchmark import check
+
+    seen = {}
+
+    def sample(denoise, x, sigmas, *, noise, eta=1.0, **kw):
+        seen.update(kw)
+        return x
+
+    def sample_rf(denoise, x, sigmas, *, noise, eta=1.0, ancestral_mode="vp"):
+        seen["ancestral_mode"] = ancestral_mode
+        return x
+
+    mod = types.ModuleType("benchmark.reference.samplers.stub")
+    mod.sample = sample_rf if takes_mode else sample
+    monkeypatch.setitem(sys.modules, mod.__name__, mod)
+    config, traffic = small_cell(next(n for n in cells() if T.model_sampling(cell_traffic(n))))
+    traffic = dict(traffic, sampler="stub", sonar_config={})
+    check.reference_sampler(config, traffic, 3, "cpu")(0, T.karras_sigmas(traffic))
+    assert seen == ({"ancestral_mode": "rf"} if takes_mode else {})

@@ -14,10 +14,18 @@ Keys of a traffic file:
   (``SonarConfig`` fields), ``noise`` (a noise type name;
   ``reference/noise/<name>.py``) and ``noise_params``: what the pipeline
   samples with;
-- ``cfg``: ``mode`` "pair" (cond and uncond as two calls a step) or
-  "batched" (one call on the doubled batch), ``scale``, and
-  ``uncond_input_scale``, the factor on the network input that makes the
-  uncond side of the guidance;
+- ``cfg``: ``mode`` "pair" (cond and uncond as two calls a step),
+  "batched" (one call on the doubled batch) or "none" (one unguided call
+  of the B images a step, as a guidance-distilled model runs); with
+  guidance ``scale`` and ``uncond_input_scale``, the factor on the network
+  input that makes the uncond side;
+- ``model_sampling`` (optional): ``{"multiplier": m}`` makes the model a
+  rectified-flow one: the pipeline gets the port's ``Flow(multiplier=m)``,
+  which gives ancestral samplers the rectified-flow split, the network's
+  output is a velocity (CONST: no input scaling, ``denoised = x − σ·out``)
+  and the network is conditioned on ``σ·m``. The schedule stays the Karras
+  one above, so no key states a resolution shift: nothing would apply it.
+  Without the key the model is discrete with eps prediction;
 - ``check_calls``: how many of the window's calls the reference checks;
 - ``trace_calls``: how many whole calls the traced run profiles.
 
@@ -40,6 +48,22 @@ HERE = pathlib.Path(__file__).resolve().parent
 def load(kind: str, name: str) -> dict:
     """``benchmark/<kind>/<name>.json``."""
     return json.loads((HERE / kind / f"{name}.json").read_text())
+
+
+def model_sampling(t: dict) -> dict | None:
+    """The traffic's flow model sampling ``{"multiplier": m}``, or None for
+    a discrete (eps) model."""
+    ms = t.get("model_sampling")
+    if ms is not None and set(ms) != {"multiplier"}:
+        raise ValueError(f"model_sampling {sorted(ms)}: only 'multiplier' is read "
+                         "(the schedule is Karras from sigma_max/sigma_min; no shift applies)")
+    return ms
+
+
+def prediction(t: dict) -> str:
+    """What the network's output means: ``const`` (a velocity) under flow,
+    ``eps`` otherwise."""
+    return "eps" if model_sampling(t) is None else "const"
 
 
 def karras_sigmas(t: dict) -> torch.Tensor:
