@@ -372,7 +372,10 @@ ATT_SHAPES = (("sd1 level 0", "unet", 1, 16384, 8, 40, False),
               ("sd1 level 1", "unet", 1, 4096, 8, 80, False),
               ("sd1 level 2", "unet", 1, 1024, 8, 160, False),
               ("sd1 middle", "unet", 1, 256, 8, 160, False),
-              ("dit-xl2 layer", "dit", 8, 1024, 16, 72, True))
+              ("dit-xl2 layer", "dit", 8, 1024, 16, 72, True),
+              ("flux1-dev joint", "unet", 1, 4608, 24, 128, True),
+              # FLUX's shape on the 128-wide FFMA tile, which a TF32-off run takes
+              ("flux1-dev joint FFMA", "unet", 1, 4608, 24, 128, False))
 ATT_PEAK = {False: 67e12, True: 495e12}  # FFMA, TF32 tensor cores: FLOP/s, published
 # |B7 - plain| over the plain version's RMS: each is ~1e-5 of it from float64
 # in float32 and ~6e-3 with TF32 (its operands rounded to 10 bits)

@@ -45,8 +45,9 @@
 // output back: versions that widened inside the copies (plain loads, as
 // cp.async copies bytes unchanged) ran the float32 TF32 tile 12-14 % slower
 // at the DiT's shape.
-// The head widths 40, 64, 72, 80, 160 and 256 are instantiated; a narrower
-// width runs on the next one up with the extra dimensions zero-filled.
+// The head widths 40, 64, 72, 80, 128, 160 and 256 are instantiated (128 for
+// FLUX.1's heads, which ran zero-filled on 160 before); a narrower width runs
+// on the next one up with the extra dimensions zero-filled.
 // Token counts that are not a multiple of the tiles are masked. The
 // wrapper is sonar_tpu_torch/kernels/attention.py.
 
@@ -602,7 +603,7 @@ extern "C" {
 // softmax(q·kᵀ·scale)·v for every (batch, head) of a packed qkv: element
 // (b, token, head, which, dim) at qkv[b·sb + token·sn + head·sh + which·sw
 // + dim], the output's at out[b·ob + token·on + head·oh + dim]. `width` is
-// the instantiated head width (one of 40, 64, 72, 80, 160, 256, at least
+// the instantiated head width (one of 40, 64, 72, 80, 128, 160, 256, at least
 // d); the wrapper checks every argument. Returns the launch's CUDA error.
 int sonar_attention(const float* qkv, long long sb, long long sn, long long sh, long long sw,
                     int batch, int n, int heads, int d, int width, float* out, long long ob,
@@ -617,6 +618,7 @@ int sonar_attention(const float* qkv, long long sb, long long sn, long long sh, 
       case 64: return run_tf32<Tf32<64, 2>>(a, batch, s);
       case 72: return run_tf32<Tf32<72, 2>>(a, batch, s);
       case 80: return run_tf32<Tf32<80, 2>>(a, batch, s);
+      case 128: return run_tf32<Tf32<128, 2>>(a, batch, s);
       case 160: return run_tf32<Tf32<160, 1>>(a, batch, s);
       case 256: return run_tf32<Tf32<256, 1>>(a, batch, s);
     }
@@ -626,6 +628,7 @@ int sonar_attention(const float* qkv, long long sb, long long sn, long long sh, 
       case 64: return run_ffma<Ffma<64, 32, 32, 4>>(a, batch, s);
       case 72: return run_ffma<Ffma<72, 32, 32, 4>>(a, batch, s);
       case 80: return run_ffma<Ffma<80, 32, 32, 4>>(a, batch, s);
+      case 128: return run_ffma<Ffma<128, 16, 32, 4>>(a, batch, s);
       case 160: return run_ffma<Ffma<160, 16, 32, 4>>(a, batch, s);
       case 256: return run_ffma<Ffma<256, 16, 32, 4>>(a, batch, s);
     }

@@ -31,7 +31,7 @@ import math
 import torch
 
 LAYOUTS = ("unet", "dit")
-WIDTHS = (40, 64, 72, 80, 160, 256)  # the kernel's instantiated head widths
+WIDTHS = (40, 64, 72, 80, 128, 160, 256)  # the kernel's instantiated head widths
 _MAX_PLANES = 65535  # batch × heads: the grid's y dimension
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 

@@ -1,5 +1,6 @@
-"""Model families: the latent-diffusion UNet (flagship) and the DiT
-transformer (dense or Switch-MoE) as ``nn.Module``s with the DiT's sharded
+"""Model families: the latent-diffusion UNet (flagship), the DiT
+transformer (dense or Switch-MoE) and FLUX.1's rectified-flow transformer
+as ``nn.Module``s with the DiT's sharded
 serving paths (pipeline, tensor and expert parallelism), the prediction
 wrappers, the training step, checkpoints and the FLOP counters."""
 
@@ -19,8 +20,15 @@ from .dit import (  # noqa: F401
 from .flops import (  # noqa: F401
     H100_PEAK_FLOPS,
     dit_forward_flops,
+    flux_forward_flops,
     mfu_pct,
     unet_forward_flops,
+)
+from .flux import (  # noqa: F401
+    Flux,
+    FluxConfig,
+    init_flux_params,
+    make_flux_denoiser,
 )
 from .prediction import (  # noqa: F401
     CONST,

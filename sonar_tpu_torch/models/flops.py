@@ -1,4 +1,4 @@
-"""Analytic forward FLOPs of the two model families (port of
+"""Analytic forward FLOPs of the model families (port of
 ``sonar_tpu.models.flops``; pure arithmetic, the port keeps its own copy).
 
 Counts matmul and convolution multiply-accumulates only (2 FLOPs per MAC).
@@ -6,9 +6,11 @@ Norms, activations, softmax and embeddings are under 1 % at these sizes and
 are left out, so the count is a slight under-estimate and the MFU derived
 from it a slight under-claim. Each counter walks the structure its module's
 forward runs (``models/unet.py`` :class:`UNet`, ``models/dit.py``
-:class:`DiT`); ``tests/test_torch_flops.py`` holds both equal to the JAX
-package's counts and against ``torch.utils.flop_counter.FlopCounterMode`` on
-the port's modules.
+:class:`DiT`, ``models/flux.py`` :class:`Flux`); ``tests/test_torch_flops.py``
+holds the first two equal to the JAX package's counts and against
+``torch.utils.flop_counter.FlopCounterMode`` on the port's modules. FLUX has
+no JAX counterpart: ``tests/test_torch_flux.py`` holds its count against
+``FlopCounterMode`` alone.
 
 MFU convention, as in the JAX package: float32 programs are reported against
 the card's dense bf16 peak, the fraction of the card one could be using.
@@ -116,6 +118,36 @@ def dit_forward_flops(cfg, shape) -> float:
 
     total += 2.0 * d * 2 * d                          # final adaLN
     total += 2.0 * n * d * pd                         # output head
+    return total * b
+
+
+def flux_forward_flops(cfg, shape, context_tokens: int) -> float:
+    """FLOPs of ONE FLUX forward (:class:`~sonar_tpu_torch.models.flux.Flux`)
+    on a (B, C, H, W) latent with ``context_tokens`` text tokens: 2×2
+    patches, every double and single block's attention over the joint
+    sequence of text and image tokens."""
+    b, _, h, w = shape
+    d, f = cfg.hidden_size, cfg.mlp_hidden
+    ni, nt = (h // 2) * (w // 2), context_tokens
+    n = ni + nt
+
+    total = 2.0 * ni * cfg.in_channels * d                  # img_in
+    total += 2.0 * nt * cfg.context_in_dim * d              # txt_in
+    total += 2.0 * (256 * d + d * d) * 2                    # time_in, guidance_in (per item)
+    total += 2.0 * (cfg.vec_in_dim * d + d * d)             # vector_in (per item)
+
+    core = 2.0 * 2 * n * n * d                              # q @ k^T, attn @ v
+    double = 2 * 2.0 * d * 6 * d                            # two modulations (per item)
+    double += 2.0 * n * d * (3 * d + d + 2 * f)             # qkv, proj, MLP of both streams
+    total += cfg.depth * (double + core)
+
+    single = 2.0 * d * 3 * d                                # modulation (per item)
+    single += 2.0 * n * d * (3 * d + f)                     # linear1
+    single += 2.0 * n * (d + f) * d                         # linear2
+    total += cfg.depth_single_blocks * (single + core)
+
+    total += 2.0 * d * 2 * d                                # final adaLN
+    total += 2.0 * ni * d * cfg.out_channels                # output head
     return total * b
 
 

@@ -36,7 +36,9 @@ The program's spans: ``sonar.step`` (a sampler step, its callback
 outside), ``sonar.model`` (one call of the network), ``sonar.guidance`` (a
 guided denoiser call, its model calls nested), ``sonar.noise`` (one noise
 draw) and ``sonar.attention`` (the attention core: logits, softmax, the
-value product).
+value product); FLUX (``models/flux.py``) adds ``sonar.rope`` (a block's
+q/k RMSNorm, RoPE and the packing of the attention core's buffer) and
+``sonar.flux.double`` and ``sonar.flux.single`` (one block of each kind).
 """
 
 from __future__ import annotations

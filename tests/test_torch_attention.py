@@ -34,7 +34,7 @@ from sonar_tpu_torch.models.dit import Block, DiTConfig, init_dit_params
 from sonar_tpu_torch.models.unet import UNetConfig, init_unet_params
 from sonar_tpu_torch.utils import profiling
 
-WIDTHS = (40, 64, 72, 80, 160)
+WIDTHS = (40, 64, 72, 80, 128, 160)
 
 
 def _unet_operators(q, k, v, dtype):
@@ -243,8 +243,8 @@ def test_dit_gradients_unchanged(monkeypatch):
 
 
 @pytest.mark.parametrize("d, width", [(8, 40), (32, 40), (40, 40), (41, 64), (64, 64),
-                                      (72, 72), (80, 80), (96, 160), (160, 160), (200, 256),
-                                      (256, 256)])
+                                      (72, 72), (80, 80), (96, 128), (128, 128), (129, 160),
+                                      (160, 160), (200, 256), (256, 256)])
 def test_kernel_width(d, width):
     assert A.kernel_width(d) == width
 

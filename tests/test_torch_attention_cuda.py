@@ -7,7 +7,8 @@ import nothing of JAX:
 
 Each instantiation is held against a float64 reference at the main path's
 shapes (SD v1's UNet: 16,384 × 8 heads × 40, 4,096 × 80, 1,024 × 160 and
-256 × 160 with TF32 off; DiT-XL/2: 8 × 1,024 × 16 heads × 72 with TF32 on),
+256 × 160 with TF32 off; DiT-XL/2: 8 × 1,024 × 16 heads × 72 with TF32 on;
+FLUX.1-dev: 4,608 × 24 heads × 128 with TF32 on, and off),
 at ragged token counts (257, 1,000), on a qkv that is not contiguous and
 on bf16 and fp16 qkv, at 512 sampled query rows. The error is the largest
 absolute difference over the reference's RMS, and the kernel's may be at
@@ -98,6 +99,12 @@ CASES = {
     "fp16 misaligned, 500 x 16 x 72, tf32": ("dit", 2, 500, 16, 72, True,
                                              {"dtype": torch.float16, "offset": 1}),
     "bf16 ragged, 257 x 2 x 160": ("unet", 1, 257, 2, 160, False, {"dtype": torch.bfloat16}),
+    "flux1-dev, 4608 x 24 x 128, tf32": ("unet", 1, 4608, 24, 128, True, {}),
+    "width 128, 4608 x 24 x 128": ("unet", 1, 4608, 24, 128, False, {}),
+    "ragged 1000 x 4 x 128, tf32": ("unet", 2, 1000, 4, 128, True, {}),
+    "misaligned, 500 x 4 x 128, tf32": ("unet", 1, 500, 4, 128, True, {"offset": 1}),
+    "padded width 96 -> 128": ("unet", 1, 300, 2, 96, False, {}),
+    "bf16, 1000 x 4 x 128, tf32": ("unet", 1, 1000, 4, 128, True, {"dtype": torch.bfloat16}),
 }
 
 
