@@ -289,8 +289,11 @@ Builds the hand-written CUDA kernels from ``sonar_tpu_torch/csrc`` (into
    collectives a step; prints ``{"sharded_all": ...}``;
 32. holds kernel B7 (the attention core, ``csrc/attention.cu``) against its
    plain version at the main path's shapes (SD v1's UNet levels 0–2 and
-   middle with TF32 off, DiT-XL/2's layer with TF32 on) and prints one line
-   a shape: the kernel's device time beside its bound, max(4·b·heads·n²·d
+   middle with TF32 off, DiT-XL/2's layer and FLUX.1-dev's joint attention
+   with TF32 on, FLUX.1-dev's also off) and prints one line a shape: the
+   tile the wrapper chose (``wgmma``, ``mma`` or ``ffma``, read from
+   ``fused_attention.wgmma_launches``), the kernel's device time beside its
+   bound, max(4·b·heads·n²·d
    operations at 67 TFLOP/s (FFMA) or 495 TFLOP/s (TF32), bytes at
    3.35 TB/s), the plain version's time and ``library_ms``, PyTorch's
    ``scaled_dot_product_attention`` on the same q, k, v (a yardstick the
@@ -5151,8 +5154,11 @@ def main():
             -1, (3, heads, d) if layout == "unet" else (heads, 3, d))
         which = 2 if layout == "unet" else 3
         q, k, v = (qkv.select(which, i).transpose(1, 2) for i in range(3))  # (b, heads, n, d)
+        w0 = AT.fused_attention.wgmma_launches
         out, plain = AT.fused_attention(qkv, layout), AT.attention_reference(qkv, layout)
         torch.cuda.synchronize()
+        tile = ("wgmma" if AT.fused_attention.wgmma_launches > w0
+                else "mma" if tf32 else "ffma")  # the tile the wrapper chose
         err = float((out - plain).abs().max())
         rms = float(plain.square().mean().sqrt())
         tol = ATT_TOL[tf32]
@@ -5173,12 +5179,12 @@ def main():
         flops = 4.0 * b * heads * n * n * d
         t_ops, t_bytes = flops / ATT_PEAK[tf32], 4.0 * 4 * b * n * heads * d / HBM_BYTES_S
         bound_ms = max(t_ops, t_bytes) * 1e3
-        att32[label] = {"shape": [b, n, heads, d], "tf32": tf32, "max_abs_err": err,
-                        "rms": rms, "ms": ms, "bound_ms": bound_ms,
+        att32[label] = {"shape": [b, n, heads, d], "tf32": tf32, "tile": tile,
+                        "max_abs_err": err, "rms": rms, "ms": ms, "bound_ms": bound_ms,
                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                         "tflop_s": flops / ms / 1e9, "plain_ms": plain_ms, "library_ms": lib_ms}
-        print(f"[32] {label} {b}x{n}x{heads}x{d} ({'TF32' if tf32 else 'FFMA'}): kernel "
-              f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.3f} ms "
+        print(f"[32] {label} {b}x{n}x{heads}x{d} ({'TF32' if tf32 else 'FFMA'}, tile {tile}): "
+              f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.3f} ms "
               f"({att32[label]['bound_by']}), {100 * bound_ms / ms:.1f} % of it; plain "
               f"{plain_ms:.3f} ms, library_ms (scaled_dot_product_attention) {lib_ms:.3f} ms; "
               f"max |kernel - plain| {err:.3e} (RMS {rms:.3e}) [{card}]")

@@ -16,12 +16,16 @@ products follow ``torch.backends.cuda.matmul.allow_tf32``, which the
 operators obey too: off, float32 FMAs; on, TF32 tensor-core products with
 float32 accumulation. The softmax is float32 either way. A bf16 or fp16
 ``qkv`` is widened to float32 before the launch and the output rounded to
-its type after it.
+its type after it. :func:`b7_tile` picks the kernel's tile from what the
+call shows: TF32 off, the FFMA tile; on, Hopper's warpgroup (``wgmma``)
+tile at the head widths 72 and 128 where the copies can go 16 bytes at a
+time (:func:`aligned`), the ``mma.sync`` tile otherwise.
 
 :func:`fused_attention` is the models' one entry point: the kernel on a
 CUDA tensor (under autograd through :class:`_Attention`, whose backward
 recomputes the operators' graph from ``qkv``), the plain version on any
-other; it counts kernel launches in ``launches``.
+other; it counts kernel launches in ``launches``, and those of the
+``wgmma`` tile in ``wgmma_launches``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import torch
 
 LAYOUTS = ("unet", "dit")
 WIDTHS = (40, 64, 72, 80, 128, 160, 256)  # the kernel's instantiated head widths
+WGMMA_WIDTHS = (72, 128)  # the widths the wgmma tile serves
+TILES = ("ffma", "mma", "wgmma")  # the kernel's tiles, by the number it takes
 _MAX_PLANES = 65535  # batch × heads: the grid's y dimension
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -52,6 +58,27 @@ def kernel_width(d: int) -> int:
         if d <= w:
             return w
     raise ValueError(f"attention: head width {d} is above the kernel's {WIDTHS[-1]}")
+
+
+def b7_tile(width: int, tf32: bool, aligned: bool) -> str:
+    """The tile kernel B7 runs a call on, from its instantiated head width,
+    the TF32 flag and whether its copies can go 16 bytes at a time:
+    ``"wgmma"`` (TF32, widths 72 and 128, aligned), ``"mma"`` (any other
+    TF32 call: 160 and 256, whose 64 × width accumulators would crowd a
+    warpgroup's registers, and every misaligned one) or ``"ffma"`` (TF32
+    off)."""
+    if not tf32:
+        return "ffma"
+    return "wgmma" if width in WGMMA_WIDTHS and aligned else "mma"
+
+
+def aligned(x: torch.Tensor, layout: str) -> bool:
+    """Whether B7 can copy float32 ``x`` 16 bytes at a time: its base, every
+    stride it reads and the head width multiples of 4 floats."""
+    head_axis, which_axis = _axes(layout)
+    strides = (x.stride(0), x.stride(1), x.stride(head_axis), x.stride(which_axis))
+    return (x.data_ptr() % 16 == 0 and x.shape[4] % 4 == 0
+            and all(s % 4 == 0 for s in strides))
 
 
 def attention_reference(qkv: torch.Tensor, layout: str) -> torch.Tensor:
@@ -101,15 +128,17 @@ def _launch(qkv: torch.Tensor, layout: str) -> torch.Tensor:
     lib = load_library()
     x = qkv.float()  # qkv itself where float32
     out = torch.empty((b, n, heads * d), dtype=torch.float32, device=qkv.device)
-    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    width = kernel_width(d)
+    tile = b7_tile(width, bool(torch.backends.cuda.matmul.allow_tf32), aligned(x, layout))
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sonar_attention(
             x.data_ptr(), x.stride(0), x.stride(1), x.stride(head_axis),
-            x.stride(which_axis), b, n, heads, d, kernel_width(d), out.data_ptr(),
-            out.stride(0), out.stride(1), d, 1.0 / math.sqrt(d), int(tf32), stream)
+            x.stride(which_axis), b, n, heads, d, width, out.data_ptr(),
+            out.stride(0), out.stride(1), d, 1.0 / math.sqrt(d), TILES.index(tile), stream)
     check(lib, err, "attention")
     fused_attention.launches += 1
+    fused_attention.wgmma_launches += tile == "wgmma"
     return out.to(qkv.dtype)
 
 
@@ -150,3 +179,4 @@ def fused_attention(qkv: torch.Tensor, layout: str) -> torch.Tensor:
 
 
 fused_attention.launches = 0
+fused_attention.wgmma_launches = 0

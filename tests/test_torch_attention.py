@@ -13,8 +13,10 @@ on the CPU.
 - UNet and DiT forwards on the CPU are bit-equal to the same forwards with
   the operator expressions inlined as they were, in float32 and bf16, and
   launch nothing.
-- What the wrapper refuses, the head width each ``d`` runs on, and the
-  build's per-source flags.
+- What the wrapper refuses, the head width each ``d`` runs on, the tile
+  each call runs on (the ``wgmma`` tile at widths 72 and 128 with TF32 on
+  and 16-byte copies, ``mma.sync`` for every other TF32 call, FFMA with
+  TF32 off) and the build's per-source flags.
 
 The kernel itself is held against float64 on the card
 (``tests/test_torch_attention_cuda.py``).
@@ -249,6 +251,38 @@ def test_kernel_width(d, width):
     assert A.kernel_width(d) == width
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("tf32", [True, False])
+@pytest.mark.parametrize("width", A.WIDTHS)
+def test_tile_rule(width, tf32, aligned):
+    """The wgmma tile takes the DiT's 72-wide and FLUX.1-dev's 128-wide
+    heads where TF32 is on and the copies can go 16 bytes at a time; every
+    other TF32 call keeps the mma.sync tile, every call with TF32 off the
+    FFMA tile."""
+    want = ("wgmma" if width in (72, 128) and aligned else "mma") if tf32 else "ffma"
+    assert A.b7_tile(width, tf32, aligned) == want
+
+
+@pytest.mark.parametrize("case, want", [
+    ("unet", True), ("dit", True), ("bf16 widened", True), ("offset 4", True),
+    ("offset 1", False), ("offset 2", False), ("width 37", False), ("width 38", False),
+])
+def test_aligned(case, want):
+    """16-byte copies: the base, the four strides the kernel reads and the
+    head width multiples of 4 floats (the kernel's own ``vec``)."""
+    layout, d, offset = "dit" if case == "dit" else "unet", 40, 0
+    if case.startswith("offset"):
+        offset = int(case.split()[1])
+    elif case.startswith("width"):
+        d = int(case.split()[1])
+    heads = 2
+    x = torch.randn((1, 9, 3 * heads * d + 8))[..., offset:offset + 3 * heads * d]
+    x = x.unflatten(-1, (3, heads, d) if layout == "unet" else (heads, 3, d))
+    if case == "bf16 widened":
+        x = x.to(torch.bfloat16).float()
+    assert A.aligned(x, layout) is want
+
+
 @pytest.mark.parametrize("case", ["width", "axis", "dtype", "int", "stride", "layout", "empty"])
 def test_wrapper_refuses(case):
     qkv = _qkv("unet", 1, 8, 2, 8)
@@ -285,7 +319,10 @@ def test_build_flags_per_source(monkeypatch):
 def test_kernel_source_calls_no_library():
     src = (pathlib.Path(_build.CSRC) / "attention.cu").read_text()
     code = "\n".join(line.split("//")[0] for line in src.splitlines())
-    for name in ("cublas", "cudnn", "scaled_dot_product", "wgmma"):
+    for name in ("cublas", "cudnn", "scaled_dot_product", "cutlass", "cute::"):
         assert name not in code.lower(), name
+    # the Hopper tile's products are its own wgmma instructions, under a name
+    # the benchmark's B7 metrics find (attention_tf32_kernel)
+    assert "wgmma.mma_async" in code and "attention_tf32_kernel_sm90" in code
     ffma = code[code.index("attention_ffma_kernel(Args a)"):code.index("struct Tf32")]
     assert "mma" not in ffma  # with TF32 off: FMAs only, no tensor-core instruction

@@ -9,8 +9,10 @@ Each instantiation is held against a float64 reference at the main path's
 shapes (SD v1's UNet: 16,384 × 8 heads × 40, 4,096 × 80, 1,024 × 160 and
 256 × 160 with TF32 off; DiT-XL/2: 8 × 1,024 × 16 heads × 72 with TF32 on;
 FLUX.1-dev: 4,608 × 24 heads × 128 with TF32 on, and off),
-at ragged token counts (257, 1,000), on a qkv that is not contiguous and
-on bf16 and fp16 qkv, at 512 sampled query rows. The error is the largest
+at ragged token counts (40, 200, 257, 333, 1,000), on a qkv that is not
+contiguous and on bf16 and fp16 qkv, at 512 sampled query rows; which tile
+each call took (``wgmma``, ``mma.sync`` or FFMA) is read from the
+wrapper's counters. The error is the largest
 absolute difference over the reference's RMS, and the kernel's may be at
 most twice that of the operator path (the plain version, run on the card
 under the same TF32 setting and in the same type): both round the
@@ -105,6 +107,15 @@ CASES = {
     "misaligned, 500 x 4 x 128, tf32": ("unet", 1, 500, 4, 128, True, {"offset": 1}),
     "padded width 96 -> 128": ("unet", 1, 300, 2, 96, False, {}),
     "bf16, 1000 x 4 x 128, tf32": ("unet", 1, 1000, 4, 128, True, {"dtype": torch.bfloat16}),
+    # the wgmma tile: token counts no multiple of its 128 query rows or 64
+    # keys (one partial key tile, one partial query block), several planes
+    "wgmma ragged 333, 3 x 333 x 5 x 128": ("dit", 3, 333, 5, 128, True, {}),
+    "wgmma ragged 200 x 2 x 72": ("dit", 1, 200, 2, 72, True, {}),
+    "wgmma ragged 40 x 2 x 72": ("dit", 1, 40, 2, 72, True, {}),
+    "wgmma planes, 4 x 1000 x 6 x 128": ("unet", 4, 1000, 6, 128, True, {}),
+    "wgmma bf16, 2 x 1024 x 16 x 72": ("dit", 2, 1024, 16, 72, True, {"dtype": torch.bfloat16}),
+    "wgmma padded width 100 -> 128": ("unet", 1, 300, 2, 100, True, {}),
+    "wgmma peaked logits, 1000 x 4 x 128": ("unet", 1, 1000, 4, 128, True, {"scale": 3.0}),
 }
 
 
@@ -126,6 +137,40 @@ def test_kernel_against_float64(cuda, case):
     ops = A.attention_reference(qkv, layout)
     err, err_ops = _error(out[:, rows], ref), _error(ops[:, rows], ref)
     assert err <= 2 * err_ops, (err, err_ops)
+
+
+# the tile each case runs on (``kernels/attention.py b7_tile``), read from
+# ``fused_attention.wgmma_launches``
+TILE_OF = {
+    "dit-xl2, 8 x 1024 x 16 x 72": "wgmma",
+    "flux1-dev, 4608 x 24 x 128, tf32": "wgmma",
+    "ragged 1000 x 16 x 72, tf32": "wgmma",
+    "not contiguous, 500 x 16 x 72, tf32": "wgmma",  # rows 8 floats in: 16-byte copies
+    "bf16, 1000 x 4 x 128, tf32": "wgmma",  # widened: a fresh float32 copy
+    "wgmma ragged 200 x 2 x 72": "wgmma",
+    "wgmma padded width 100 -> 128": "wgmma",
+    "misaligned, 500 x 16 x 72, tf32": "mma",
+    "misaligned, 500 x 4 x 128, tf32": "mma",
+    "width 160, tf32": "mma",
+    "padded width 200 -> 256, tf32": "mma",
+    "width 80, tf32": "mma",
+    "bf16, 2 x 1024 x 6 x 64, tf32": "mma",
+    "width 128, 4608 x 24 x 128": "ffma",
+    "sd1 level 0, 16384 x 8 x 40": "ffma",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILE_OF))
+def test_tile_each_case_takes(cuda, case):
+    layout, b, n, heads, d, tf32, kw = CASES[case]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    qkv = _qkv(layout, b, n, heads, d, **kw)
+    launches, wgmma = A.fused_attention.launches, A.fused_attention.wgmma_launches
+    A.fused_attention(qkv, layout)
+    torch.cuda.synchronize()
+    assert A.fused_attention.launches == launches + 1
+    assert A.fused_attention.wgmma_launches == wgmma + (TILE_OF[case] == "wgmma")
 
 
 @pytest.mark.cuda

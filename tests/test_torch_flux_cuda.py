@@ -6,8 +6,9 @@ import nothing of JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_flux_cuda.py -q
 
-A forward launches kernel B7 once per block, at its 128-wide instance, inside
-one ``sonar.attention`` span, with one ``sonar.rope`` span a block; its
+A forward launches kernel B7 once per block, at its 128-wide instance (with
+TF32 on, its wgmma tile), inside one ``sonar.attention`` span, with one
+``sonar.rope`` span a block; its
 output equals the same forward with the operators in B7's place (TF32 off)
 within 1e-4 of the output's largest magnitude.
 """
@@ -63,6 +64,22 @@ def test_launches_and_spans_per_forward(cuda):
     assert spans["sonar.flux.single"]["count"] == CFG.depth_single_blocks
     assert torch.isfinite(out).all()
     profiling.reset_spans()
+
+
+@pytest.mark.cuda
+def test_tf32_forward_takes_the_wgmma_tile(cuda):
+    """With matmul TF32 on, as FLUX.1-dev's cell runs, every block's launch
+    takes B7's wgmma tile: the joint qkv and a single block's view into its
+    input projection are both 16-byte aligned."""
+    net, x, t, kw = _net(cuda)
+    blocks = CFG.depth + CFG.depth_single_blocks
+    torch.backends.cuda.matmul.allow_tf32 = True
+    with torch.no_grad():
+        launches, wgmma = A.fused_attention.launches, A.fused_attention.wgmma_launches
+        out = net(x, t, **kw)
+    assert A.fused_attention.launches - launches == blocks
+    assert A.fused_attention.wgmma_launches - wgmma == blocks
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.cuda
